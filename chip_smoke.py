@@ -20,7 +20,27 @@ NVIDIA card (written for an H100). Run from the repository root:
    set to 0 just before and read just after, and must be above 0; the
    final carry must equal the plain version's from step 2 and `check()`
    must pass. Prints rollback-frames/s and ms per batch (CUDA events).
-4. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
+4. Holds K3, ResimCore's packed control-word tick, against its plain
+   version on the card after every dispatch (his/los and the whole core,
+   tolerance zero), 1-row and 8-row dispatches of seeded session-shaped
+   streams with rollbacks and DISCONNECTED slots, device verification on:
+   ExGame(2, 4096) at max_prediction 9, ExGame(4, 4096) at 12 and
+   ExGame(2, 1048576) at 9. Then a divergence probe per shape through the
+   request path: corrupt the ring slot the next rollback loads, and the
+   kernel and the plain version must latch the same mismatch frame.
+5. Drives the request path, `SessionBuilder().start_synctest_session()`
+   -> `DeviceRollbackBackend(device="cuda")` (check distance 8, device
+   verification), eager and with lazy_ticks=8, at 4096 and 1M entities: K3's
+   launch count is set to 0 just before each run and must be above 0 just
+   after; the final core must equal the plain version's on the same inputs
+   and `check()` must pass. Prints ms per tick p50/p90 (CUDA events around
+   `handle_requests`, and host wall time), the session's host time per
+   tick, K3's ms per dispatch (device time, launches queued behind a spin
+   kernel) and rollback-frames/s (the frames the run's rollbacks
+   resimulated, over its wall time). Then the same path with the verdict on
+   the host: every save's checksum, resolved through the lazy-checksum
+   ledger, must equal the plain version's.
+6. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
    as the last line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the result lines. Without a CUDA device,
@@ -60,6 +80,19 @@ TIMED_BATCHES = {"k1_4096": 20, "k1_65536": 5, "k2_1m": 3}
 MAIN_PATH_BATCHES = {"k1_4096": 100, "k1_65536": 100, "k2_1m": 20}
 DEVICE = "cuda"
 
+# the request path (K3): key, players, entities, max_prediction
+TICK_SHAPES = [
+    ("r2_4096", 2, 4096, 9),  # BASELINE.json configs[1]
+    ("r4_4096", 4, 4096, 12),  # configs[3]'s widths: 4-player P2P-shaped rows
+    ("r2_1m", 2, 1 << 20, 9),
+]
+TICK_STREAM_EXTRA_ROWS = 16  # random rows past the spin-up
+CHECK_DISTANCE = 8
+LAZY_TICKS = 8
+# per-tick samples: p90 keeps at least ten samples beyond it
+REQUEST_PATH_TICKS = {"r2_4096": 200, "r2_1m": 104}
+TIMED_DISPATCHES = {"r2_4096": 200, "r2_1m": 40}
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
@@ -77,6 +110,21 @@ def card_line() -> str:
 def events_ms(torch, fn, reps: int) -> float:
     """Mean device ms of `fn` over `reps` back-to-back calls."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(torch, fn, reps: int) -> float:
+    """Mean device ms of `fn` over `reps` launches queued behind a spin
+    kernel: the host enqueues every launch while the card is still busy, so
+    the launches run back to back with no host gap between them (a dispatch
+    shorter than its Python wrapper would otherwise time the wrapper)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(reps * 1_000_000)  # ~0.5 ms of spinning per launch to enqueue
     start.record()
     for _ in range(reps):
         fn()
@@ -110,6 +158,335 @@ def carry_err(torch, a, b, keys) -> int:
     return max(int((a[k].to(torch.int64) - b[k].to(torch.int64)).abs().max()) for k in keys)
 
 
+def tick_bound(rows, n, core):
+    """Least ms of one K3 dispatch of these rows, vs 69 int32 ops per
+    entity-advance and 15 per entity-save (over the int32 peak). Bytes
+    (over the HBM rate) count only what the dispatch must move, one 20 B
+    entity column each: a ring slot loaded before any row of the launch
+    saved it, the state read only when a row uses it before any load, each
+    distinct slot saved (its final value), and the state written; plus the
+    rows read and his/los written. The ring's frame tags and the verify
+    history (under a hundred words) are left out."""
+    W, ring_len = core.window, core.ring_len
+    saved, read, state_read, have_state = set(), set(), False, False
+    for row in rows:
+        slots = {int(s) for s in row[core.off_save : core.off_status] if s < ring_len}
+        if row[0]:
+            if int(row[1]) not in saved:
+                read.add(int(row[1]))
+            have_state = True
+        elif (row[2] or slots) and not have_state:
+            state_read = have_state = True
+        saved |= slots
+    saves = int((rows[:, core.off_save : core.off_status] < ring_len).sum())
+    advances = int(rows[:, 2].sum()) * core.game.substeps
+    columns = len(read) + state_read + len(saved) + 1
+    nbytes = 4 * 5 * n * columns + rows.nbytes + 2 * 4 * rows.shape[0] * W
+    ops = n * (advances * OPS_PER_SUBSTEP + saves * OPS_PER_SAVE)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def random_tick_args(players: int, max_prediction: int, n_rows: int, seed: int, mod: int = 16):
+    """`n_rows` seeded, session-shaped tick rows as `ResimCore.pack_tick_row`
+    arguments (do_load, load_slot, inputs, statuses, save_slots,
+    advance_count, start_frame). The shape is what sessions emit: a spin-up
+    of one-advance rows so the deepest rollbacks are reachable, then one
+    rollback of max_prediction - 1 frames and rows with random rollback
+    depths up to max_prediction - 1; dense saves with 10% of them skipped, a
+    trailing save 30% of the time, and 15% of the slots with one
+    DISCONNECTED player. The tests drive ResimCore with it too."""
+    import numpy as np
+
+    from ggrs_tpu_torch.types import InputStatus
+
+    W = ring_len = max_prediction + 2
+    r = np.random.default_rng(seed)
+    frame, out = 0, []
+    for k in range(n_rows):
+        if k < max_prediction + 2:
+            depth = 0
+        elif k == max_prediction + 2:
+            depth = max_prediction - 1
+        else:
+            depth = int(r.integers(0, max_prediction))
+        do_load = depth > 0 and frame > depth
+        count = depth + 1 if do_load else 1
+        start = frame - depth if do_load else frame
+        inputs = np.zeros((W, players, 1), np.uint8)
+        statuses = np.zeros((W, players), np.int32)
+        for i in range(count):
+            inputs[i] = r.integers(0, mod, (players, 1))
+            if r.random() < 0.15:
+                statuses[i, r.integers(0, players)] = int(InputStatus.DISCONNECTED)
+        slots = np.full((W,), ring_len, np.int32)
+        for i in range(count):
+            if r.random() >= 0.1:
+                slots[i] = (start + i) % ring_len
+        if count < W and r.random() < 0.3:
+            slots[count] = (start + count) % ring_len
+        out.append((do_load, (start % ring_len) if do_load else 0, inputs, statuses, slots, count, start))
+        frame = start + count
+    return out
+
+
+def random_tick_rows(core, n_rows: int, seed: int):
+    """The same stream packed into int32 [n_rows, L] rows for `core`."""
+    import numpy as np
+
+    args = random_tick_args(core.num_players, core.max_prediction, n_rows, seed)
+    return np.stack([core.pack_tick_row(*a[:6], start_frame=a[6]) for a in args])
+
+
+class PlainTick:
+    """Stands in for a ResimCore's K3 wrapper: runs the plain version on
+    the same (CUDA) carry, and keeps the rows of every dispatch, by row
+    count, so the kernel can be timed on exactly the main path's rows."""
+
+    def __init__(self, core):
+        self.core = core
+        self.rows = {}
+
+    def tick_multi(self, carry, rows):
+        from ggrs_tpu_torch.device.tick_core import plain_tick_multi
+
+        self.rows.setdefault(rows.shape[0], []).append(rows)
+        return plain_tick_multi(carry, rows, self.core)
+
+
+def request_stack(n, players, mp, lazy, dev, plain, host_lag=None):
+    """A port SyncTest session and the backend that fulfils it, with the
+    verdict on the device — or, with `host_lag` set, checked on the host
+    through the lazy checksums, `host_lag` ticks late (0: every tick).
+    `plain` swaps the backend's K3 wrapper for the plain version."""
+    from ggrs_tpu_torch import DeviceRollbackBackend, ExGame, SessionBuilder
+
+    device_verify = host_lag is None
+    sess = (
+        SessionBuilder(input_size=1)
+        .with_num_players(players)
+        .with_max_prediction_window(mp)
+        .with_check_distance(CHECK_DISTANCE)
+        .with_device_checksum_verification(device_verify)
+        .with_deferred_checksum_verification(host_lag or 0)
+        .start_synctest_session()
+    )
+    backend = DeviceRollbackBackend(ExGame(players, n), mp, players,
+                                    device_verify=device_verify, lazy_ticks=lazy, device=dev)
+    if plain:
+        backend.core.tick_core = PlainTick(backend.core)
+    return sess, backend
+
+
+def add_inputs(sess, row) -> None:
+    for h, b in enumerate(row):
+        sess.add_local_input(h, bytes([int(b)]))
+
+
+def tick_phase(torch, np, dev, tag):
+    """K3 against its plain version after every dispatch, then a divergence
+    probe per shape through the request path. Returns {key: max abs err}."""
+    from ggrs_tpu_torch import ExGame, MismatchedChecksum, ResimCore
+    from ggrs_tpu_torch.device.resim import RESIM_KEYS
+    from ggrs_tpu_torch.device.tick_core import plain_tick_multi
+
+    errs = {}
+    for key, players, n, mp in TICK_SHAPES:
+        err = 0
+        for per_dispatch in (1, 8):
+            core = ResimCore(ExGame(players, n), mp, players, device_verify=True, device=dev)
+            plain = {k: v.clone() for k, v in core.carry.items()}
+            rows = random_tick_rows(core, mp + 2 + TICK_STREAM_EXTRA_ROWS, seed=players * 100 + mp)
+            for b in range(0, len(rows), per_dispatch):
+                batch = rows[b : b + per_dispatch]
+                his, los = core.tick_multi(batch)
+                p_his, p_los = plain_tick_multi(plain, core.upload(batch), core)
+                torch.cuda.synchronize()
+                err = max(err, carry_err(torch, {"h": his, "l": los}, {"h": p_his, "l": p_los}, "hl"),
+                          carry_err(torch, core.carry, plain, RESIM_KEYS))
+                if err:
+                    fail(f"{key}: K3 and plain version differ at rows {b}.. of {per_dispatch}-row dispatches "
+                         f"(max abs err {err})")
+            print(f"{key}: resim_tick == plain after each of {-(-len(rows) // per_dispatch)} "
+                  f"{per_dispatch}-row dispatch(es) ({players} players, {n} entities, "
+                  f"max_prediction {mp}, device verify, 15% disconnect slots) {tag}")
+            del core, plain
+        errs[key] = err
+
+        # divergence probe: corrupt the heading plane of the slot the next
+        # rollback loads, on the kernel's core and the plain version's alike
+        stacks = [request_stack(n, players, mp, 0, dev, plain) for plain in (False, True)]
+        script = np.random.default_rng(7).integers(0, 16, size=(16, players))
+        for sess, backend in stacks:
+            for row in script[:12]:
+                add_inputs(sess, row)
+                backend.handle_requests(sess.advance_frame())
+        frame = stacks[0][1].current_frame
+        latched = []
+        for sess, backend in stacks:
+            backend.core.carry["ring"][(frame - CHECK_DISTANCE) % backend.core.ring_len, 4, 0] += 7
+            add_inputs(sess, script[12])
+            backend.handle_requests(sess.advance_frame())
+            try:
+                backend.check()
+                latched.append(None)
+            except MismatchedChecksum as exc:
+                latched.append(exc.frame)
+        want = frame - CHECK_DISTANCE + 1
+        if latched != [want, want]:
+            fail(f"{key}: divergence probe latched {latched} (kernel, plain), expected frame {want} on both")
+        if carry_err(torch, stacks[0][1].core.carry, stacks[1][1].core.carry, RESIM_KEYS):
+            fail(f"{key}: K3 and plain version differ after the divergence probe")
+        print(f"{key}: divergence probe: K3 and plain both latched mismatch at frame {want}")
+        del stacks
+    return errs
+
+
+def request_path_phase(torch, np, dev, tag, errs):
+    """The main path of this slice, eager and lazy, at r2_4096 and r2_1m.
+    Returns (per-run summaries, K3 entries for the kernels line)."""
+    from ggrs_tpu_torch import AdvanceFrame, LoadGameState
+    from ggrs_tpu_torch.device.resim import RESIM_KEYS
+    from ggrs_tpu_torch.device.tick_core import plain_tick_multi
+
+    runs, entries = [], []
+    for key, players, n, mp in TICK_SHAPES:
+        if key not in REQUEST_PATH_TICKS:
+            continue
+        ticks = REQUEST_PATH_TICKS[key]
+        script = np.random.default_rng(n + 1).integers(0, 16, size=(ticks, players))
+        for lazy in (0, LAZY_TICKS):
+            sess, backend = request_stack(n, players, mp, lazy, dev, plain=False)
+            psess, pbackend = request_stack(n, players, mp, lazy, dev, plain=True)
+            tc = backend.core.tick_core
+            marks, wall_ms, sess_ms, issued = [], [], [], []
+            torch.cuda.synchronize()
+            tc.launches = 0
+            t_run = time.perf_counter()
+            for row in script:
+                t0 = time.perf_counter()
+                add_inputs(sess, row)
+                reqs = sess.advance_frame()
+                t1 = time.perf_counter()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                backend.handle_requests(reqs)
+                end.record()
+                t2 = time.perf_counter()
+                marks.append((start, end))
+                issued.append(reqs)
+                sess_ms.append((t1 - t0) * 1e3)
+                wall_ms.append((t2 - t1) * 1e3)
+            backend.block_until_ready()
+            run_s = time.perf_counter() - t_run
+            launches = tc.launches
+            if launches < 1:
+                fail(f"{key} lazy={lazy}: the request path launched no K3 kernel")
+            # frames resimulated: every advance of a tick that loads, less
+            # its new frame (the spin-up ticks before the first rollback
+            # resimulate nothing)
+            resimulated = sum(
+                sum(isinstance(r, AdvanceFrame) for r in reqs) - 1
+                for reqs in issued if any(isinstance(r, LoadGameState) for r in reqs)
+            )
+            event_ms = sorted(s.elapsed_time(e) for s, e in marks)
+            for row in script:
+                add_inputs(psess, row)
+                pbackend.handle_requests(psess.advance_frame())
+            pbackend.block_until_ready()
+            if carry_err(torch, backend.core.carry, pbackend.core.carry, RESIM_KEYS):
+                fail(f"{key} lazy={lazy}: the request path's core differs from the plain version's")
+            backend.check()
+            pbackend.check()
+            state = backend.state_numpy()
+            if state["pos"].shape != (n, 2) or int(state["frame"]) != ticks:
+                fail(f"{key} lazy={lazy}: state has the wrong shape or frame")
+
+            # K3 alone on exactly the rows this run dispatched (its middle
+            # dispatch), back to back on a copy of the core
+            t_rows = 1 if lazy == 0 else LAZY_TICKS
+            recorded = pbackend.core.tick_core.rows[t_rows]
+            rows = recorded[len(recorded) // 2]
+            core = backend.core
+            timed = {k: v.clone() for k, v in core.carry.items()}
+            ptimed = {k: v.clone() for k, v in core.carry.items()}
+            ms = queued_ms(torch, lambda: tc.tick_multi(timed, rows), TIMED_DISPATCHES[key])
+            b2b_ms = events_ms(torch, lambda: tc.tick_multi(timed, rows), TIMED_DISPATCHES[key])
+            plain_ms = events_ms(torch, lambda: plain_tick_multi(ptimed, rows, core), 1)
+            b_ms, b_by = tick_bound(rows.cpu().numpy(), n, core)
+            del timed, ptimed
+
+            def pct(v, q):
+                return v[min(len(v) - 1, (len(v) * q) // 100)]
+
+            wall_sorted, sess_sorted = sorted(wall_ms), sorted(sess_ms)
+            mode = "eager" if lazy == 0 else f"lazy_ticks={lazy}"
+            run = {
+                "key": key, "mode": mode, "ticks": ticks, "launches": launches,
+                "event_ms_per_tick_p50": pct(event_ms, 50), "event_ms_per_tick_p90": pct(event_ms, 90),
+                "host_ms_per_tick_p50": pct(wall_sorted, 50), "host_ms_per_tick_p90": pct(wall_sorted, 90),
+                "session_ms_per_tick_p50": pct(sess_sorted, 50),
+                "run_ms_per_tick": run_s * 1e3 / ticks,
+                "frames_resimulated": resimulated,
+                "rollback_frames_per_s": resimulated / run_s,
+                "kernel_ms_per_dispatch": ms, "kernel_ms_back_to_back": b2b_ms,
+                "rows_per_dispatch": t_rows,
+                # derived, not a trace: K3 device time over the run's wall time
+                "device_busy_share": launches * ms / (run_s * 1e3),
+            }
+            runs.append(run)
+            print(f"request path {key} {mode}: {launches} K3 launches over {ticks} ticks; per tick "
+                  f"event p50 {run['event_ms_per_tick_p50']:.4f} ms (p90 {run['event_ms_per_tick_p90']:.4f}), "
+                  f"handle_requests host p50 {run['host_ms_per_tick_p50']:.4f} ms "
+                  f"(p90 {run['host_ms_per_tick_p90']:.4f}), session host p50 "
+                  f"{run['session_ms_per_tick_p50']:.4f} ms, whole run {run['run_ms_per_tick']:.4f} ms/tick, "
+                  f"{run['rollback_frames_per_s']:.1f} rollback-frames/s ({resimulated} frames "
+                  f"resimulated); K3 {ms:.4f} ms per "
+                  f"{t_rows}-row dispatch on the card ({b2b_ms:.4f} ms launched back to back from "
+                  f"Python) vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); K3 busy "
+                  f"{run['device_busy_share']:.3f} of the run {tag}")
+            entries.append({
+                "name": "resim_tick", "route": "cuda",
+                "source": "ggrs_tpu_torch/csrc/resim_tick.cu",
+                "replaces": "ggrs_tpu/tpu/pallas_resim.py:324",
+                "tpu_counterpart": "PallasTickCore._build + _scalar_pass",
+                "shape": f"{n} entities, P={players}, max_prediction {mp}, T={t_rows} SyncTest rows (d={CHECK_DISTANCE})",
+                "max_abs_err": errs[key], "bit_equal": errs[key] == 0,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "launches": launches, "ms_back_to_back": b2b_ms,
+            })
+            del sess, backend, psess, pbackend
+    host_verification_check(np, dev, tag)
+    return runs, entries
+
+
+def host_verification_check(np, dev, tag):
+    """The request path with the verdict on the HOST (r2_4096, eager and
+    lazy): every save's checksum, captured at save time, resolves through
+    the checksum ledger (one copy per drain, pinned prefetches between
+    drains) and equals the plain version's; no mismatch is raised."""
+    from ggrs_tpu_torch import SaveGameState
+
+    key, players, n, mp = TICK_SHAPES[0]
+    script = np.random.default_rng(3).integers(0, 16, size=(48, players))
+    for lazy, lag in ((0, 0), (LAZY_TICKS, 4)):
+        saves = []
+        for plain in (False, True):
+            sess, backend = request_stack(n, players, mp, lazy, dev, plain, host_lag=lag)
+            got = []
+            for row in script:
+                add_inputs(sess, row)
+                reqs = sess.advance_frame()
+                backend.handle_requests(reqs)
+                got += [(r.frame, r.cell.checksum_getter()) for r in reqs if isinstance(r, SaveGameState)]
+            sess.flush_checksum_checks()
+            saves.append([(f, g()) for f, g in got])
+        if saves[0] != saves[1] or len(saves[0]) < len(script):
+            fail(f"{key} lazy={lazy}: host-verified checksums differ between K3 and the plain version")
+        print(f"{key} host verification (lazy={lazy}, deferred lag {lag}): {len(saves[0])} save "
+              f"checksums resolved through the ledger, K3 == plain, no mismatch {tag}")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -131,7 +508,7 @@ def main() -> None:
     print(card)
     tag = f"[{card}]"
     dev = torch.device(DEVICE)
-    kinds = ("synctest_fused", "synctest_tiled")
+    kinds = ("synctest_fused", "synctest_tiled", "resim_tick")
     t0 = time.perf_counter()
     build.build(kinds)
     print(f"kernel build: {time.perf_counter() - t0:.3f} s for {', '.join(k + '.cu' for k in kinds)} (parallel nvcc)")
@@ -284,9 +661,14 @@ def main() -> None:
                           "rollback_frames_per_s_p50": rate, "batches": total})
         del sess
 
+    # -- phases 4 and 5: K3 against its plain version, then the request path
+    tick_errs = tick_phase(torch, np, dev, tag)
+    request_path, tick_entries = request_path_phase(torch, np, dev, tag, tick_errs)
+
     for e in entries:
         e.pop("key")
-    print(json.dumps({"card": card, "main_path": main_path}))
+    entries += tick_entries
+    print(json.dumps({"card": card, "main_path": main_path, "request_path": request_path}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -2,23 +2,52 @@
 
 Slice 1 holds the fused SyncTest loop for the ex_game family: the
 `DeviceSyncTestSession` with its hand-written CUDA kernels (K1 whole-batch,
-K2 entity-tiled) and their plain PyTorch versions. The package imports
-torch and numpy, never jax and nothing of `ggrs_tpu`; its entry points run
-on CUDA unless the caller passes device="cpu".
+K2 entity-tiled) and their plain PyTorch versions. Slice 2 holds the
+request path: a host `SyncTestSession` (built by `SessionBuilder`) emits
+Save/Load/Advance requests, and `DeviceRollbackBackend` fulfils each tick
+as one dispatch of `ResimCore`'s packed control-word tick (K3). The
+package imports torch and numpy, never jax and nothing of `ggrs_tpu`; its
+entry points run on CUDA unless the caller passes device="cpu".
 """
 
+from .device.backend import DeviceRollbackBackend, SnapshotRef
+from .device.resim import ResimCore
 from .device.sync_test import DeviceSyncTestSession
-from .errors import ConfigError, GGRSError, KernelError, MismatchedChecksum, RegistryMiss
+from .errors import (
+    ConfigError,
+    ContractViolation,
+    GGRSError,
+    InvalidRequest,
+    KernelError,
+    MismatchedChecksum,
+    PredictionThreshold,
+    RegistryMiss,
+    TypeContractError,
+)
 from .models.ex_game import ExGame
-from .types import InputStatus
+from .sessions.builder import SessionBuilder
+from .sessions.sync_test_session import SyncTestSession
+from .types import AdvanceFrame, InputStatus, LoadGameState, SaveGameState
 
 __all__ = [
+    "AdvanceFrame",
     "ConfigError",
+    "ContractViolation",
+    "DeviceRollbackBackend",
     "DeviceSyncTestSession",
     "ExGame",
     "GGRSError",
     "InputStatus",
+    "InvalidRequest",
     "KernelError",
+    "LoadGameState",
     "MismatchedChecksum",
+    "PredictionThreshold",
     "RegistryMiss",
+    "ResimCore",
+    "SaveGameState",
+    "SessionBuilder",
+    "SnapshotRef",
+    "SyncTestSession",
+    "TypeContractError",
 ]

@@ -1,4 +1,5 @@
-"""The SyncTest carry, carried across between the reference and the port.
+"""The device carries, carried across between the reference and the port:
+the fused SyncTest's carry and the request path's `ResimCore` carry.
 
 The reference (`ggrs_tpu.tpu.sync_test.TpuSyncTestSession`) keeps its carry
 as a pytree; as numpy (`jax.device_get`) it is
@@ -55,30 +56,42 @@ def carry_from_reference(np_carry, device) -> Dict[str, torch.Tensor]:
         "r_frame": t(np_carry["ring"]["frame"]),
         "iring": t(np_carry["input_ring"]),
         "h_tag": t(np_carry["h_tag"]),
-        "h_hi": t(np.asarray(np_carry["h_hi"], dtype=np.uint32).view(np.int32)),
-        "h_lo": t(np.asarray(np_carry["h_lo"], dtype=np.uint32).view(np.int32)),
+        "h_hi": _u32_bits(np_carry["h_hi"]),
+        "h_lo": _u32_bits(np_carry["h_lo"]),
         "meta": t([frame, int(bool(np_carry["mismatch"])), int(np_carry["mismatch_frame"])]),
     }
     return {k: v.to(device) for k, v in carry.items()}
+
+
+def planes_to_reference(planes: torch.Tensor, frame_leaf) -> dict:
+    """Packed planes (on any device) -> reference-layout numpy leaves, with
+    `frame_leaf` as the `frame` leaf."""
+    leaves = rebuild_from_planes(ExGamePlanes, planes.detach().cpu())
+    out = {k: v.numpy().astype(np.int32) for k, v in leaves.items()}
+    out["frame"] = frame_leaf
+    return out
+
+
+def _u32_bits(a) -> torch.Tensor:
+    """uint32 leaf -> int32 tensor of the same bit pattern."""
+    return torch.from_numpy(np.asarray(a, dtype=np.uint32).view(np.int32).copy())
+
+
+def _u32_value(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().view(np.uint32).copy()
 
 
 def carry_to_reference(carry) -> dict:
     """Port carry -> the reference's carry as numpy, dtypes included."""
     c = {k: carry[k].detach().cpu() for k in CARRY_KEYS}
     frame = np.int32(int(c["meta"][0]))
-
-    def tree(planes, frame_leaf):
-        out = {k: v.numpy().astype(np.int32) for k, v in rebuild_from_planes(ExGamePlanes, planes).items()}
-        out["frame"] = frame_leaf
-        return out
-
     return {
-        "state": tree(c["state"], frame),
-        "ring": tree(c["ring"], c["r_frame"].numpy().astype(np.int32)),
+        "state": planes_to_reference(c["state"], frame),
+        "ring": planes_to_reference(c["ring"], c["r_frame"].numpy().astype(np.int32)),
         "input_ring": c["iring"].numpy().astype(np.uint8),
         "h_tag": c["h_tag"].numpy().astype(np.int32),
-        "h_hi": c["h_hi"].numpy().view(np.uint32).copy(),
-        "h_lo": c["h_lo"].numpy().view(np.uint32).copy(),
+        "h_hi": _u32_value(c["h_hi"]),
+        "h_lo": _u32_value(c["h_lo"]),
         "mismatch": np.bool_(bool(c["meta"][1])),
         "mismatch_frame": np.int32(int(c["meta"][2])),
         "frame": frame,
@@ -87,3 +100,62 @@ def carry_to_reference(carry) -> dict:
 
 def copy_carry(carry) -> Dict[str, torch.Tensor]:
     return {k: carry[k].clone() for k in CARRY_KEYS}
+
+
+# ---------------------------------------------------------------------------
+# The request path's ResimCore carry. The reference core keeps three
+# pytrees; as numpy they are
+#
+#     ring:   {frame i32[R+1], pos i32[R+1,N,2], vel i32[R+1,N,2], rot i32[R+1,N]}
+#     state:  {frame i32[], pos i32[N,2], vel i32[N,2], rot i32[N]}
+#     verify: {} or {h_tag i32[R], h_hi u32[R], h_lo u32[R], flag i32[2]}
+#
+# with R = ring_len = max_prediction + 2 (slot R is the scratch slot). The
+# port keeps state [5,N], state_frame [], ring [R+1,5,N], r_frame [R+1] and
+# the verify leaves flat in one carry dict (device/resim.py).
+# ---------------------------------------------------------------------------
+
+
+def resim_from_reference(ring, state, verify, device="cpu") -> Dict[str, torch.Tensor]:
+    """The reference core's numpy leaves -> a port ResimCore carry on
+    `device` (uint32 history as int32 bit patterns)."""
+
+    def planes(tree):
+        return pack_planes(
+            ExGamePlanes, {k: torch.from_numpy(np.array(v, dtype=np.int32)) for k, v in tree.items() if k != "frame"}
+        )
+
+    carry = {
+        "state": planes(state),
+        "state_frame": torch.tensor(int(state["frame"]), dtype=torch.int32),
+        "ring": planes(ring),
+        "r_frame": torch.from_numpy(np.array(ring["frame"], dtype=np.int32)),
+    }
+    if verify:
+        carry.update(
+            h_tag=torch.from_numpy(np.array(verify["h_tag"], dtype=np.int32)),
+            h_hi=_u32_bits(verify["h_hi"]),
+            h_lo=_u32_bits(verify["h_lo"]),
+            flag=torch.from_numpy(np.array(verify["flag"], dtype=np.int32)),
+        )
+    return {k: v.to(device) for k, v in carry.items()}
+
+
+def resim_to_reference(core) -> dict:
+    """A port ResimCore's carry -> the reference core's {"ring", "state",
+    "verify"} as numpy, with the reference's dtypes."""
+    c = core.carry
+    out = {
+        "state": planes_to_reference(c["state"], np.int32(int(c["state_frame"]))),
+        "ring": planes_to_reference(c["ring"], c["r_frame"].cpu().numpy().astype(np.int32)),
+        "verify": {},
+    }
+    if "flag" in c:
+        out["verify"] = {
+            "h_tag": c["h_tag"].cpu().numpy().astype(np.int32),
+            "h_hi": _u32_value(c["h_hi"]),
+            "h_lo": _u32_value(c["h_lo"]),
+            "flag": c["flag"].cpu().numpy().astype(np.int32),
+        }
+    return out
+

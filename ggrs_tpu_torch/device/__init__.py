@@ -1,1 +1,3 @@
-"""The fused SyncTest session, its kernels' wrappers and the plane scaffold."""
+"""The device side of the port: the fused SyncTest session, the request
+path's rollback backend and ResimCore, the kernels' wrappers with their
+plain versions, and the plane scaffold."""

@@ -51,10 +51,13 @@ class ExGamePlanes:
             f"plane order {keys_in_order} must follow checksum_keys {game.checksum_keys}"
         )
 
-    def step(self, planes: torch.Tensor, player_inputs: torch.Tensor, owner: torch.Tensor) -> torch.Tensor:
-        """One frame on `[5, N]` planes, all players CONFIRMED (the fused
-        SyncTest's only case). `player_inputs`: int32 [P, input_size]."""
-        inp = ex_game.entity_inputs(player_inputs, None, owner)
+    def step(self, planes: torch.Tensor, player_inputs: torch.Tensor, owner: torch.Tensor,
+             statuses=None) -> torch.Tensor:
+        """One frame on `[5, N]` planes. `player_inputs`: int32 [P,
+        input_size]; `statuses`: int32 [P], a DISCONNECTED player's input
+        row replaced by the game's disconnect input (the request path's
+        tick), or None for all CONFIRMED (the fused SyncTest's only case)."""
+        inp = ex_game.entity_inputs(player_inputs, statuses, owner)
         out = tuple(planes.unbind(0))
         for _ in range(self.game.substeps):
             out = ex_game.substep_planes(*out, inp)

@@ -1,13 +1,30 @@
-"""The typed errors of the port. `GGRSError`, `MismatchedChecksum`,
-`ConfigError` and `RegistryMiss` mirror the reference's classes, each with
-its stdlib base kept; `KernelError` is the port's own, for a CUDA kernel
-that does not build or whose launch is refused."""
+"""The typed errors of the port. `GGRSError`, `PredictionThreshold`,
+`InvalidRequest`, `MismatchedChecksum`, `ConfigError`, `TypeContractError`,
+`ContractViolation` and `RegistryMiss` mirror the reference's classes, each
+with its stdlib base kept; `KernelError` is the port's own, for a CUDA
+kernel that does not build or whose launch is refused."""
 
 from __future__ import annotations
 
 
 class GGRSError(Exception):
     """Base class for all session errors."""
+
+
+class PredictionThreshold(GGRSError):
+    """The prediction window is exhausted; cannot accept more local input
+    until remote input confirms older frames."""
+
+    def __str__(self) -> str:  # pragma: no cover - cosmetic
+        return "Prediction threshold is reached, cannot proceed without catching up."
+
+
+class InvalidRequest(GGRSError):
+    """Invalid API usage."""
+
+    def __init__(self, info: str):
+        super().__init__(info)
+        self.info = info
 
 
 class MismatchedChecksum(GGRSError):
@@ -25,6 +42,16 @@ class ConfigError(GGRSError, ValueError):
     seam (no CUDA device where one is required, an unknown backend, a
     tensor of the wrong device, dtype or shape). The ValueError face keeps
     stdlib-style callers working."""
+
+
+class TypeContractError(GGRSError, TypeError):
+    """A value of the wrong kind crossed an API seam (a non-request in a
+    request list). TypeError face preserved."""
+
+
+class ContractViolation(GGRSError, AssertionError):
+    """An internal invariant a caller cannot trigger through the public
+    API failed. AssertionError face preserved."""
 
 
 class RegistryMiss(GGRSError, KeyError):

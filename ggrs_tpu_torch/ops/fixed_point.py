@@ -133,3 +133,9 @@ def weighted_checksum_parts(parts):
         lo = (lo + words.sum()) & MASK32
         off += n
     return to_i32(hi), to_i32(lo)
+
+
+def combine_checksum(hi: int, lo: int) -> int:
+    """Fold a (hi, lo) pair of uint32 values into one Python int (the
+    reference's 64-bit checksum form)."""
+    return ((int(hi) & MASK32) << 32) | (int(lo) & MASK32)

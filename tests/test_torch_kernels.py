@@ -1,6 +1,6 @@
 """The port's CUDA kernels (ggrs_tpu_torch/csrc/): a build that cannot run
 raises a typed error, and, on a card only, each kernel equals its plain
-PyTorch version bit for bit after every batch.
+PyTorch version bit for bit after every batch (K1, K2) or dispatch (K3).
 
 This file imports no jax, so on a machine with a card and no jax it runs
 without the suite's conftest:
@@ -12,11 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from ggrs_tpu_torch import ExGame, KernelError
+from chip_smoke import random_tick_rows
+from ggrs_tpu_torch import DeviceRollbackBackend, ExGame, KernelError, SaveGameState, SessionBuilder
 from ggrs_tpu_torch.convert import CARRY_KEYS, copy_carry
 from ggrs_tpu_torch.device import sync_test
 from ggrs_tpu_torch.device.fused_core import FusedSyncTestCore, plain_batch
 from ggrs_tpu_torch.device.planes import PlaneContext
+from ggrs_tpu_torch.device.resim import RESIM_KEYS, ResimCore
+from ggrs_tpu_torch.device.tick_core import plain_tick_multi
 from ggrs_tpu_torch.device.tiled_core import TiledSyncTestCore
 from ggrs_tpu_torch.kernels import build
 
@@ -55,3 +58,53 @@ def test_kernel_matches_plain_on_card(cuda_card, core_cls):
         for k in CARRY_KEYS:
             assert torch.equal(kernel[k], plain[k]), k
     assert core.launches == batches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_dispatch", [1, 8])
+def test_tick_kernel_matches_plain_on_card(cuda_card, rows_per_dispatch):
+    """K3 on a 4-player stream with rollbacks, skipped and trailing saves
+    and DISCONNECTED slots, device verification on: his/los and the whole
+    core (the verify history and its latch included) equal
+    plain_tick_multi's after every dispatch."""
+    core = ResimCore(ExGame(4, 4096), 12, 4, device_verify=True, device="cuda")
+    plain = {k: v.clone() for k, v in core.carry.items()}
+    rows = random_tick_rows(core, 4 * 8 + 14, seed=5)
+    for b in range(0, len(rows), rows_per_dispatch):
+        batch = rows[b : b + rows_per_dispatch]
+        his, los = core.tick_multi(batch)
+        p_his, p_los = plain_tick_multi(plain, core.upload(batch), core)
+        torch.cuda.synchronize()
+        assert torch.equal(his, p_his) and torch.equal(los, p_los), b
+        for k in RESIM_KEYS:
+            assert torch.equal(core.carry[k], plain[k]), (k, b)
+    assert core.tick_core.launches == -(-len(rows) // rows_per_dispatch)
+    # the stream's rollbacks replay frames with new inputs: the history latches
+    assert core.check_device_verdict()[0]
+
+
+@pytest.mark.cuda
+def test_request_path_host_checksums_match_plain_on_card(cuda_card):
+    """The request path with the verdict on the host: a session driving
+    the backend on the card (K3, lazy ticks, checksums resolved through the
+    ledger with pinned prefetches) and one driving it on the CPU (the plain
+    version) capture the same checksum for every save, and the same state."""
+    runs = []
+    for device in ("cuda", "cpu"):
+        sess = (SessionBuilder().with_num_players(2).with_max_prediction_window(9)
+                .with_check_distance(8).with_deferred_checksum_verification(3)
+                .start_synctest_session())
+        backend = DeviceRollbackBackend(ExGame(2, 4096), 9, 2, lazy_ticks=4, device=device)
+        rng = np.random.default_rng(21)
+        saves = []
+        for _ in range(30):
+            for h in range(2):
+                sess.add_local_input(h, bytes([int(rng.integers(0, 16))]))
+            reqs = sess.advance_frame()
+            backend.handle_requests(reqs)
+            saves += [(r.frame, r.cell.checksum_getter()) for r in reqs if isinstance(r, SaveGameState)]
+        sess.flush_checksum_checks()
+        runs.append(([(f, g()) for f, g in saves], backend.state_numpy()))
+    assert runs[0][0] == runs[1][0]
+    for k in ("frame", "pos", "vel", "rot"):
+        assert np.array_equal(runs[0][1][k], runs[1][1][k]), k
