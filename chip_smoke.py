@@ -40,7 +40,28 @@ NVIDIA card (written for an H100). Run from the repository root:
    resimulated, over its wall time). Then the same path with the verdict on
    the host: every save's checksum, resolved through the lazy-checksum
    ledger, must equal the plain version's.
-6. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
+6. Holds K4, the speculative beam rollout, against its plain version
+   (`beam_core.plain_rollout`) on the card, bit for bit (trajectory, per-step
+   checksums, the anchor's checksum and frame) for every speculation of a
+   short run from a ring filled by random ticks: b16_4096 (ExGame(2, 4096),
+   16 members x 11 steps), b12_65536 (65536 entities, 12 x 11) and
+   b16_4p_4096 (4 players, 16 x 14, with DISCONNECTED cells). A divergence
+   probe corrupts the anchor slot: kernel and plain version still agree, and
+   both differ from the clean speculation. Prints K4 ms (queued behind a spin
+   kernel), the plain ms and the bound.
+7. Drives the beam request path at b16_4096 and b12_65536:
+   `SessionBuilder().start_synctest_session()` (check distance 8) ->
+   `DeviceRollbackBackend(beam_width=B)` beside a beam-off twin over the same
+   inputs, three scripts (constant, per-frame varying, a held toggle every 6
+   frames). After every tick the live states must be equal, and every save's
+   checksum (bound at save time) must equal the twin's; K4 and K3 launch
+   counts are set to 0 before each run and must be above 0 after, with
+   adoptions above 0. Prints ms per tick (host wall, CUDA events) beam on
+   beside beam off, the host time of candidate generation alone, the
+   adopted share of rollback frames and the hit/partial/miss counts. A
+   device-verify divergence probe (a corrupted anchor snapshot) must latch
+   a mismatch with the beam on.
+8. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
    as the last line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the result lines. Without a CUDA device,
@@ -92,6 +113,24 @@ LAZY_TICKS = 8
 # per-tick samples: p90 keeps at least ten samples beyond it
 REQUEST_PATH_TICKS = {"r2_4096": 200, "r2_1m": 104}
 TIMED_DISPATCHES = {"r2_4096": 200, "r2_1m": 40}
+
+# the beam (K4): key, players, entities, max_prediction, beam width, steps.
+# L = min(depth + 3 + (depth & 1), W) at a SyncTest depth of 8 advances
+# beyond the load (check distance 8) is 11 = W at max_prediction 9
+BEAM_SHAPES = [
+    ("b16_4096", 2, 4096, 9, 16, 11),  # BASELINE.json configs[2] on configs[1]'s world
+    ("b12_65536", 2, 65536, 9, 12, 11),  # bench.py:974 bench_beam_ab
+    ("b16_4p_4096", 4, 4096, 12, 16, 14),  # configs[3]'s widths, DISCONNECTED cells
+]
+BEAM_SPECULATIONS = 4  # speculations compared with the plain version per shape
+TIMED_SPECULATIONS = {"b16_4096": 200, "b12_65536": 50}
+BEAM_PATH_TICKS = {"b16_4096": 100, "b12_65536": 60}
+CANDIDATE_REPS = 50  # timed calls of the candidate generator per run
+BEAM_SCRIPTS = {
+    "constant": lambda t, h: 3 + 2 * h,
+    "varying": lambda t, h: (t * (h + 3) + h) % 16,
+    "toggle6": lambda t, h: (5 if (t // 6) % 2 == 0 else 9) + h,
+}
 
 
 def fail(msg: str) -> None:
@@ -487,6 +526,233 @@ def host_verification_check(np, dev, tag):
               f"checksums resolved through the ledger, K3 == plain, no mismatch {tag}")
 
 
+def beam_bound(n, beam, steps, players, input_size, substeps=1):
+    """Least ms of one K4 launch: the anchor read once and the trajectory
+    written once (20 B per entity column each), plus the script and the
+    checksums, over the HBM rate; vs 69 int32 ops per entity-substep and 15
+    per entity-checksum (B*L steps and checksums, and the anchor's), over
+    the int32 peak."""
+    nbytes = 20 * n * (1 + beam * steps) + 4 * beam * steps * players * (1 + input_size) \
+        + 4 * (2 * beam * steps + 3)
+    ops = n * (beam * steps * (substeps * OPS_PER_SUBSTEP + OPS_PER_SAVE) + OPS_PER_SAVE)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def spec_err(torch, a, b) -> int:
+    """Max abs difference over every field of two speculations."""
+    return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max()) for x, y in zip(a, b))
+
+
+def beam_phase(torch, np, dev, tag):
+    """K4 against plain_rollout for every speculation of a short run, a
+    divergence probe, and K4's time per launch. Returns {key: (max abs err,
+    ms, plain ms, ms back to back)}."""
+    from ggrs_tpu_torch import ExGame, ResimCore
+    from ggrs_tpu_torch.device.beam_core import plain_rollout
+
+    out = {}
+    for key, players, n, mp, width, steps in BEAM_SHAPES:
+        core = ResimCore(ExGame(players, n), mp, players, device=dev)
+        core.tick_multi(random_tick_rows(core, mp + 2 + 8, seed=n + players))
+        ring, r_frame = core.carry["ring"], core.carry["r_frame"]
+        rng = np.random.default_rng(players * 1000 + width)
+        disconnects = players > 2
+        err, cells = 0, 0
+        for k in range(BEAM_SPECULATIONS):
+            slot = (3 * k + 1) % core.ring_len
+            inputs = rng.integers(0, 16, size=(width, steps, players, 1), dtype=np.uint8)
+            statuses = np.zeros((width, steps, players), np.int32)
+            if disconnects:
+                statuses[rng.random(statuses.shape) < 0.2] = 2  # InputStatus.DISCONNECTED
+                cells += int((statuses == 2).sum())
+            spec = core.speculate(slot, inputs, statuses)
+            plain = plain_rollout(ring[slot], r_frame[slot], torch.from_numpy(inputs).to(dev),
+                                  torch.from_numpy(statuses).to(dev), core.ctx)
+            torch.cuda.synchronize()
+            err = max(err, spec_err(torch, spec, plain))
+            if err:
+                fail(f"{key}: K4 and plain_rollout differ at speculation {k} (max abs err {err})")
+        if disconnects and not cells:
+            fail(f"{key}: no DISCONNECTED cell was drawn")
+        print(f"{key}: beam_rollout == plain_rollout for each of {BEAM_SPECULATIONS} speculations "
+              f"({players} players, {n} entities, {width} members x {steps} steps"
+              f"{f', {cells} DISCONNECTED cells' if disconnects else ''}) {tag}")
+
+        # divergence probe: the heading plane of the anchor slot
+        clean = core.speculate(slot, inputs, statuses)
+        ring[slot, 4, 0] += 7
+        dirty = core.speculate(slot, inputs, statuses)
+        pdirty = plain_rollout(ring[slot], r_frame[slot], torch.from_numpy(inputs).to(dev),
+                               torch.from_numpy(statuses).to(dev), core.ctx)
+        ring[slot, 4, 0] -= 7
+        torch.cuda.synchronize()
+        if spec_err(torch, dirty, pdirty):
+            fail(f"{key}: K4 and plain_rollout differ on a corrupted anchor")
+        if torch.equal(clean.his, dirty.his) or torch.equal(clean.a_hi, dirty.a_hi):
+            fail(f"{key}: a corrupted anchor left the speculation's checksums unchanged")
+        print(f"{key}: divergence probe: corrupted anchor changes every checksum, K4 == plain")
+
+        ms = b2b_ms = plain_ms = None
+        if key in TIMED_SPECULATIONS:
+            br = core.beam_rollout
+            script = br.script(inputs, statuses)
+            reps = TIMED_SPECULATIONS[key]
+            ms = queued_ms(torch, lambda: br.rollout(ring, r_frame, slot, script), reps)
+            b2b_ms = events_ms(torch, lambda: br.rollout(ring, r_frame, slot, script), reps)
+            t_in, t_st = torch.from_numpy(inputs).to(dev), torch.from_numpy(statuses).to(dev)
+            plain_ms = events_ms(torch, lambda: plain_rollout(ring[slot], r_frame[slot], t_in, t_st,
+                                                              core.ctx), 1)
+            b_ms, b_by = beam_bound(n, width, steps, players, 1)
+            print(f"{key}: beam_rollout {ms:.4f} ms per launch on the card ({b2b_ms:.4f} ms launched "
+                  f"back to back from Python) vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}) {tag}")
+        out[key] = (err, ms, plain_ms, b2b_ms)
+        del core, ring, r_frame
+    return out
+
+
+def beam_stack(n, mp, width, dev, device_verify=False):
+    from ggrs_tpu_torch import DeviceRollbackBackend, ExGame, SessionBuilder
+
+    sess = (
+        SessionBuilder(input_size=1)
+        .with_num_players(PLAYERS)
+        .with_max_prediction_window(mp)
+        .with_check_distance(CHECK_DISTANCE)
+        .with_device_checksum_verification(device_verify)
+        .start_synctest_session()
+    )
+    return sess, DeviceRollbackBackend(ExGame(PLAYERS, n), mp, PLAYERS, device_verify=device_verify,
+                                       beam_width=width, device=dev)
+
+
+def beam_path_phase(torch, np, dev, tag, beam_errs):
+    """The beam request path (K4 + adoption + K3 suffixes) beside a beam-off
+    twin, three scripts per shape, and a device-verify divergence probe.
+    Returns (per-run summaries, K4 entries for the kernels line)."""
+    from ggrs_tpu_torch import MismatchedChecksum, SaveGameState
+
+    runs, entries = [], []
+    for key, players, n, mp, width, steps in BEAM_SHAPES:
+        if key not in BEAM_PATH_TICKS:
+            continue
+        ticks = BEAM_PATH_TICKS[key]
+        k4_launches = 0
+        for name, script in BEAM_SCRIPTS.items():
+            arms = {"on": beam_stack(n, mp, width, dev), "off": beam_stack(n, mp, 0, dev)}
+            beam = arms["on"][1]
+            saves = {"on": [], "off": []}
+            host = {"on": [], "off": []}
+            marks = {"on": [], "off": []}
+            torch.cuda.synchronize()
+            beam.core.beam_rollout.launches = 0
+            beam.core.tick_core.launches = 0
+            for t in range(ticks):
+                for arm, (sess, backend) in arms.items():
+                    for h in range(players):
+                        sess.add_local_input(h, bytes([script(t, h)]))
+                    reqs = sess.advance_frame()
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    t0 = time.perf_counter()
+                    start.record()
+                    backend.handle_requests(reqs)
+                    end.record()
+                    host[arm].append((time.perf_counter() - t0) * 1e3)
+                    marks[arm].append((start, end))
+                    saves[arm] += [(r.frame, r.cell.checksum_getter()) for r in reqs
+                                   if isinstance(r, SaveGameState)]
+                a, b = arms["on"][1].core.carry, arms["off"][1].core.carry
+                if not (torch.equal(a["state"], b["state"]) and torch.equal(a["state_frame"], b["state_frame"])):
+                    fail(f"{key} {name}: the beam's live state differs from the twin's after tick {t}")
+            torch.cuda.synchronize()
+            k4, k3 = beam.core.beam_rollout.launches, beam.core.tick_core.launches
+            resolved = {arm: [(f, g()) for f, g in v] for arm, v in saves.items()}
+            if resolved["on"] != resolved["off"] or len(resolved["on"]) < ticks:
+                fail(f"{key} {name}: per-save checksums differ between the beam and its twin")
+            adopted = beam.beam_hits + beam.beam_partial_hits
+            if k4 < 1 or k3 < 1 or adopted < 1 or beam.rollback_frames_adopted < 1:
+                fail(f"{key} {name}: K4 launches {k4}, K3 launches {k3}, adoptions {adopted} "
+                     f"(frames {beam.rollback_frames_adopted}): each must be above 0")
+            if name == "varying" and beam.beam_partial_hits < 1:
+                fail(f"{key} {name}: no partial hit, so no K3 suffix ran")
+            k4_launches += k4
+            # the host split: candidate generation alone (branching_beam with
+            # the pinned history and the model's ranking), as the last tick built it
+            t0 = time.perf_counter()
+            for _ in range(CANDIDATE_REPS):
+                beam._candidates(beam.current_frame, width)
+            candidates_ms = (time.perf_counter() - t0) * 1e3 / CANDIDATE_REPS
+
+            def pct(v, q):
+                v = sorted(v)
+                return v[min(len(v) - 1, (len(v) * q) // 100)]
+
+            ev = {arm: [s.elapsed_time(e) for s, e in m] for arm, m in marks.items()}
+            run = {
+                "key": key, "script": name, "ticks": ticks, "beam_width": width,
+                "k4_launches": k4, "k3_launches": k3,
+                "beam_hits": beam.beam_hits, "beam_partial_hits": beam.beam_partial_hits,
+                "beam_misses": beam.beam_misses, "rollback_frames": beam.rollback_frames,
+                "rollback_frames_adopted": beam.rollback_frames_adopted,
+                "adopted_share": beam.rollback_frames_adopted / max(beam.rollback_frames, 1),
+                "candidates_host_ms": candidates_ms,
+            }
+            for arm in ("on", "off"):
+                run[f"host_ms_p50_{arm}"] = pct(host[arm], 50)
+                run[f"host_ms_p90_{arm}"] = pct(host[arm], 90)
+                run[f"event_ms_p50_{arm}"] = pct(ev[arm], 50)
+                run[f"event_ms_p90_{arm}"] = pct(ev[arm], 90)
+            runs.append(run)
+            print(f"beam path {key} {name}: {k4} K4 + {k3} K3 launches over {ticks} ticks; hits "
+                  f"{beam.beam_hits}, partial {beam.beam_partial_hits}, misses {beam.beam_misses}; adopted "
+                  f"{beam.rollback_frames_adopted}/{beam.rollback_frames} rollback frames "
+                  f"({run['adopted_share']:.3f}); handle_requests host p50 {run['host_ms_p50_on']:.4f} ms "
+                  f"(p90 {run['host_ms_p90_on']:.4f}) beam on vs {run['host_ms_p50_off']:.4f} "
+                  f"(p90 {run['host_ms_p90_off']:.4f}) off; events p50 {run['event_ms_p50_on']:.4f} vs "
+                  f"{run['event_ms_p50_off']:.4f} ms; candidate generation {candidates_ms:.4f} ms of host; "
+                  f"states and {len(resolved['on'])} save checksums equal to the twin's {tag}")
+            del arms, beam
+
+        # divergence probe: corrupt the anchor the NEXT speculation rolls
+        # out of (its slot is not re-saved before that launch), so the
+        # adopted checksums carry the corruption into the verify history
+        sess, backend = beam_stack(n, mp, width, dev, device_verify=True)
+        script = BEAM_SCRIPTS["constant"]
+        for t in range(14):
+            for h in range(players):
+                sess.add_local_input(h, bytes([script(t, h)]))
+            backend.handle_requests(sess.advance_frame())
+        backend.core.carry["ring"][(backend.current_frame + 1 - backend._depth) % backend.core.ring_len, 4, 0] += 7
+        latched = None
+        for t in range(14, 18):
+            for h in range(players):
+                sess.add_local_input(h, bytes([script(t, h)]))
+            backend.handle_requests(sess.advance_frame())
+            try:
+                backend.check()
+            except MismatchedChecksum as exc:
+                latched = exc.frame
+                break
+        if latched is None or backend.beam_hits < 1:
+            fail(f"{key}: the beam-on divergence probe latched no mismatch (hits {backend.beam_hits})")
+        print(f"{key}: divergence probe with the beam on: corrupted anchor latched at frame {latched}")
+        del sess, backend
+
+        err, ms, plain_ms, b2b_ms = beam_errs[key]
+        b_ms, b_by = beam_bound(n, width, steps, players, 1)
+        entries.append({
+            "name": "beam_rollout", "route": "cuda",
+            "source": "ggrs_tpu_torch/csrc/beam_rollout.cu",
+            "replaces": "ggrs_tpu/tpu/pallas_beam.py:226",
+            "tpu_counterpart": "PallasBeamRollout._build + run_kernel + finish",
+            "shape": f"{n} entities, P={players}, B={width} x L={steps}",
+            "max_abs_err": err, "bit_equal": err == 0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "launches": k4_launches, "ms_back_to_back": b2b_ms,
+        })
+    return runs, entries
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -508,7 +774,7 @@ def main() -> None:
     print(card)
     tag = f"[{card}]"
     dev = torch.device(DEVICE)
-    kinds = ("synctest_fused", "synctest_tiled", "resim_tick")
+    kinds = build.KINDS
     t0 = time.perf_counter()
     build.build(kinds)
     print(f"kernel build: {time.perf_counter() - t0:.3f} s for {', '.join(k + '.cu' for k in kinds)} (parallel nvcc)")
@@ -665,10 +931,15 @@ def main() -> None:
     tick_errs = tick_phase(torch, np, dev, tag)
     request_path, tick_entries = request_path_phase(torch, np, dev, tag, tick_errs)
 
+    # -- phases 6 and 7: K4 against its plain version, then the beam path
+    beam_errs = beam_phase(torch, np, dev, tag)
+    beam_path, beam_entries = beam_path_phase(torch, np, dev, tag, beam_errs)
+
     for e in entries:
         e.pop("key")
-    entries += tick_entries
-    print(json.dumps({"card": card, "main_path": main_path, "request_path": request_path}))
+    entries += tick_entries + beam_entries
+    print(json.dumps({"card": card, "main_path": main_path, "request_path": request_path,
+                      "beam_path": beam_path}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

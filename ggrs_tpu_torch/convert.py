@@ -159,3 +159,18 @@ def resim_to_reference(core) -> dict:
         }
     return out
 
+
+def speculation_to_reference(spec) -> tuple:
+    """A port `Speculation` -> the reference's speculation tuple as numpy:
+    (traj {frame i32[B,L], pos i32[B,L,N,2], vel i32[B,L,N,2], rot
+    i32[B,L,N]}, his u32[B,L], los u32[B,L], a_hi u32[], a_lo u32[])."""
+    B, L = spec.his.shape
+    frames = int(spec.frame) + 1 + np.arange(L, dtype=np.int32)
+    traj = planes_to_reference(spec.traj, np.broadcast_to(frames, (B, L)).astype(np.int32))
+    return (
+        traj,
+        _u32_value(spec.his),
+        _u32_value(spec.los),
+        np.uint32(int(spec.a_hi) & 0xFFFFFFFF),
+        np.uint32(int(spec.a_lo) & 0xFFFFFFFF),
+    )

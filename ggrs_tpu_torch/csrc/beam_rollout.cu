@@ -1,0 +1,211 @@
+// K4 — the speculative beam rollout for ex_game on Hopper.
+//
+// Replaces: ggrs_tpu/tpu/pallas_beam.py, PallasBeamRollout._build (the
+// pallas_call at :226) with run_kernel (:253) and finish (:268), and the
+// anchor checksum ResimCore._speculate_pallas computes beside it in XLA
+// (ggrs_tpu/tpu/resim.py:1013). From ONE anchor snapshot (ring slot
+// `anchor_slot`, frame tag r_frame[anchor_slot]) it rolls B candidate
+// scripts L frames each: traj[b, l] is member b's state after step l
+// (frame anchor + 1 + l), his/los[b, l] its (hi, lo) checksum, and a_hi/a_lo
+// the anchor's. A DISCONNECTED cell steps with the game's disconnect input,
+// as in the request path's tick (resim_tick.cu), so any statuses work.
+//
+// Script layout (int32): [B, L, P, 1 + I], per cell its status then its
+// input bytes; ex_game reads the first byte.
+//
+// Design. The TPU kernel walks entity tiles in order and carries the
+// per-(member, step) partial checksums across tiles in SMEM. Here blocks run
+// in parallel and in no order, so the grid is 2-D: blockIdx.x an entity
+// tile of 128, blockIdx.y a member. One thread owns one (entity, member):
+// it loads its anchor column once (5 planes, 20 B), steps it L times in
+// registers and, after each step, writes the column to traj[b, l] (each
+// plane a coalesced 512 B row per block). The member axis multiplies the
+// parallelism by B — at 4096 entities one thread per entity would leave
+// 32 blocks for 132 SMs — and each thread's serial chain is L steps, not
+// B·L. Each step's checksum terms are reduced in the block (warp shuffles,
+// one shared-memory row per step, all rows summed after ONE barrier) and
+// added to parts[b, l] with uint32 atomics, exact in any order. The
+// member-0 blocks add one more row, the anchor's terms. The LAST block to
+// finish (a done-counter ticket, as in resim_tick.cu) folds in the frame
+// terms (parts_hi + frame * frame_weight, parts_lo + frame): one launch per
+// speculation, no PyTorch epilogue.
+//
+// What bounds it on an H100: per entity the anchor is read once (20 B) and
+// B·L trajectory columns written (20 B each): 14.5 MB at 4096 entities and
+// B·L = 16·11, 0.0043 ms at 3.35 TB/s; its int32 work is 69 ops per step
+// and 15 per checksum, B·L·84 per entity, 0.0036 ms on 16.7 Tops/s. At
+// 4096 entities the grid is 512 blocks of 128 and each thread's chain of
+// L dependent steps sets the time (latency, as for resim_tick at that
+// size); at 65536 entities (B = 12) the 173 MB of trajectory writes should
+// set it.
+//
+// Left for later: several members per thread (the anchor load and the
+// entity weights amortised); streaming stores that bypass L2 for the
+// trajectory, which the adoption reads back only in part.
+#include <cuda_runtime.h>
+
+#include "ex_game_step.cuh"
+
+namespace {
+
+constexpr int kBlock = 128;  // entities per block
+constexpr int kWarps = kBlock / 32;
+constexpr int kDisconnected = 2;  // InputStatus.DISCONNECTED
+
+struct BeamArgs {
+  const int* anchor;        // [5, n] ring[anchor_slot]
+  const int* anchor_frame;  // [1] r_frame[anchor_slot]
+  const int* script;        // [B, L, P, 1 + I]
+  int* traj;                // [B, L, 5, n] out
+  int* out;                 // [2*B*L + 3] out: his[B*L], los[B*L], a_hi, a_lo, frame
+  uint32_t* parts_hi;       // [B*L + 1] zeroed before launch; the anchor's row last
+  uint32_t* parts_lo;       // [B*L + 1]
+  uint32_t* done;           // last-block ticket, zeroed before launch
+  int n, num_players, input_size, beam, steps, substeps, disconnect_input;
+  exg::Weights cw;
+};
+
+__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, off);
+  return v;
+}
+
+__global__ void __launch_bounds__(kBlock) beam_rollout_kernel(BeamArgs a) {
+  extern __shared__ int smem[];
+  const int L = a.steps, P = a.num_players, I = a.input_size;
+  int* inp = smem;                                         // [L][P] resolved input bytes
+  uint32_t* red = reinterpret_cast<uint32_t*>(smem + L * P);  // [hi, lo][L + 1][warps]
+
+  const int b = blockIdx.y;
+  const int e = blockIdx.x * kBlock + threadIdx.x;
+  const bool active = e < a.n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t n = (size_t)a.n, slot_stride = (size_t)exg::kPlanes * n;
+
+  // member b's script, with the disconnect substitution, into shared memory
+  for (int k = threadIdx.x; k < L * P; k += kBlock) {
+    const int* cell = a.script + ((size_t)b * L * P + k) * (1 + I);
+    inp[k] = cell[0] == kDisconnected ? a.disconnect_input : cell[1];
+  }
+
+  uint32_t ew[exg::kPlanes];
+  exg::entity_weights(a.cw, (uint32_t)e, ew);
+  exg::State s = active ? exg::load(a.anchor, n, e) : exg::State{0, 0, 0, 0, 0};
+  const int owner = e % P;
+
+  const bool anchor_row = b == 0;
+  if (anchor_row) {
+    uint32_t hi = 0, lo = 0;
+    if (active) exg::checksum_terms(s, ew, hi, lo);
+    hi = warp_sum(hi);
+    lo = warp_sum(lo);
+    if (lane == 0) {
+      red[L * kWarps + warp] = hi;
+      red[(L + 1 + L) * kWarps + warp] = lo;
+    }
+  }
+  __syncthreads();  // the staged script
+
+  int* traj_b = a.traj + (size_t)b * L * slot_stride;
+  for (int l = 0; l < L; ++l) {
+    uint32_t hi = 0, lo = 0;
+    if (active) {
+      exg::step(s, inp[l * P + owner], a.substeps);
+      exg::store(traj_b + (size_t)l * slot_stride, n, e, s);
+      exg::checksum_terms(s, ew, hi, lo);
+    }
+    hi = warp_sum(hi);
+    lo = warp_sum(lo);
+    if (lane == 0) {
+      red[l * kWarps + warp] = hi;
+      red[(L + 1 + l) * kWarps + warp] = lo;
+    }
+  }
+  __syncthreads();
+  const int rows = L + (anchor_row ? 1 : 0);
+  for (int j = threadIdx.x; j < rows; j += kBlock) {
+    uint32_t hi = 0, lo = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      hi += red[j * kWarps + w];
+      lo += red[(L + 1 + j) * kWarps + w];
+    }
+    const size_t k = j < L ? (size_t)b * L + j : (size_t)a.beam * L;
+    atomicAdd(&a.parts_hi[k], hi);
+    atomicAdd(&a.parts_lo[k], lo);
+  }
+
+  // last-block-done: every thread fences its own parts atomics, then one
+  // ticket per block; the block that draws the last ticket sees all parts
+  __shared__ bool is_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(a.done, 1u) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // finish (pallas_beam.py:268): fold the frame terms, once per member x step
+  const int frame = *a.anchor_frame;
+  const int bl = a.beam * L;
+  for (int k = threadIdx.x; k <= bl; k += kBlock) {
+    // parts were summed with atomics in L2: read them there
+    const uint32_t f = k < bl ? (uint32_t)(frame + 1 + k % L) : (uint32_t)frame;
+    const uint32_t hi = __ldcg(&a.parts_hi[k]) + f * a.cw.frame_weight;
+    const uint32_t lo = __ldcg(&a.parts_lo[k]) + f;
+    if (k < bl) {
+      a.out[k] = (int)hi;
+      a.out[bl + k] = (int)lo;
+    } else {
+      a.out[2 * bl] = (int)hi;
+      a.out[2 * bl + 1] = (int)lo;
+      a.out[2 * bl + 2] = frame;
+    }
+  }
+}
+
+}  // namespace
+
+// Returns the CUDA error of the scratch reset or the launch (0 on success).
+// ring: [slots, 5, n]; r_frame: [slots]; scratch: parts_hi [B*L+1],
+// parts_lo [B*L+1], done [1]. cs: 11 int32 — checksum w[5], base[5], frame
+// weight.
+extern "C" int beam_rollout_launch(const int* ring, int anchor_slot, const int* r_frame,
+                                   const int* script, int* traj, int* out, uint32_t* scratch,
+                                   int n, int num_players, int input_size, int beam, int steps,
+                                   int substeps, int disconnect_input, const int* cs,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t rows = (size_t)beam * steps + 1;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, (2 * rows + 1) * sizeof(uint32_t), st);
+  if (err != cudaSuccess) return (int)err;
+  BeamArgs a;
+  a.anchor = ring + (size_t)anchor_slot * exg::kPlanes * (size_t)n;
+  a.anchor_frame = r_frame + anchor_slot;
+  a.script = script;
+  a.traj = traj;
+  a.out = out;
+  a.parts_hi = scratch;
+  a.parts_lo = scratch + rows;
+  a.done = scratch + 2 * rows;
+  a.n = n;
+  a.num_players = num_players;
+  a.input_size = input_size;
+  a.beam = beam;
+  a.steps = steps;
+  a.substeps = substeps;
+  a.disconnect_input = disconnect_input;
+  for (int k = 0; k < exg::kPlanes; ++k) {
+    a.cw.w[k] = (uint32_t)cs[k];
+    a.cw.base[k] = (uint32_t)cs[exg::kPlanes + k];
+  }
+  a.cw.frame_weight = (uint32_t)cs[2 * exg::kPlanes];
+  const size_t smem = ((size_t)steps * num_players + 2 * ((size_t)steps + 1) * kWarps) * sizeof(int);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(beam_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((n + kBlock - 1) / kBlock, beam);
+  beam_rollout_kernel<<<grid, kBlock, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}

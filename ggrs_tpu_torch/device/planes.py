@@ -56,7 +56,10 @@ class ExGamePlanes:
         """One frame on `[5, N]` planes. `player_inputs`: int32 [P,
         input_size]; `statuses`: int32 [P], a DISCONNECTED player's input
         row replaced by the game's disconnect input (the request path's
-        tick), or None for all CONFIRMED (the fused SyncTest's only case)."""
+        tick), or None for all CONFIRMED (the fused SyncTest's only case).
+        With a leading member axis — planes `[5, B, N]`, inputs
+        `[B, P, input_size]`, statuses `[B, P]` — it steps B worlds at once
+        (the beam rollout's plain version)."""
         inp = ex_game.entity_inputs(player_inputs, statuses, owner)
         out = tuple(planes.unbind(0))
         for _ in range(self.game.substeps):

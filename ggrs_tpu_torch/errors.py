@@ -1,8 +1,9 @@
 """The typed errors of the port. `GGRSError`, `PredictionThreshold`,
 `InvalidRequest`, `MismatchedChecksum`, `ConfigError`, `TypeContractError`,
-`ContractViolation` and `RegistryMiss` mirror the reference's classes, each
-with its stdlib base kept; `KernelError` is the port's own, for a CUDA
-kernel that does not build or whose launch is refused."""
+`ContractViolation`, `RegistryMiss` and `ModelIncompatible` mirror the
+reference's classes, each with its stdlib base kept; `KernelError` is the
+port's own, for a CUDA kernel that does not build or whose launch is
+refused."""
 
 from __future__ import annotations
 
@@ -63,3 +64,18 @@ class KernelError(GGRSError, RuntimeError):
     """A hand-written CUDA kernel failed to build, failed to load, or its
     launch returned a CUDA error. Never caught on the main path: there is
     no fallback to the plain version on a card."""
+
+
+class ModelIncompatible(GGRSError):
+    """An input-model state cannot be loaded here: its kind or its game
+    identity (players, input size) differs from the target's. Carries both
+    values so the message says which side is which."""
+
+    def __init__(self, info: str, *, found=None, expected=None):
+        detail = ""
+        if found is not None or expected is not None:
+            detail = f" (found={found!r}, expected={expected!r})"
+        super().__init__(info + detail)
+        self.info = info
+        self.found = found
+        self.expected = expected

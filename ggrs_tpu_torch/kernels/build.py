@@ -29,6 +29,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# every kernel source of the port, the order `chip_smoke.py` builds them in
+KINDS = ("synctest_fused", "synctest_tiled", "resim_tick", "beam_rollout")
+
 # the kernel-library handles, one per source, loaded at first use
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,11 +1,13 @@
-"""What every kernel wrapper does around a launch: validate the tensors it
-hands to C, pass pointers and PyTorch's current stream, and turn a
-nonzero CUDA error into `KernelError`."""
+"""What every kernel wrapper does around a launch: stage host control data
+on the device, validate the tensors it hands to C, pass pointers and
+PyTorch's current stream, and turn a nonzero CUDA error into
+`KernelError`."""
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..errors import ConfigError, KernelError
@@ -59,6 +61,18 @@ def weights_arg(ctx):
     """The 11 checksum ints the kernels take: w[5], base[5], frame weight."""
     vals = [w for _, w, _ in ctx.cs_entries] + [b for _, _, b in ctx.cs_entries]
     return (ctypes.c_int * 11)(*vals, ctx.cs_frame_weight)
+
+
+def stage(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array -> `device`: as it is for the CPU; for CUDA an
+    asynchronous copy from a FRESH pinned buffer (PyTorch's pinned-memory
+    allocator hands a block out again only after the copy that read it has
+    finished, so the caller may refill its array at once)."""
+    if device.type == "cpu":
+        return torch.from_numpy(arr)
+    staged = torch.empty(arr.shape, dtype=torch.from_numpy(arr[:0]).dtype, pin_memory=True)
+    staged.numpy()[...] = arr
+    return staged.to(device, non_blocking=True)
 
 
 def stream_of(device: torch.device) -> int:

@@ -107,14 +107,15 @@ def substep_planes(px, py, vx, vy, rot, inp):
 
 
 def entity_inputs(player_inputs: torch.Tensor, statuses, owner: torch.Tensor) -> torch.Tensor:
-    """Per-entity int32 input byte from uint8/int32 [P, input_size] player
-    inputs, with DISCONNECTED players' inputs replaced by the spin input.
-    `statuses` None means all CONFIRMED."""
-    inp = player_inputs.reshape(player_inputs.shape[0], -1)[:, 0].to(torch.int32)
+    """Per-entity int32 input byte from uint8/int32 [..., P, input_size]
+    player inputs, with DISCONNECTED players' inputs replaced by the spin
+    input; `statuses` [..., P], None meaning all CONFIRMED. Leading axes
+    (the beam's members) carry through: [..., P, I] -> [..., N]."""
+    inp = player_inputs[..., 0].to(torch.int32)
     if statuses is not None:
         disconnected = statuses.to(torch.int32) == int(InputStatus.DISCONNECTED)
         inp = torch.where(disconnected, torch.full_like(inp, DISCONNECT_INPUT), inp)
-    return inp[owner]
+    return inp[..., owner]
 
 
 class ExGame:
@@ -123,6 +124,10 @@ class ExGame:
     input_size = INPUT_SIZE
     checksum_keys = CHECKSUM_KEYS
     disconnect_input = bytes([DISCONNECT_INPUT])
+    # the step reads statuses only to substitute DISCONNECTED players'
+    # inputs: a trajectory speculated from candidate rows is the one the
+    # corrected script produces (DeviceRollbackBackend's beam requires it)
+    statuses_contract = "disconnect-only"
 
     def __init__(self, num_players: int = 2, num_entities: int = 4096, substeps: int = 1):
         """`substeps`: physics sub-iterations per frame (frame still

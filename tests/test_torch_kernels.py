@@ -1,6 +1,7 @@
 """The port's CUDA kernels (ggrs_tpu_torch/csrc/): a build that cannot run
 raises a typed error, and, on a card only, each kernel equals its plain
-PyTorch version bit for bit after every batch (K1, K2) or dispatch (K3).
+PyTorch version bit for bit after every batch (K1, K2), dispatch (K3) or
+speculation (K4).
 
 This file imports no jax, so on a machine with a card and no jax it runs
 without the suite's conftest:
@@ -16,6 +17,7 @@ from chip_smoke import random_tick_rows
 from ggrs_tpu_torch import DeviceRollbackBackend, ExGame, KernelError, SaveGameState, SessionBuilder
 from ggrs_tpu_torch.convert import CARRY_KEYS, copy_carry
 from ggrs_tpu_torch.device import sync_test
+from ggrs_tpu_torch.device.beam_core import plain_rollout
 from ggrs_tpu_torch.device.fused_core import FusedSyncTestCore, plain_batch
 from ggrs_tpu_torch.device.planes import PlaneContext
 from ggrs_tpu_torch.device.resim import RESIM_KEYS, ResimCore
@@ -108,3 +110,50 @@ def test_request_path_host_checksums_match_plain_on_card(cuda_card):
     assert runs[0][0] == runs[1][0]
     for k in ("frame", "pos", "vel", "rot"):
         assert np.array_equal(runs[0][1][k], runs[1][1][k]), k
+
+
+@pytest.mark.cuda
+def test_beam_kernel_matches_plain_on_card(cuda_card):
+    """K4 from every ring slot of a 4-player core (filled by a random tick
+    stream), 30% DISCONNECTED cells: the trajectory, its checksums, the
+    anchor's checksum and frame equal plain_rollout's on the same inputs."""
+    core = ResimCore(ExGame(4, 4096), 12, 4, device="cuda")
+    core.tick_multi(random_tick_rows(core, 20, seed=3))
+    rng = np.random.default_rng(4)
+    for slot in range(core.ring_len):
+        B, L = 16, 1 + slot % core.window
+        inputs = rng.integers(0, 16, size=(B, L, 4, 1), dtype=np.uint8)
+        statuses = np.where(rng.random((B, L, 4)) < 0.3, 2, 0).astype(np.int32)
+        spec = core.speculate(slot, inputs, statuses)
+        plain = plain_rollout(core.carry["ring"][slot], core.carry["r_frame"][slot],
+                              torch.from_numpy(inputs).cuda(), torch.from_numpy(statuses).cuda(), core.ctx)
+        torch.cuda.synchronize()
+        for k, a, b in zip(spec._fields, spec, plain):
+            assert torch.equal(a, b), (slot, k)
+    assert core.beam_rollout.launches == core.ring_len
+
+
+@pytest.mark.cuda
+def test_beam_request_path_matches_cpu_on_card(cuda_card):
+    """The beam on the card (K4 speculations, adoptions, K3 suffixes) and
+    on the CPU (the plain versions) capture the same checksum for every
+    save and the same counters, on a toggling script."""
+    runs = []
+    for device in ("cuda", "cpu"):
+        sess = (SessionBuilder().with_num_players(2).with_max_prediction_window(9)
+                .with_check_distance(8).start_synctest_session())
+        backend = DeviceRollbackBackend(ExGame(2, 4096), 9, 2, beam_width=16, device=device)
+        saves = []
+        for t in range(40):
+            for h in range(2):
+                sess.add_local_input(h, bytes([(5 if (t // 6) % 2 == 0 else 9) + h]))
+            reqs = sess.advance_frame()
+            backend.handle_requests(reqs)
+            saves += [(r.frame, r.cell.checksum_getter()) for r in reqs if isinstance(r, SaveGameState)]
+        runs.append(([(f, g()) for f, g in saves], backend.beam_hits, backend.beam_partial_hits,
+                     backend.beam_misses, backend.state_numpy()))
+        if device == "cuda":
+            assert backend.core.beam_rollout.launches > 0
+    assert runs[0][:4] == runs[1][:4]
+    for k in ("frame", "pos", "vel", "rot"):
+        assert np.array_equal(runs[0][4][k], runs[1][4][k]), k
