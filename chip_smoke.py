@@ -61,7 +61,26 @@ NVIDIA card (written for an H100). Run from the repository root:
    adopted share of rollback frames and the hit/partial/miss counts. A
    device-verify divergence probe (a corrupted anchor snapshot) must latch
    a mismatch with the beam on.
-8. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
+8. Holds arena's K1 (per-frame reduction cache and grid barriers) against
+   its plain version, full carry after every batch, tolerance zero:
+   a1_4096 (Arena(2, 4096), d=8, T=60, 5 batches), a1_65536 (Arena(2,
+   65536), 2 batches), a1_4p_w (Arena(4, 4096, input_size=2), 2 batches),
+   and 12 single-tick batches at 4096 (inline reductions, across frame d).
+   A divergence probe per mode kills entities (hp = 0) in the ring slot the
+   next rollback loads: kernel and plain version latch the same frame.
+   Then K5 (the reduction table) against its plain version over d+1
+   sources and over the live state at 4096 and 65536, and the
+   injected-reduction route (K5 tables, K2 one tick per launch, the
+   verdict) against its plain twin on the card: ai_4096 (60 ticks) and
+   ai_65536 (30 ticks), both across frame d, with a divergence probe.
+9. Drives arena's main path: `DeviceSyncTestSession(Arena(2, N), 2, 8,
+   backend="auto")` must pick K1 at 4096 and 65536, and backend="cuda-tiled"
+   runs the injection route at both; the launch counts of K1, or of K2, K5
+   and the verdict, are set to 0 just before each run and must be above 0
+   after; the final carry must equal the plain version's and `check()` must
+   pass. Prints ms per batch (K1) or per tick (injection route) p50/p90
+   from CUDA events and rollback-frames/s.
+10. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
    as the last line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the result lines. Without a CUDA device,
@@ -133,6 +152,41 @@ BEAM_SCRIPTS = {
 }
 
 
+# arena (K1 with reductions, K5, K2 with an injected table)
+ARENA_SHAPES = [
+    # key, players, entities, input_size, check distance, ticks per batch, batches
+    ("a1_4096", 2, 4096, 1, 8, 60, 5),  # bench.py:891-893, the headline arena cell
+    ("a1_65536", 2, 65536, 1, 8, 60, 2),  # top of arena's envelope (32768 per team)
+    ("a1_4p_w", 4, 4096, 2, 8, 60, 2),  # R = 12 and the throttle byte; parity only
+]
+ARENA_TIMED = {"a1_4096": 20, "a1_65536": 5}  # K1 batches timed back to back
+ARENA_T1_BATCHES = 12  # single-tick batches at 4096: inline reductions, across frame d
+ARENA_MAIN_BATCHES = {"a1_4096": 100, "a1_65536": 20}
+KILLED = 64  # entities the divergence probe kills in a ring slot
+INJECTED_SHAPES = [
+    # key, players, entities, check distance, ticks
+    ("ai_4096", 2, 4096, 8, 60),  # bench.py:3491 arena_sharded_stats on one chip
+    ("ai_65536", 2, 65536, 8, 30),
+]
+INJECTED_BATCH = 30  # ticks per advance_frames on the injection route
+INJECTED_MAIN_BATCHES = {"ai_4096": 20, "ai_65536": 10}
+TIMED_LAUNCHES = 200  # K5 / K2 single-tick launches queued per timing
+# int32 ops arena's step always executes per entity (ggrs_tpu_torch/csrc/
+# arena_step.cuh): alive test 1, thrust axes 10, overdrive test 4, accel 5,
+# energy 5, velocity update 4, rally test 2, friction 4, |v|^2 test 4, dead
+# stop 2, torus integrate 4, combat (toroidal deltas, Manhattan distance,
+# hit test, damage) 18, throttle 1. The rally pull, the clamp's sqrt and
+# divisions run only for some entities and are not counted (a least time).
+OPS_PER_ARENA_STEP = 64
+OPS_PER_ARENA_SAVE = 18  # 6 weighted products and 12 adds
+
+
+def team_ops(players):
+    """int32 ops per entity of one reduction: the alive test, two shifts,
+    and a compare and two selects per team (about 3 + 3P)."""
+    return 3 + 3 * players
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -191,6 +245,31 @@ def bound(n, d, t_ticks, c0, ring_len):
     ops = n * (steps * OPS_PER_SUBSTEP + saves * OPS_PER_SAVE)
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def least(nbytes, ops):
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def arena_bound(n, players, d, t_ticks, c0, reduces=True):
+    """Least ms of one arena K1 batch (or, at T = 1, one K2 tick on an
+    injected table, which does the same work bar the reductions). T > 1:
+    state and ring read once and written once; T = 1: the loaded slot (or
+    the state) read, each saved slot and the state written. Ops: 64 per
+    entity-step, 18 per entity-save, and the batch's reductions: one per
+    tick with the cache plus the d+1-frame seed (T > 1), one per step (T = 1)."""
+    steps, saves = batch_work(n, d, t_ticks, c0)
+    col = 4 * 6 * n
+    if t_ticks > 1:
+        nbytes = 2 * col * (1 + d + 2)
+        reductions = t_ticks - 1 + d + 1
+    else:
+        nbytes = col * (1 + saves + 1)
+        reductions = steps if reduces else 0
+    nbytes += 4 * t_ticks * players * 2
+    ops = n * (steps * OPS_PER_ARENA_STEP + saves * OPS_PER_ARENA_SAVE + reductions * team_ops(players))
+    return least(nbytes, ops)
 
 
 def carry_err(torch, a, b, keys) -> int:
@@ -753,6 +832,407 @@ def beam_path_phase(torch, np, dev, tag, beam_errs):
     return runs, entries
 
 
+class PlainTiled:
+    """Stands in for the injection route's K2 wrapper: the plain versions
+    (`plain_parts` on the injected table, `plain_verdict`) on the same
+    (CUDA) carry."""
+
+    def __init__(self, ctx):
+        self.ctx = ctx
+
+    def run_kernel(self, carry, inputs, red_raw=None):
+        from ggrs_tpu_torch.device.tiled_core import plain_parts
+
+        rows = [self.ctx.adapter.reduce_finalize(r) for r in red_raw]
+        return plain_parts(carry, inputs, self.ctx, red_of=lambda f, i: rows[i])
+
+    def verdict(self, carry, parts_hi, parts_lo):
+        from ggrs_tpu_torch.device.tiled_core import plain_verdict
+
+        plain_verdict(carry, parts_hi, parts_lo, self.ctx)
+
+
+def plain_injected(ctx):
+    """The injection route with every kernel swapped for its plain version,
+    on the card: the twin the route is held against."""
+    import torch
+
+    from ggrs_tpu_torch.device.injected_core import InjectedReduceCore
+    from ggrs_tpu_torch.device.reduce_core import STATE, ReduceTableCore, plain_reduce_table
+
+    class PlainReduce(ReduceTableCore):
+        def gather(self, ring, state, slots, out=None):
+            table = plain_reduce_table(torch.stack([state if s == STATE else ring[s] for s in slots]), ctx)
+            if out is None:
+                return table
+            out.copy_(table)
+            return out
+
+    twin = InjectedReduceCore(ctx)
+    twin.tiled, twin.reduce = PlainTiled(ctx), PlainReduce(ctx)
+    return twin
+
+
+def kill(carry, d, ring_len):
+    """The divergence probe: kill KILLED entities (hp = 0) in the ring slot
+    the next rollback loads."""
+    carry["ring"][(int(carry["meta"][0]) - d) % ring_len, 4, :KILLED] = 0
+
+
+def arena_fused_phase(torch, np, dev, tag):
+    """Arena's K1 against plain_batch (T = 60 with the reduction cache, T = 1
+    inline), a divergence probe per mode, and K1's times. Returns (scripts,
+    plain final carries, entries keyed by shape)."""
+    from ggrs_tpu_torch import Arena
+    from ggrs_tpu_torch.convert import CARRY_KEYS, copy_carry
+    from ggrs_tpu_torch.device import sync_test
+    from ggrs_tpu_torch.device.fused_core import FusedSyncTestCore, plain_batch
+    from ggrs_tpu_torch.device.planes import PlaneContext
+
+    rng = np.random.default_rng(4096)
+
+    def arena_script(t, players, input_size):
+        raw = rng.integers(0, 64, size=(t, players, input_size), dtype=np.uint8)
+        if input_size == 2:
+            raw[..., 1] = rng.integers(0, 16, size=(t, players))
+        return raw
+
+    scripts = {key: [arena_script(t, p, i) for _ in range(b)] for key, p, _, i, _, t, b in ARENA_SHAPES}
+    plain_final, entries = {}, {}
+    for key, players, n, input_size, d, t_ticks, batches in ARENA_SHAPES:
+        ctx = PlaneContext(Arena(players, n, input_size), players, d, dev)
+        core = FusedSyncTestCore(ctx)
+        kc = sync_test.initial_carry(ctx)
+        pc = copy_carry(kc)
+        err = 0
+        for raw in scripts[key]:
+            inputs = torch.from_numpy(raw.astype(np.int32)).to(dev)
+            core.batch(kc, inputs)
+            plain_batch(pc, inputs, ctx)
+            torch.cuda.synchronize()
+            err = max(err, carry_err(torch, kc, pc, CARRY_KEYS))
+            if err:
+                fail(f"{key}: arena K1 and plain version differ (max abs err {err})")
+        print(f"{key}: synctest_fused (arena, cached reductions) == plain after each of {batches} batch(es) "
+              f"({players} players, {n} entities, input_size {input_size}, d={d}, T={t_ticks}) {tag}")
+        plain_final[key] = copy_carry(pc)
+
+        c = int(kc["meta"][0])
+        probe = [copy_carry(kc), copy_carry(pc)]
+        for carry in probe:
+            kill(carry, d, ctx.ring_len)
+        inputs = torch.from_numpy(scripts[key][0].astype(np.int32)).to(dev)
+        core.batch(probe[0], inputs)
+        plain_batch(probe[1], inputs, ctx)
+        torch.cuda.synchronize()
+        latched = [carry["meta"].tolist() for carry in probe]
+        if latched[0] != latched[1] or latched[0][1] != 1 or latched[0][2] != c - d + 1:
+            fail(f"{key}: arena divergence probe latched {latched}, expected frame {c - d + 1} on both")
+        if carry_err(torch, probe[0], probe[1], CARRY_KEYS):
+            fail(f"{key}: arena K1 and plain version differ after the divergence probe")
+        print(f"{key}: divergence probe (hp = 0 for {KILLED} entities): both latched frame {c - d + 1}")
+        del probe
+
+        if key in ARENA_TIMED:
+            timed, ptimed = copy_carry(kc), copy_carry(pc)
+            b_ms, b_by = arena_bound(n, players, d, t_ticks, int(timed["meta"][0]))
+            ms = events_ms(torch, lambda: core.batch(timed, inputs), ARENA_TIMED[key])
+            plain_ms = events_ms(torch, lambda: plain_batch(ptimed, inputs, ctx), 1)
+            print(f"{key}: synctest_fused (arena) {ms:.4f} ms/batch vs plain {plain_ms:.1f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}) {tag}")
+            entries[key] = {
+                "name": "synctest_fused_arena", "route": "cuda",
+                "source": "ggrs_tpu_torch/csrc/synctest_fused.cu",
+                "replaces": "ggrs_tpu/tpu/pallas_core.py:979",
+                "tpu_counterpart": "PallasSyncTestCore._build with ArenaPlanes (reduction cache)",
+                "shape": f"Arena({players}, {n}), d={d}, T={t_ticks}",
+                "max_abs_err": err, "bit_equal": err == 0,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "launches": 0,
+            }
+            del timed, ptimed
+        del kc, pc
+
+    # T == 1: inline reductions before every step, d+1 grid barriers a tick
+    _, players, n, _, d, _, _ = ARENA_SHAPES[0]
+    ctx = PlaneContext(Arena(players, n), players, d, dev)
+    core = FusedSyncTestCore(ctx)
+    kc = sync_test.initial_carry(ctx)
+    pc = copy_carry(kc)
+    ticks = arena_script(ARENA_T1_BATCHES + 1, players, 1)
+    err = 0
+    for k in range(ARENA_T1_BATCHES + 1):
+        if k == ARENA_T1_BATCHES:
+            c = int(kc["meta"][0])
+            plain_final["a1_4096_t1"] = copy_carry(pc)
+            for carry in (kc, pc):
+                kill(carry, d, ctx.ring_len)
+        inputs = torch.from_numpy(ticks[k:k + 1].astype(np.int32)).to(dev)
+        core.batch(kc, inputs)
+        plain_batch(pc, inputs, ctx)
+        torch.cuda.synchronize()
+        err = max(err, carry_err(torch, kc, pc, CARRY_KEYS))
+        if err:
+            fail(f"a1_4096 T=1: arena K1 and plain version differ at tick {k} (max abs err {err})")
+    if kc["meta"].tolist() != [c + 1, 1, c - d + 1]:
+        fail(f"a1_4096 T=1: divergence probe latched {kc['meta'].tolist()}, expected frame {c - d + 1}")
+    print(f"a1_4096 T=1: synctest_fused (arena, inline reductions) == plain after each of "
+          f"{ARENA_T1_BATCHES + 1} single-tick batches; divergence probe latched frame {c - d + 1} on both {tag}")
+    ms = queued_ms(torch, lambda: core.batch(kc, inputs), TIMED_LAUNCHES)
+    b2b_ms = events_ms(torch, lambda: core.batch(kc, inputs), TIMED_LAUNCHES)
+    plain_ms = events_ms(torch, lambda: plain_batch(pc, inputs, ctx), 1)
+    b_ms, b_by = arena_bound(n, players, d, 1, d + 1)
+    print(f"a1_4096 T=1: synctest_fused (arena) {ms:.4f} ms per single-tick launch on the card "
+          f"({b2b_ms:.4f} ms launched back to back from Python) vs plain {plain_ms:.1f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}) {tag}")
+    entries["a1_4096_t1"] = {
+        "name": "synctest_fused_arena", "route": "cuda",
+        "source": "ggrs_tpu_torch/csrc/synctest_fused.cu",
+        "replaces": "ggrs_tpu/tpu/pallas_core.py:979",
+        "tpu_counterpart": "PallasSyncTestCore._build with ArenaPlanes (inline, T == 1)",
+        "shape": f"Arena({players}, {n}), d={d}, T=1",
+        "max_abs_err": err, "bit_equal": err == 0,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "launches": 0, "ms_back_to_back": b2b_ms,
+    }
+    scripts["a1_4096_t1"] = [ticks[k:k + 1] for k in range(ARENA_T1_BATCHES)]
+    return scripts, plain_final, entries
+
+
+def library_reduce_ms(torch, carry, slots, players, reps):
+    """One PyTorch call computing K5's function: a masked index_add_ of
+    [S, N, 3] columns (1, px >> 6, py >> 6 of the living) over the owner
+    index into [S, P, 3]. The columns and the index are built beforehand
+    and left out of the time."""
+    from ggrs_tpu_torch.device.reduce_core import STATE
+
+    src = torch.stack([carry["state"] if s == STATE else carry["ring"][s] for s in slots])
+    alive = (src[:, 4] > 0).to(torch.int32)
+    cols = torch.stack([alive, alive * (src[:, 0] >> 6), alive * (src[:, 1] >> 6)], dim=-1).contiguous()
+    owner = torch.arange(src.shape[-1], device=src.device) % players
+    out = torch.zeros((len(slots), players, 3), dtype=torch.int32, device=src.device)
+    return queued_ms(torch, lambda: out.index_add_(1, owner, cols), reps)
+
+
+def reduce_and_injected_phase(torch, np, dev, tag):
+    """K5 against plain_reduce_table, then the injection route against its
+    plain twin on the card, a divergence probe, and the K5 / K2 / verdict
+    times. Returns (twin final carries, scripts, entries keyed by name and shape)."""
+    from ggrs_tpu_torch import Arena
+    from ggrs_tpu_torch.convert import CARRY_KEYS, copy_carry
+    from ggrs_tpu_torch.device import sync_test
+    from ggrs_tpu_torch.device.injected_core import InjectedReduceCore
+    from ggrs_tpu_torch.device.planes import PlaneContext
+    from ggrs_tpu_torch.device.reduce_core import STATE, plain_reduce_table, source_slots
+    from ggrs_tpu_torch.device.tiled_core import plain_parts
+
+    rng = np.random.default_rng(3491)
+    scripts = {key: rng.integers(0, 64, size=(ticks, p, 1), dtype=np.uint8)
+               for key, p, _, _, ticks in INJECTED_SHAPES}
+    twin_final, entries = {}, {}
+    for key, players, n, d, ticks in INJECTED_SHAPES:
+        ctx = PlaneContext(Arena(players, n), players, d, dev)
+        core, twin = InjectedReduceCore(ctx), plain_injected(ctx)
+        kc = sync_test.initial_carry(ctx)
+        pc = copy_carry(kc)
+        err = 0
+        for start in range(0, ticks, INJECTED_BATCH):
+            inputs = torch.from_numpy(scripts[key][start:start + INJECTED_BATCH].astype(np.int32)).to(dev)
+            core.batch(kc, inputs, frame=start)
+            twin.batch(pc, inputs, frame=start)
+            torch.cuda.synchronize()
+            err = max(err, carry_err(torch, kc, pc, CARRY_KEYS))
+            if err:
+                fail(f"{key}: the injection route and its plain twin differ (max abs err {err})")
+        print(f"{key}: injection route (reduce_table + synctest_tiled_arena + verdict) == plain twin over "
+              f"{ticks} ticks across frame d={d} ({players} players, {n} entities) {tag}")
+        twin_final[key] = copy_carry(pc)
+
+        # K5 alone, over the d+1 sources of the next tick and over the state,
+        # on a copy with dead entities in every source
+        dead = copy_carry(kc)
+        dead["state"][4, 1::5] = 0
+        dead["ring"][:, 4, 2::7] = 0
+        k5_err = 0
+        for slots in (source_slots(ticks, d, ctx.ring_len), (STATE,)):
+            got = core.reduce.gather(dead["ring"], dead["state"], slots)
+            want = plain_reduce_table(torch.stack([dead["state"] if s == STATE else dead["ring"][s]
+                                                   for s in slots]), ctx)
+            torch.cuda.synchronize()
+            k5_err = max(k5_err, carry_err(torch, {"t": got}, {"t": want}, "t"))
+            if k5_err:
+                fail(f"{key}: reduce_table and plain_reduce_table differ over {len(slots)} sources")
+            S = len(slots)
+            ms = queued_ms(torch, lambda: core.reduce.gather(dead["ring"], dead["state"], slots), TIMED_LAUNCHES)
+            plain_ms = events_ms(torch, lambda: plain_reduce_table(
+                torch.stack([dead["state"] if s == STATE else dead["ring"][s] for s in slots]), ctx), 1)
+            lib_ms = library_reduce_ms(torch, dead, slots, players, TIMED_LAUNCHES)
+            b_ms, b_by = least(12 * n * S + 4 * S * 3 * players, n * S * team_ops(players))
+            print(f"{key}: reduce_table == plain over S={S} source(s); {ms:.4f} ms per launch on the card vs "
+                  f"plain {plain_ms:.2f} ms, masked index_add_ {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}) {tag}")
+            entries[("reduce_table", key, S)] = {
+                "name": "reduce_table", "route": "cuda",
+                "source": "ggrs_tpu_torch/csrc/reduce_table.cu",
+                "replaces": "ggrs_tpu/tpu/pallas_tiled.py:612",
+                "tpu_counterpart": "PallasTiledSyncTestCore._build_reduce_table",
+                "shape": f"Arena({players}, {n}), S={S} sources",
+                "max_abs_err": k5_err, "bit_equal": k5_err == 0,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_ms, "launches": 0,
+            }
+
+        # divergence probe through the route
+        c = int(kc["meta"][0])
+        probe = [copy_carry(kc), copy_carry(pc)]
+        for carry in probe:
+            kill(carry, d, ctx.ring_len)
+        inputs = torch.from_numpy(scripts[key][:10].astype(np.int32)).to(dev)
+        core.batch(probe[0], inputs, frame=c)
+        twin.batch(probe[1], inputs, frame=c)
+        torch.cuda.synchronize()
+        latched = [carry["meta"].tolist() for carry in probe]
+        if latched[0] != latched[1] or latched[0][1] != 1 or latched[0][2] != c - d + 1:
+            fail(f"{key}: injection-route divergence probe latched {latched}, expected frame {c - d + 1}")
+        if carry_err(torch, probe[0], probe[1], CARRY_KEYS):
+            fail(f"{key}: the injection route and its plain twin differ after the divergence probe")
+        print(f"{key}: divergence probe (hp = 0 for {KILLED} entities): both latched frame {c - d + 1}")
+        del probe
+
+        # K2 alone on one tick's table, and the verdict on its parts
+        timed = copy_carry(kc)
+        red = core.reduce.reduce_sources(timed, c)
+        one = inputs[:1]
+        ms = queued_ms(torch, lambda: core.tiled.run_kernel(timed, one, red_raw=red), TIMED_LAUNCHES)
+        b2b_ms = events_ms(torch, lambda: core.tiled.run_kernel(timed, one, red_raw=red), TIMED_LAUNCHES)
+        rows = [ctx.adapter.reduce_finalize(r) for r in red]
+        ptimed = copy_carry(timed)
+        plain_ms = events_ms(torch, lambda: plain_parts(ptimed, one, ctx, red_of=lambda f, i: rows[i]), 1)
+        b_ms, b_by = arena_bound(n, players, d, 1, c, reduces=False)
+        print(f"{key}: synctest_tiled (arena, injected table) {ms:.4f} ms per tick on the card ({b2b_ms:.4f} ms "
+              f"launched back to back from Python) vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}) {tag}")
+        entries[("synctest_tiled_arena", key)] = {
+            "name": "synctest_tiled_arena", "route": "cuda",
+            "source": "ggrs_tpu_torch/csrc/synctest_tiled.cu",
+            "replaces": "ggrs_tpu/tpu/pallas_tiled.py:428",
+            "tpu_counterpart": "PallasTiledSyncTestCore._build, external_reduce",
+            "shape": f"Arena({players}, {n}), d={d}, T=1 on red_raw [d+1, {3 * players}]",
+            "max_abs_err": err, "bit_equal": err == 0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "launches": 0, "ms_back_to_back": b2b_ms,
+        }
+        parts = core.tiled.run_kernel(timed, one, red_raw=red)
+        vcarry, pcarry = copy_carry(timed), copy_carry(timed)
+        v_ms = queued_ms(torch, lambda: core.tiled.verdict(vcarry, *parts), TIMED_LAUNCHES)
+        v_plain_ms = events_ms(torch, lambda: PlainTiled(ctx).verdict(pcarry, *parts), 1)
+        v_bytes = 4 * (2 * d + 6 * ctx.hist_len + 6)
+        v_b, v_by = least(v_bytes, 12 * d)
+        entries[("synctest_verdict", key)] = {
+            "name": "synctest_verdict", "route": "cuda",
+            "source": "ggrs_tpu_torch/csrc/synctest_tiled.cu",
+            "replaces": "ggrs_tpu/tpu/pallas_tiled.py:468",
+            "tpu_counterpart": "PallasTiledSyncTestCore._verdict, one tick of the injection route",
+            "shape": f"T=1, d={d} events",
+            "max_abs_err": err, "bit_equal": err == 0,
+            "ms": v_ms, "plain_ms": v_plain_ms, "bound_ms": v_b, "bound_by": v_by,
+            "library_ms": None, "launches": 0,
+        }
+        del timed, ptimed, vcarry, pcarry, dead, kc, pc
+    return twin_final, scripts, entries
+
+
+def arena_main_path_phase(torch, np, dev, tag, fused_scripts, fused_final, injected_scripts, injected_final,
+                          fused_entries, injected_entries):
+    """Arena's main path through the session: auto -> K1 at 4096 and 65536,
+    and backend="cuda-tiled" (the injection route) at 4096 and 65536."""
+    from ggrs_tpu_torch import Arena, DeviceSyncTestSession
+    from ggrs_tpu_torch.convert import CARRY_KEYS
+
+    def pct(v, q):
+        v = sorted(v)
+        return v[min(len(v) - 1, (len(v) * q) // 100)]
+
+    runs = []
+    for key, players, n, input_size, d, t_ticks, batches in ARENA_SHAPES:
+        if key not in ARENA_MAIN_BATCHES:
+            continue
+        sess = DeviceSyncTestSession(Arena(players, n, input_size), players, d, backend="auto", device=dev)
+        if sess.backend != "cuda-fused":
+            fail(f"{key}: auto chose {sess.backend} for arena, expected cuda-fused")
+        sess.core.launches = 0
+        for raw in fused_scripts[key]:
+            sess.advance_frames(raw)
+        sess.block_until_ready()
+        launches = sess.core.launches
+        if launches < 1:
+            fail(f"{key}: the arena main path launched no K1 kernel")
+        if carry_err(torch, sess.carry, fused_final[key], CARRY_KEYS):
+            fail(f"{key}: the arena main path's carry differs from the plain version's")
+        sess.check()
+        state = sess.state_numpy()
+        if state["pos"].shape != (n, 2) or state["hp"].shape != (n,) or int(state["frame"]) != t_ticks * batches:
+            fail(f"{key}: arena state has the wrong shape or frame")
+        reps = ARENA_MAIN_BATCHES[key]
+        samples = [events_ms(torch, lambda: sess.advance_frames(fused_scripts[key][-1]), 1) for _ in range(reps)]
+        sess.check()
+        ms, p90 = pct(samples, 50), pct(samples, 90)
+        rate = t_ticks * d / (ms / 1e3)
+        fused_entries[key]["launches"] = launches
+        print(f"arena main path {key}: auto -> {sess.backend}, {launches} K1 launches over {batches} batches, "
+              f"then median {ms:.4f} ms/batch (p90 {p90:.4f}, n={reps}), {rate:.1f} rollback-frames/s {tag}")
+        runs.append({"key": key, "backend": sess.backend, "ms_per_batch_p50": ms, "ms_per_batch_p90": p90,
+                     "samples": reps, "rollback_frames_per_s_p50": rate, "launches": launches})
+        del sess
+
+    # single-tick batches: K1 with inline reductions, as a per-tick caller drives it
+    _, players, n, _, d, _, _ = ARENA_SHAPES[0]
+    sess = DeviceSyncTestSession(Arena(players, n), players, d, backend="auto", device=dev)
+    sess.core.launches = 0
+    for raw in fused_scripts["a1_4096_t1"]:
+        sess.advance_frames(raw)
+    sess.block_until_ready()
+    launches = sess.core.launches
+    if launches < 1 or carry_err(torch, sess.carry, fused_final["a1_4096_t1"], CARRY_KEYS):
+        fail(f"a1_4096 T=1: the main path launched {launches} K1 kernels or ended apart from the plain version")
+    sess.check()
+    fused_entries["a1_4096_t1"]["launches"] = launches
+    print(f"arena main path a1_4096 T=1: auto -> {sess.backend}, {launches} single-tick K1 launches, "
+          f"carry == plain {tag}")
+    del sess
+
+    for key, players, n, d, ticks in INJECTED_SHAPES:
+        sess = DeviceSyncTestSession(Arena(players, n), players, d, backend="cuda-tiled", device=dev)
+        core = sess.core
+        core.tiled.launches = core.tiled.verdict_launches = core.reduce.launches = 0
+        for start in range(0, ticks, INJECTED_BATCH):
+            sess.advance_frames(injected_scripts[key][start:start + INJECTED_BATCH])
+        sess.block_until_ready()
+        counts = {"synctest_tiled_arena": core.tiled.launches, "synctest_verdict": core.tiled.verdict_launches,
+                  "reduce_table": core.reduce.launches}
+        if min(counts.values()) < 1:
+            fail(f"{key}: the injection route launched no kernel of one kind: {counts}")
+        if carry_err(torch, sess.carry, injected_final[key], CARRY_KEYS):
+            fail(f"{key}: the injection route's carry differs from the plain twin's")
+        sess.check()
+        if int(sess.state_numpy()["frame"]) != ticks:
+            fail(f"{key}: the injection route ended at the wrong frame")
+        reps = INJECTED_MAIN_BATCHES[key]
+        batch = injected_scripts[key][-INJECTED_BATCH:]
+        samples = [events_ms(torch, lambda: sess.advance_frames(batch), 1) / INJECTED_BATCH for _ in range(reps)]
+        sess.check()
+        ms, p90 = pct(samples, 50), pct(samples, 90)
+        rate = d / (ms / 1e3)
+        for (name, k, *_), e in injected_entries.items():
+            if k == key:
+                e["launches"] = counts[name]
+        print(f"arena main path {key}: cuda-tiled (injection route), launches {counts} over {ticks} ticks, "
+              f"then median {ms:.4f} ms/tick (p90 {p90:.4f}, {reps} batches of {INJECTED_BATCH}), "
+              f"{rate:.1f} rollback-frames/s {tag}")
+        runs.append({"key": key, "backend": "cuda-tiled", "ms_per_tick_p50": ms, "ms_per_tick_p90": p90,
+                     "samples": reps, "rollback_frames_per_s_p50": rate, "launches": counts})
+        del sess
+    return runs
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -935,11 +1415,18 @@ def main() -> None:
     beam_errs = beam_phase(torch, np, dev, tag)
     beam_path, beam_entries = beam_path_phase(torch, np, dev, tag, beam_errs)
 
+    # -- phases 8 and 9: arena on K1, K5 and the injection route, then its main path
+    fused_scripts, fused_final, fused_entries = arena_fused_phase(torch, np, dev, tag)
+    injected_final, injected_scripts, injected_entries = reduce_and_injected_phase(torch, np, dev, tag)
+    arena_path = arena_main_path_phase(torch, np, dev, tag, fused_scripts, fused_final, injected_scripts,
+                                       injected_final, fused_entries, injected_entries)
+    arena_entries = list(fused_entries.values()) + list(injected_entries.values())
+
     for e in entries:
         e.pop("key")
-    entries += tick_entries + beam_entries
+    entries += tick_entries + beam_entries + arena_entries
     print(json.dumps({"card": card, "main_path": main_path, "request_path": request_path,
-                      "beam_path": beam_path}))
+                      "beam_path": beam_path, "arena_path": arena_path}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

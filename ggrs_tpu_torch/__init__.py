@@ -5,7 +5,11 @@ Slice 1 holds the fused SyncTest loop for the ex_game family: the
 K2 entity-tiled) and their plain PyTorch versions. Slice 2 holds the
 request path: a host `SyncTestSession` (built by `SessionBuilder`) emits
 Save/Load/Advance requests, and `DeviceRollbackBackend` fulfils each tick
-as one dispatch of `ResimCore`'s packed control-word tick (K3). The
+as one dispatch of `ResimCore`'s packed control-word tick (K3). Slice 3
+adds beam speculation (K4). Slice 4 adds the arena family (`Arena`, with a
+per-team cross-entity reduction every frame) on the fused SyncTest path:
+K1 with grid barriers, and the injected-reduction route of K5 (the
+reduction table) and K2. The
 package imports torch and numpy, never jax and nothing of `ggrs_tpu`; its
 entry points run on CUDA unless the caller passes device="cpu".
 """
@@ -24,6 +28,7 @@ from .errors import (
     RegistryMiss,
     TypeContractError,
 )
+from .models.arena import Arena
 from .models.ex_game import ExGame
 from .sessions.builder import SessionBuilder
 from .sessions.sync_test_session import SyncTestSession
@@ -31,6 +36,7 @@ from .types import AdvanceFrame, InputStatus, LoadGameState, SaveGameState
 
 __all__ = [
     "AdvanceFrame",
+    "Arena",
     "ConfigError",
     "ContractViolation",
     "DeviceRollbackBackend",

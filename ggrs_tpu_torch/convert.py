@@ -9,11 +9,13 @@ as a pytree; as numpy (`jax.device_get`) it is
     input_ring u8[d+2,P,I], h_tag i32[H], h_hi u32[H], h_lo u32[H],
     mismatch bool[], mismatch_frame i32[], frame i32[]
 
-with R = H = d+2. The port keeps it as packed SoA planes, so the kernels
-read coalesced columns:
+for ex_game (arena's state and ring hold pos, vel, hp i32[N] and energy
+i32[N] instead), with R = H = d+2. The port keeps it as packed SoA
+planes, so the kernels read coalesced columns:
 
-    state   i32[5,N]     planes px, py, vx, vy, rot
-    ring    i32[R,5,N]
+    state   i32[K,N]     K planes: px, py, vx, vy, rot (ex_game) or
+                         px, py, vx, vy, hp, energy (arena)
+    ring    i32[R,K,N]
     r_frame i32[R]       the ring's frame tags
     iring   i32[d+2,P,I]
     h_tag, h_hi, h_lo i32[H]  (h_hi/h_lo hold the uint32 bit patterns)
@@ -22,7 +24,9 @@ read coalesced columns:
 The state's own frame is not stored: it always equals the tick frame
 (meta[0]), as in the reference. Every backend updates the carry IN PLACE
 (the tiled kernel swaps in a new `iring` tensor), so a caller that keeps a
-carry across batches must copy it (`copy_carry`).
+carry across batches must copy it (`copy_carry`). The game's plane layout
+follows from the leaves themselves (`planes.layout_of`): the state's keys
+one way, its plane count the other.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .device.planes import ExGamePlanes, pack_planes, rebuild_from_planes
+from .device.planes import layout_of, pack_planes, rebuild_from_planes
 from .errors import ConfigError
 
 CARRY_KEYS = ("state", "ring", "r_frame", "iring", "h_tag", "h_hi", "h_lo", "meta")
@@ -48,7 +52,7 @@ def carry_from_reference(np_carry, device) -> Dict[str, torch.Tensor]:
         return torch.from_numpy(np.array(a, dtype=dtype))
 
     def planes(tree):
-        return pack_planes(ExGamePlanes, {k: t(v) for k, v in tree.items() if k != "frame"})
+        return pack_planes(layout_of(keys=tree), {k: t(v) for k, v in tree.items() if k != "frame"})
 
     carry = {
         "state": planes(np_carry["state"]),
@@ -66,7 +70,7 @@ def carry_from_reference(np_carry, device) -> Dict[str, torch.Tensor]:
 def planes_to_reference(planes: torch.Tensor, frame_leaf) -> dict:
     """Packed planes (on any device) -> reference-layout numpy leaves, with
     `frame_leaf` as the `frame` leaf."""
-    leaves = rebuild_from_planes(ExGamePlanes, planes.detach().cpu())
+    leaves = rebuild_from_planes(layout_of(n_planes=planes.shape[-2]), planes.detach().cpu())
     out = {k: v.numpy().astype(np.int32) for k, v in leaves.items()}
     out["frame"] = frame_leaf
     return out
@@ -122,7 +126,8 @@ def resim_from_reference(ring, state, verify, device="cpu") -> Dict[str, torch.T
 
     def planes(tree):
         return pack_planes(
-            ExGamePlanes, {k: torch.from_numpy(np.array(v, dtype=np.int32)) for k, v in tree.items() if k != "frame"}
+            layout_of(keys=tree),
+            {k: torch.from_numpy(np.array(v, dtype=np.int32)) for k, v in tree.items() if k != "frame"},
         )
 
     carry = {

@@ -1,12 +1,20 @@
-// The SyncTest batch body shared by the whole-batch kernel
-// (synctest_fused.cu) and the entity-tiled kernel (synctest_tiled.cu).
+// The SyncTest batch body shared by the whole-batch kernels
+// (synctest_fused.cu) and the entity-tiled kernels (synctest_tiled.cu), for
+// every model: the model's state, load/store and checksum terms come in as
+// a traits struct (ExGameModel here, arena::Model in arena_step.cuh), and
+// its step as a stepper object, which also owns whatever the step needs
+// besides the entity's own state and its owner's input (arena's per-team
+// centroids: cached, inline or injected).
 //
 // One thread owns one entity for the whole batch of T ticks: its state stays
 // in registers, and it reads and writes only its own column of the snapshot
-// ring, so no thread ever waits on another for state. Per tick it does what
-// the reference's tick does (ggrs_tpu/tpu/sync_test.py:261-298): once past
-// check_distance d, load frame c-d from the ring, resimulate d frames while
-// re-saving frames c-d+1..c-1, then save frame c and step with the new input.
+// ring. Per tick it does what the reference's tick does
+// (ggrs_tpu/tpu/sync_test.py:261-298): once past check_distance d, load frame
+// c-d from the ring, resimulate d frames while re-saving frames c-d+1..c-1,
+// then save frame c and step with the new input. A stepper may make blocks
+// wait for each other (arena's grid barriers); every thread of the grid then
+// runs the same sequence of steps, active or not, which this loop guarantees
+// (c, d and T are uniform).
 //
 // Each save is a checksum EVENT. The event layout is the reference tiled
 // kernel's (ggrs_tpu/tpu/pallas_tiled.py:25-28): for tick t (frame c=c0+t)
@@ -23,16 +31,60 @@
 constexpr int kBlock = 128;  // entities per block
 constexpr int kWarps = kBlock / 32;
 
+template <class Weights>
 struct SyncTestArgs {
-  int* state;          // [5, n] live world, updated in place
-  int* ring;           // [d+2, 5, n] snapshot ring, updated in place
+  int* state;          // [planes, n] live world, updated in place
+  int* ring;           // [d+2, planes, n] snapshot ring, updated in place
   const int* iring;    // [d+2, P, I] input ring as the batch found it
   const int* inputs;   // [T, P, I] the batch's inputs
   const int* meta;     // meta[0]: frame of the batch's first tick
   uint32_t* parts_hi;  // [T, d] zeroed before launch
   uint32_t* parts_lo;  // [T, d]
   int n, num_players, input_size, d, t_ticks, substeps;
-  exg::Weights cw;
+  Weights cw;
+};
+
+// checksum weights from the launchers' int32 array: w[K], base[K], frame weight
+template <class Weights, int K>
+inline Weights weights_from(const int* cs) {
+  Weights cw;
+  for (int k = 0; k < K; ++k) {
+    cw.w[k] = (uint32_t)cs[k];
+    cw.base[k] = (uint32_t)cs[K + k];
+  }
+  cw.frame_weight = (uint32_t)cs[2 * K];
+  return cw;
+}
+
+// ex_game's traits and stepper: no reduction, the step reads input byte 0
+struct ExGameModel {
+  static constexpr int kPlanes = exg::kPlanes;
+  using State = exg::State;
+  using Weights = exg::Weights;
+  static __device__ __forceinline__ State load(const int* p, size_t n, size_t e) {
+    return exg::load(p, n, e);
+  }
+  static __device__ __forceinline__ void store(int* p, size_t n, size_t e, const State& s) {
+    exg::store(p, n, e, s);
+  }
+  static __device__ __forceinline__ void entity_weights(const Weights& cw, uint32_t gi,
+                                                        uint32_t (&ew)[kPlanes]) {
+    exg::entity_weights(cw, gi, ew);
+  }
+  static __device__ __forceinline__ void checksum_terms(const State& s, const uint32_t (&ew)[kPlanes],
+                                                        uint32_t& hi, uint32_t& lo) {
+    exg::checksum_terms(s, ew, hi, lo);
+  }
+};
+
+struct ExGameStepper {
+  int substeps;
+  __device__ __forceinline__ void seed(const exg::State&, bool) {}
+  // f: the frame stepped; i: the resim step's index (d: the frontier step)
+  __device__ __forceinline__ void step(exg::State& s, bool, const int* in, int, int) {
+    exg::step(s, in[0], substeps);
+  }
+  __device__ __forceinline__ void frontier_done(const exg::State&, bool, int, int) {}
 };
 
 // dynamic shared memory the body needs: red[2 ticks][hi, lo][d][warps]
@@ -44,30 +96,34 @@ __device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
   return v;
 }
 
-__device__ void synctest_entity_batch(const SyncTestArgs& a, uint32_t* red) {
+template <class M, class Stepper>
+__device__ void synctest_entity_batch(const SyncTestArgs<typename M::Weights>& a, uint32_t* red,
+                                      Stepper& st) {
+  using State = typename M::State;
   const int e = blockIdx.x * kBlock + threadIdx.x;
   const bool active = e < a.n;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int d = a.d, ring_len = d + 2, row = a.num_players * a.input_size;
-  const int owner_col = (e % a.num_players) * a.input_size;  // byte 0 of the owner's input
+  const int owner_col = (e % a.num_players) * a.input_size;  // the owner's input bytes
   const int c0 = a.meta[0];
-  const size_t n = (size_t)a.n, slot_stride = (size_t)exg::kPlanes * n;
+  const size_t n = (size_t)a.n, slot_stride = (size_t)M::kPlanes * n;
 
-  uint32_t ew[exg::kPlanes];
-  exg::entity_weights(a.cw, (uint32_t)e, ew);
-  exg::State s = active ? exg::load(a.state, n, e) : exg::State{0, 0, 0, 0, 0};
+  uint32_t ew[M::kPlanes];
+  M::entity_weights(a.cw, (uint32_t)e, ew);
+  State s = active ? M::load(a.state, n, e) : State{};
+  st.seed(s, active);
 
   // input of frame f: this batch's inputs for f >= c0, else the input ring
   // (it holds frames c0-d-2..c0-1, every frame a rollback can reach back to)
-  auto input_of = [&](int f) -> int {
+  auto input_of = [&](int f) -> const int* {
     const int* r = f >= c0 ? a.inputs + (size_t)(f - c0) * row : a.iring + (size_t)(f % (d + 2)) * row;
-    return r[owner_col];
+    return r + owner_col;
   };
-  auto save = [&](const exg::State& st, int f, int t, int j) {
+  auto save = [&](const State& state, int f, int t, int j) {
     uint32_t hi = 0, lo = 0;
     if (active) {
-      exg::store(a.ring + (size_t)(f % ring_len) * slot_stride, n, e, st);
-      exg::checksum_terms(st, ew, hi, lo);
+      M::store(a.ring + (size_t)(f % ring_len) * slot_stride, n, e, state);
+      M::checksum_terms(state, ew, hi, lo);
     }
     hi = warp_sum(hi);
     lo = warp_sum(lo);
@@ -82,15 +138,16 @@ __device__ void synctest_entity_batch(const SyncTestArgs& a, uint32_t* red) {
     const int c = c0 + t;
     if (c > d) {  // forced rollback (uniform across the grid: c is shared)
       const int base = c - d;
-      if (active) s = exg::load(a.ring + (size_t)(base % ring_len) * slot_stride, n, e);
+      if (active) s = M::load(a.ring + (size_t)(base % ring_len) * slot_stride, n, e);
       for (int i = 0; i < d; ++i) {
         const int f = base + i;
         if (i > 0) save(s, f, t, i - 1);
-        exg::step(s, input_of(f), a.substeps);
+        st.step(s, active, input_of(f), f, i);
       }
     }
     save(s, c, t, d - 1);
-    exg::step(s, a.inputs[(size_t)t * row + owner_col], a.substeps);
+    st.step(s, active, a.inputs + (size_t)t * row + owner_col, c, d);
+    st.frontier_done(s, active, c, t);
 
     // one barrier per tick; the double buffer (t & 1) keeps the next tick's
     // writers off the buffer this tick's readers still sum
@@ -108,7 +165,7 @@ __device__ void synctest_entity_batch(const SyncTestArgs& a, uint32_t* red) {
       }
     }
   }
-  if (active) exg::store(a.state, n, e, s);
+  if (active) M::store(a.state, n, e, s);
 }
 
 // Ring-frame tags and the evolved input ring, by ONE thread: replays the

@@ -1,4 +1,5 @@
-// K1 — the whole-batch fused SyncTest kernel for ex_game on Hopper.
+// K1 — the whole-batch fused SyncTest kernel on Hopper, for ex_game and for
+// arena.
 //
 // Replaces: ggrs_tpu/tpu/pallas_core.py, PallasSyncTestCore._build (the
 // pallas_call at :979). One launch runs T SyncTest ticks: the masked load of
@@ -14,13 +15,33 @@
 // the history compare serially over the events in (t, j) order, with no
 // host round trip and no second launch.
 //
+// Arena adds a cross-entity reduction to every step: per team, the living
+// count and centroid of the state entering it. The reference's K1 computes
+// them as the whole-world sums its single VMEM-resident program can take;
+// here the world is spread over blocks that cannot see each other, so each
+// reduction is: block sums (warp shuffles) -> uint32 atomics into a global
+// raw table -> a GRID barrier -> every block finalizes the table itself
+// (scalar work for P teams, exact floor division) into shared memory. The
+// barrier needs every block resident at once, so arena's K1 is launched
+// cooperatively, after checking co-residency, and raises (nonzero return)
+// when the grid does not fit rather than deadlocking. With the reference's
+// per-frame cache (T > 1, pallas_core.py:789-801, :863-887, :936-944) a
+// batch pays 1 + (T-1) barriers: the seed (d+1 cached frames, from the ring
+// slots and the live state) and one per tick after the frontier step. With
+// T == 1 the reference reduces inline before every step, so does this
+// (d+1 barriers). A thread-block cluster with distributed shared memory
+// would replace the global round trip and the barrier for worlds of up to
+// 16 blocks (2048 entities) only; the headline world (4096) already needs
+// 32 blocks, so the simple grid-wide form is taken first.
+//
 // What bounds it on an H100: per batch each entity streams its state and
-// ring column once in and once out (4 B x 5 planes x (1 + d+2) x 2), which
+// ring column once in and once out (4 B x planes x (1 + d+2) x 2), which
 // is ~1.8 MB at 4096 entities, d=8 — microseconds at 3.35 TB/s. The work is
 // int32 ALU: ~T*(d+1) steps of ~100 dependent integer ops per entity, and
 // the d*T step chain is serial inside each thread. At 4096 entities only 32
 // blocks of 4 warps exist, a quarter of the 132 SMs with one block each, so
-// the kernel is bound by that serial chain's latency, not by any peak rate.
+// the kernel is bound by that serial chain's latency, not by any peak rate;
+// arena adds a grid barrier (a few microseconds of L2 round trips) per tick.
 //
 // Left for later: keeping each block's ring columns in shared memory (as
 // the reference tiled kernel keeps its tile in VMEM) instead of re-reading
@@ -29,18 +50,22 @@
 // the 132 SMs at 4096 entities; capturing the batch loop in a CUDA graph.
 #include <cuda_runtime.h>
 
+#include "arena_step.cuh"
 #include "synctest_body.cuh"
 
-__global__ void __launch_bounds__(kBlock) synctest_fused_kernel(SyncTestArgs a, int* r_frame,
-                                                                int* iring, int* h_tag, int* h_hi,
-                                                                int* h_lo, int* meta,
-                                                                uint32_t* done) {
-  extern __shared__ uint32_t smem[];
-  const int c0 = a.meta[0];
-  synctest_entity_batch(a, smem);
+// returned when arena's grid cannot be resident at once (no CUDA error has
+// this value): the caller raises instead of launching a kernel that would
+// wait forever at its first grid barrier
+constexpr int kNotCoResident = -1;
+// blocks per SM the arena kernel is built for (<= 64 registers a thread)
+constexpr int kArenaMinBlocksPerSm = 8;
 
-  // last-block-done: every thread fences its own parts atomics, then one
-  // ticket per block; the block that draws the last ticket sees all parts
+// The last block to finish runs the bookkeeping and the verdict: every
+// thread fences its own parts atomics, then one ticket per block; the block
+// that draws the last ticket sees all parts.
+template <class Weights>
+__device__ void finish_batch(const SyncTestArgs<Weights>& a, int c0, int* r_frame, int* iring,
+                             int* h_tag, int* h_hi, int* h_lo, int* meta, uint32_t* done, int* sh) {
   __shared__ bool is_last;
   __threadfence();
   __syncthreads();
@@ -52,7 +77,166 @@ __global__ void __launch_bounds__(kBlock) synctest_fused_kernel(SyncTestArgs a, 
   synctest_bookkeeping(r_frame, iring, iring, a.inputs, c0, a.t_ticks, a.d,
                        a.num_players * a.input_size);
   synctest_verdict(a.parts_hi, a.parts_lo, a.t_ticks, a.d, a.cw.frame_weight, h_tag, h_hi, h_lo,
-                   meta, reinterpret_cast<int*>(smem + body_smem_words(a.d)));
+                   meta, sh);
+}
+
+__global__ void __launch_bounds__(kBlock) synctest_fused_kernel(
+    SyncTestArgs<exg::Weights> a, int* r_frame, int* iring, int* h_tag, int* h_hi, int* h_lo,
+    int* meta, uint32_t* done) {
+  extern __shared__ uint32_t smem[];
+  const int c0 = a.meta[0];
+  ExGameStepper st{a.substeps};
+  synctest_entity_batch<ExGameModel>(a, smem, st);
+  finish_batch(a, c0, r_frame, iring, h_tag, h_hi, h_lo, meta, done,
+               reinterpret_cast<int*>(smem + body_smem_words(a.d)));
+}
+
+// A grid-wide barrier for a cooperatively launched grid: bar[0] counts the
+// blocks arrived, bar[1] is the generation; both zeroed before the launch.
+// The fences make every write a block made before the barrier (its
+// reduction atomics, its zeroing of a table row) visible to every block
+// after it. A block that waits more than ~10 s traps: the launch then fails
+// with an error instead of hanging the card.
+__device__ __forceinline__ void grid_sync(unsigned int* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned int* gen = bar + 1;
+    const unsigned int g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      for (long long spins = 0; *gen == g; ++spins) {
+        __nanosleep(100);
+        if (spins > (1ll << 27)) __trap();
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// What arena's grid-wide reduction steppers share: this entity's team and
+// the next team (its enemy), shared-memory scratch for block sums, the raw
+// table in global memory and the barrier.
+struct ArenaReduce {
+  arena::Team* fin;   // shared: finalized teams, [slots * P]
+  uint32_t* scratch;  // shared: 3 * kMaxTeams * kWarps words
+  uint32_t* raw;      // global: raw sums, [slots * 3P], zeroed before launch
+  unsigned int* bar;  // global: grid barrier
+  int num_players, input_size, team, enemy;
+
+  // add this block's sums of `s` to raw row `slot`
+  __device__ __forceinline__ void add(const arena::State& s, bool active, int slot) {
+    arena::block_team_sums<kWarps>(active, s.px, s.py, s.hp, team, num_players, scratch,
+                                   raw + (size_t)slot * 3 * num_players);
+  }
+  // after a grid barrier: finalize raw row `slot` into fin row `slot`
+  __device__ __forceinline__ void finalize(int slot) {
+    const int P = num_players;
+    for (int t = threadIdx.x; t < P; t += kBlock) {
+      const uint32_t* r = raw + (size_t)slot * 3 * P + 3 * t;  // atomics live in L2: read there
+      fin[slot * P + t] = arena::finalize((int)__ldcg(r), (int)__ldcg(r + 1), (int)__ldcg(r + 2));
+    }
+  }
+  // zero raw row `slot` (block 0 only)
+  __device__ __forceinline__ void zero(int slot) {
+    if (blockIdx.x == 0)
+      for (int j = threadIdx.x; j < 3 * num_players; j += kBlock) raw[(size_t)slot * 3 * num_players + j] = 0;
+  }
+  __device__ __forceinline__ void step(arena::State& s, const int* in, int slot) {
+    const int P = num_players;
+    arena::step(s, in[0], arena::throttle_of(in, input_size), fin[slot * P + team], fin[slot * P + enemy]);
+  }
+};
+
+// T > 1: the reference's per-frame cache. Frame f's reduction sits in row
+// f % M, M = d+3 rows (one more than the reference's d+2, so that the row
+// of frame c+2 can be zeroed during tick c while no block reads or adds to
+// it: tick c reads rows of frames c-d..c and adds to frame c+1's). Seeded
+// from ring slot f % (d+2) for frames c0-d..c0-1 and from the live state
+// for frame c0 — zero-initialised slots early in a session included, as
+// the reference seeds them; after each tick's frontier step the new state
+// is reduced into frame c+1's row. A resim step of frame f reads row f % M.
+struct ArenaCacheStepper : ArenaReduce {
+  const int* ring;
+  size_t n, slot_stride;
+  int e, d, c0, t_ticks, rows;
+
+  __device__ void seed(const arena::State& s, bool active) {
+    const int first = c0 - d > 0 ? c0 - d : 0;
+    for (int f = first; f <= c0; ++f) {
+      arena::State src = s;
+      if (f < c0 && active) src = arena::load(ring + (size_t)(f % (d + 2)) * slot_stride, n, e);
+      add(src, active, f % rows);
+    }
+    grid_sync(bar);
+    for (int f = first; f <= c0; ++f) finalize(f % rows);
+    __syncthreads();
+  }
+  __device__ __forceinline__ void step(arena::State& s, bool, const int* in, int f, int) {
+    ArenaReduce::step(s, in, f % rows);
+  }
+  __device__ void frontier_done(const arena::State& s, bool active, int c, int t) {
+    if (t == t_ticks - 1) return;  // no tick of this batch reads frame c+1's row
+    zero((c + 2) % rows);
+    add(s, active, (c + 1) % rows);
+    grid_sync(bar);
+    finalize((c + 1) % rows);
+    __syncthreads();
+  }
+};
+
+// T == 1: the reference reduces inline from the state entering every step.
+// Three raw rows rotate: while step k adds to row k % 3, block 0 zeroes row
+// (k+1) % 3 and slower blocks may still read row (k-1) % 3.
+struct ArenaInlineStepper : ArenaReduce {
+  int k;
+
+  __device__ __forceinline__ void seed(const arena::State&, bool) {}
+  __device__ void step(arena::State& s, bool active, const int* in, int, int) {
+    const int slot = k % 3;
+    zero((k + 1) % 3);
+    add(s, active, slot);
+    grid_sync(bar);
+    finalize(slot);
+    __syncthreads();
+    ArenaReduce::step(s, in, slot);
+    ++k;
+  }
+  __device__ __forceinline__ void frontier_done(const arena::State&, bool, int, int) {}
+};
+
+// dynamic shared memory of the arena kernel, in words: the body's, the
+// verdict's, the finalized teams and the block-sum scratch
+__host__ __device__ inline size_t arena_smem_words(int d, int rows, int num_players) {
+  return body_smem_words(d) + 3 * (size_t)(d + 2) + 3 * (size_t)rows * num_players +
+         3 * (size_t)arena::kMaxTeams * kWarps;
+}
+
+template <bool kCache>
+__global__ void __launch_bounds__(kBlock, kArenaMinBlocksPerSm) synctest_fused_arena_kernel(
+    SyncTestArgs<arena::Weights> a, int* r_frame, int* iring, int* h_tag, int* h_hi, int* h_lo,
+    int* meta, uint32_t* done, uint32_t* raw, unsigned int* bar, int rows) {
+  extern __shared__ uint32_t smem[];
+  const int c0 = a.meta[0];
+  const int e = blockIdx.x * kBlock + threadIdx.x;
+  const int P = a.num_players;
+  int* verdict_sh = reinterpret_cast<int*>(smem + body_smem_words(a.d));
+  uint32_t* fin_words = smem + body_smem_words(a.d) + 3 * (size_t)(a.d + 2);
+  ArenaReduce r{reinterpret_cast<arena::Team*>(fin_words), fin_words + 3 * (size_t)rows * P, raw,
+                bar, P, a.input_size, e % P, (e % P + 1) % P};
+  if (kCache) {
+    const size_t n = (size_t)a.n;
+    ArenaCacheStepper st{r, a.ring, n, (size_t)arena::kPlanes * n, e, a.d, c0, a.t_ticks, rows};
+    synctest_entity_batch<arena::Model>(a, smem, st);
+  } else {
+    ArenaInlineStepper st{r, 0};
+    synctest_entity_batch<arena::Model>(a, smem, st);
+  }
+  finish_batch(a, c0, r_frame, iring, h_tag, h_hi, h_lo, meta, done, verdict_sh);
 }
 
 // Returns the CUDA error of the scratch reset or the launch (0 on success).
@@ -67,28 +251,55 @@ extern "C" int synctest_fused_launch(int* state, int* ring, int* r_frame, int* i
   // scratch: parts_hi [T*d], parts_lo [T*d], done counter [1]
   cudaError_t err = cudaMemsetAsync(scratch, 0, (2 * events + 1) * sizeof(uint32_t), st);
   if (err != cudaSuccess) return (int)err;
-  SyncTestArgs a;
-  a.state = state;
-  a.ring = ring;
-  a.iring = iring;
-  a.inputs = inputs;
-  a.meta = meta;
-  a.parts_hi = scratch;
-  a.parts_lo = scratch + events;
-  a.n = n;
-  a.num_players = num_players;
-  a.input_size = input_size;
-  a.d = d;
-  a.t_ticks = t_ticks;
-  a.substeps = substeps;
-  for (int k = 0; k < exg::kPlanes; ++k) {
-    a.cw.w[k] = (uint32_t)cs[k];
-    a.cw.base[k] = (uint32_t)cs[exg::kPlanes + k];
-  }
-  a.cw.frame_weight = (uint32_t)cs[2 * exg::kPlanes];
+  SyncTestArgs<exg::Weights> a{state, ring, iring, inputs, meta, scratch, scratch + events,
+                               n, num_players, input_size, d, t_ticks, substeps,
+                               weights_from<exg::Weights, exg::kPlanes>(cs)};
   const int blocks = (n + kBlock - 1) / kBlock;
   const size_t smem = (body_smem_words(d) + 3 * (size_t)(d + 2)) * sizeof(uint32_t);
   synctest_fused_kernel<<<blocks, kBlock, smem, st>>>(a, r_frame, iring, h_tag, h_hi, h_lo, meta,
                                                       scratch + 2 * events);
+  return (int)cudaGetLastError();
+}
+
+// Number of rows of arena's raw reduction table for a batch of t_ticks.
+extern "C" int synctest_fused_arena_rows(int d, int t_ticks) { return t_ticks > 1 ? d + 3 : 3; }
+
+// The arena batch, launched cooperatively. scratch: parts_hi [T*d],
+// parts_lo [T*d], done counter [1], barrier [2], raw table
+// [rows * 3P] (rows from synctest_fused_arena_rows). Returns the CUDA error
+// of the reset, the occupancy query or the launch, or kNotCoResident.
+// cs: 13 int32 — checksum w[6], base[6], frame weight.
+extern "C" int synctest_fused_arena_launch(int* state, int* ring, int* r_frame, int* iring,
+                                           int* h_tag, int* h_hi, int* h_lo, int* meta,
+                                           const int* inputs, uint32_t* scratch, int n,
+                                           int num_players, int input_size, int d, int t_ticks,
+                                           const int* cs, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t events = (size_t)t_ticks * d;
+  const int rows = synctest_fused_arena_rows(d, t_ticks);
+  const size_t words = 2 * events + 3 + (size_t)rows * 3 * num_players;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, words * sizeof(uint32_t), st);
+  if (err != cudaSuccess) return (int)err;
+  SyncTestArgs<arena::Weights> a{state, ring, iring, inputs, meta, scratch, scratch + events,
+                                 n, num_players, input_size, d, t_ticks, 1,
+                                 weights_from<arena::Weights, arena::kPlanes>(cs)};
+  uint32_t* done = scratch + 2 * events;
+  unsigned int* bar = scratch + 2 * events + 1;
+  uint32_t* raw = scratch + 2 * events + 3;
+  const int blocks = (n + kBlock - 1) / kBlock;
+  const size_t smem = arena_smem_words(d, rows, num_players) * sizeof(uint32_t);
+  const void* fn = t_ticks > 1 ? (const void*)synctest_fused_arena_kernel<true>
+                               : (const void*)synctest_fused_arena_kernel<false>;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kBlock, smem)) != cudaSuccess)
+    return (int)err;
+  if ((long long)per_sm * sms < blocks) return kNotCoResident;
+  void* args[] = {&a, &r_frame, &iring, &h_tag, &h_hi, &h_lo, &meta, &done, &raw, &bar,
+                  const_cast<int*>(&rows)};
+  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kBlock), args, smem, st);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

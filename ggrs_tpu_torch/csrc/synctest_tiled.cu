@@ -1,5 +1,6 @@
-// K2 — the entity-tiled SyncTest kernel for ex_game on Hopper, and the
-// small kernel that runs its first-seen history post-pass.
+// K2 — the entity-tiled SyncTest kernel on Hopper (ex_game, and arena with
+// an injected reduction table), and the small kernel that runs its
+// first-seen history post-pass.
 //
 // Replaces: ggrs_tpu/tpu/pallas_tiled.py, PallasTiledSyncTestCore._build
 // (the pallas_call at :428), for worlds past the whole-batch envelope. On
@@ -24,21 +25,63 @@
 // bound; 8192 blocks fill the card, and the serial d*T chain per thread is
 // hidden by the other warps.
 //
+// Arena runs here in the reference's external_reduce mode
+// (pallas_tiled.py:66-106, red_for :285): ONE tick per launch, with the
+// complete raw reduction table red_raw [d+1, 3P] as an input (row i: the
+// resim step of frame base+i; row d: the frontier step), built by K5
+// (reduce_table.cu) from the ring slots and the live state. Each block
+// finalizes the table into shared memory (scalar work for (d+1) x P teams)
+// before its entities step, so blocks stay independent.
+//
 // Left for later: holding each block's ring tile in shared memory for the
 // whole batch (10 slots x 5 planes x 128 entities x 4 B = 25.6 KB), so HBM
 // sees each byte exactly once, as the reference's VMEM tile does; a CUDA
 // graph around the two launches.
 #include <cuda_runtime.h>
 
+#include "arena_step.cuh"
 #include "synctest_body.cuh"
 
-__global__ void __launch_bounds__(kBlock) synctest_tiled_kernel(SyncTestArgs a, int* r_frame,
-                                                                int* iring_out) {
+__global__ void __launch_bounds__(kBlock) synctest_tiled_kernel(SyncTestArgs<exg::Weights> a,
+                                                                int* r_frame, int* iring_out) {
   extern __shared__ uint32_t smem[];
   if (blockIdx.x == 0 && threadIdx.x == 0)
     synctest_bookkeeping(r_frame, a.iring, iring_out, a.inputs, a.meta[0], a.t_ticks, a.d,
                          a.num_players * a.input_size);
-  synctest_entity_batch(a, smem);
+  ExGameStepper st{a.substeps};
+  synctest_entity_batch<ExGameModel>(a, smem, st);
+}
+
+// arena's step from the injected table: the resim step i (and the frontier
+// step, i = d) reads finalized row i
+struct ArenaTableStepper {
+  const arena::Team* fin;  // shared: [(d+1) * P]
+  int num_players, input_size, team, enemy;
+
+  __device__ __forceinline__ void seed(const arena::State&, bool) {}
+  __device__ __forceinline__ void step(arena::State& s, bool, const int* in, int, int i) {
+    const int P = num_players;
+    arena::step(s, in[0], arena::throttle_of(in, input_size), fin[i * P + team], fin[i * P + enemy]);
+  }
+  __device__ __forceinline__ void frontier_done(const arena::State&, bool, int, int) {}
+};
+
+__global__ void __launch_bounds__(kBlock) synctest_tiled_arena_kernel(
+    SyncTestArgs<arena::Weights> a, int* r_frame, int* iring_out, const int* red_raw) {
+  extern __shared__ uint32_t smem[];
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    synctest_bookkeeping(r_frame, a.iring, iring_out, a.inputs, a.meta[0], a.t_ticks, a.d,
+                         a.num_players * a.input_size);
+  const int P = a.num_players;
+  arena::Team* fin = reinterpret_cast<arena::Team*>(smem + body_smem_words(a.d));
+  for (int k = threadIdx.x; k < (a.d + 1) * P; k += kBlock) {
+    const int* r = red_raw + (size_t)(k / P) * 3 * P + 3 * (k % P);
+    fin[k] = arena::finalize(r[0], r[1], r[2]);
+  }
+  __syncthreads();
+  const int e = blockIdx.x * kBlock + threadIdx.x;
+  ArenaTableStepper st{fin, P, a.input_size, e % P, (e % P + 1) % P};
+  synctest_entity_batch<arena::Model>(a, smem, st);
 }
 
 __global__ void synctest_verdict_kernel(const uint32_t* parts_hi, const uint32_t* parts_lo,
@@ -49,7 +92,7 @@ __global__ void synctest_verdict_kernel(const uint32_t* parts_hi, const uint32_t
     synctest_verdict(parts_hi, parts_lo, t_ticks, d, frame_weight, h_tag, h_hi, h_lo, meta, sh);
 }
 
-// Both entry points return the CUDA error of their launch (0 on success).
+// The entry points return the CUDA error of their launch (0 on success).
 // cs: 11 int32 — checksum w[5], base[5], frame weight.
 extern "C" int synctest_tiled_launch(int* state, int* ring, int* r_frame, const int* iring,
                                      int* iring_out, const int* meta, const int* inputs,
@@ -61,28 +104,32 @@ extern "C" int synctest_tiled_launch(int* state, int* ring, int* r_frame, const 
   // parts: parts_hi [T*d] then parts_lo [T*d]
   cudaError_t err = cudaMemsetAsync(parts, 0, 2 * events * sizeof(uint32_t), st);
   if (err != cudaSuccess) return (int)err;
-  SyncTestArgs a;
-  a.state = state;
-  a.ring = ring;
-  a.iring = iring;
-  a.inputs = inputs;
-  a.meta = meta;
-  a.parts_hi = parts;
-  a.parts_lo = parts + events;
-  a.n = n;
-  a.num_players = num_players;
-  a.input_size = input_size;
-  a.d = d;
-  a.t_ticks = t_ticks;
-  a.substeps = substeps;
-  for (int k = 0; k < exg::kPlanes; ++k) {
-    a.cw.w[k] = (uint32_t)cs[k];
-    a.cw.base[k] = (uint32_t)cs[exg::kPlanes + k];
-  }
-  a.cw.frame_weight = (uint32_t)cs[2 * exg::kPlanes];
+  SyncTestArgs<exg::Weights> a{state, ring, iring, inputs, meta, parts, parts + events,
+                               n, num_players, input_size, d, t_ticks, substeps,
+                               weights_from<exg::Weights, exg::kPlanes>(cs)};
   const int blocks = (n + kBlock - 1) / kBlock;
   const size_t smem = body_smem_words(d) * sizeof(uint32_t);
   synctest_tiled_kernel<<<blocks, kBlock, smem, st>>>(a, r_frame, iring_out);
+  return (int)cudaGetLastError();
+}
+
+// Arena, one tick (t_ticks must be 1) on the injected red_raw [d+1, 3P].
+// cs: 13 int32 — checksum w[6], base[6], frame weight.
+extern "C" int synctest_tiled_arena_launch(int* state, int* ring, int* r_frame, const int* iring,
+                                           int* iring_out, const int* meta, const int* inputs,
+                                           const int* red_raw, uint32_t* parts, int n,
+                                           int num_players, int input_size, int d, int t_ticks,
+                                           const int* cs, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t events = (size_t)t_ticks * d;
+  cudaError_t err = cudaMemsetAsync(parts, 0, 2 * events * sizeof(uint32_t), st);
+  if (err != cudaSuccess) return (int)err;
+  SyncTestArgs<arena::Weights> a{state, ring, iring, inputs, meta, parts, parts + events,
+                                 n, num_players, input_size, d, t_ticks, 1,
+                                 weights_from<arena::Weights, arena::kPlanes>(cs)};
+  const int blocks = (n + kBlock - 1) / kBlock;
+  const size_t smem = (body_smem_words(d) + 3 * (size_t)(d + 1) * num_players) * sizeof(uint32_t);
+  synctest_tiled_arena_kernel<<<blocks, kBlock, smem, st>>>(a, r_frame, iring_out, red_raw);
   return (int)cudaGetLastError();
 }
 

@@ -24,6 +24,7 @@ import torch
 from ..errors import ConfigError
 from ..kernels import build, launch
 from ..ops import fixed_point as fx
+from .planes import ExGamePlanes
 
 
 class Speculation(NamedTuple):
@@ -120,6 +121,7 @@ class BeamRollout:
             return plain_rollout(ring[anchor_slot], r_frame[anchor_slot], script[..., 1:],
                                  script[..., 0], ctx)
         B, L = script.shape[:2]
+        launch.require_adapter(ctx, ExGamePlanes, self.kernel)
         device = ring.device
         n, P, I = ctx.n, ctx.num_players, ctx.input_size
         launch.check_tensors(

@@ -3,7 +3,8 @@ versions: the counterpart of the model-generic part of
 `ggrs_tpu/tpu/pallas_core.py`.
 
 A world is kept as packed SoA planes, one int32 tensor `[n_planes, N]`
-(for ex_game: px, py, vx, vy, rot), and the snapshot ring as
+(for ex_game: px, py, vx, vy, rot; for arena: px, py, vx, vy, hp,
+energy), and the snapshot ring as
 `[ring_len, n_planes, N]`, so a CUDA thread that owns entity e reads each
 plane at a coalesced address. The reference packs to `[N/128, 128]` TPU
 tiles instead; the port needs no 128-alignment.
@@ -21,8 +22,8 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from ..errors import RegistryMiss
-from ..models import ex_game
+from ..errors import ConfigError, RegistryMiss
+from ..models import arena, ex_game
 from ..ops import fixed_point as fx
 
 # The reference's VMEM envelope: backend="auto" picks the whole-batch
@@ -30,16 +31,14 @@ from ..ops import fixed_point as fx
 VMEM_BUDGET_BYTES = 96 * 1024 * 1024
 
 
-class ExGamePlanes:
-    """`ggrs_tpu_torch.models.ex_game` on packed planes. Its step is per-entity
-    independent and its checksum a per-entity weighted modular sum, which is
-    what lets the entity-tiled kernel (K2) run it at any world size."""
+class PlaneAdapter:
+    """A game on packed planes. `planes` lists (plane name, state key,
+    component) in the order of the game's `checksum_keys`, which is what
+    lets the checksum weights be derived generically; `reduce_len` is the
+    number of cross-entity int32 sums the step consumes (0: none)."""
 
-    planes = (
-        ("px", "pos", 0), ("py", "pos", 1),
-        ("vx", "vel", 0), ("vy", "vel", 1),
-        ("rot", "rot", None),
-    )
+    planes: Tuple[Tuple[str, str, object], ...] = ()
+    reduce_len = 0
 
     def __init__(self, game):
         self.game = game
@@ -51,15 +50,28 @@ class ExGamePlanes:
             f"plane order {keys_in_order} must follow checksum_keys {game.checksum_keys}"
         )
 
+
+class ExGamePlanes(PlaneAdapter):
+    """`ggrs_tpu_torch.models.ex_game` on packed planes. Its step is per-entity
+    independent and its checksum a per-entity weighted modular sum, which is
+    what lets the entity-tiled kernel (K2) run it at any world size."""
+
+    planes = (
+        ("px", "pos", 0), ("py", "pos", 1),
+        ("vx", "vel", 0), ("vy", "vel", 1),
+        ("rot", "rot", None),
+    )
+
     def step(self, planes: torch.Tensor, player_inputs: torch.Tensor, owner: torch.Tensor,
-             statuses=None) -> torch.Tensor:
+             statuses=None, red=None) -> torch.Tensor:
         """One frame on `[5, N]` planes. `player_inputs`: int32 [P,
         input_size]; `statuses`: int32 [P], a DISCONNECTED player's input
         row replaced by the game's disconnect input (the request path's
         tick), or None for all CONFIRMED (the fused SyncTest's only case).
         With a leading member axis — planes `[5, B, N]`, inputs
         `[B, P, input_size]`, statuses `[B, P]` — it steps B worlds at once
-        (the beam rollout's plain version)."""
+        (the beam rollout's plain version). `red` is unused: the step
+        reduces nothing."""
         inp = ex_game.entity_inputs(player_inputs, statuses, owner)
         out = tuple(planes.unbind(0))
         for _ in range(self.game.substeps):
@@ -67,14 +79,80 @@ class ExGamePlanes:
         return torch.stack(out)
 
 
-_ADAPTERS: Dict[type, Callable] = {ex_game.ExGame: ExGamePlanes}
+class ArenaPlanes(PlaneAdapter):
+    """`ggrs_tpu_torch.models.arena` on packed planes (the reference's
+    `ArenaPlanes`, pallas_core.py:280). The step needs, per team, the count
+    of living entities and their centroid: the contract's reduction phase.
+    `reduce_partial` gives the raw sums (they commute across entity tiles,
+    so kernels may accumulate them in any order), `reduce_finalize` the
+    exact-division post-math, and `step` takes the finalized values as
+    `red=` — or reduces inline from the planes it is given when `red` is
+    None (whole-world visibility)."""
+
+    planes = (
+        ("px", "pos", 0), ("py", "pos", 1),
+        ("vx", "vel", 0), ("vy", "vel", 1),
+        ("hp", "hp", None), ("energy", "energy", None),
+    )
+
+    def __init__(self, game):
+        super().__init__(game)
+        # the reference's envelope (pallas_core.py:300-317): the centroid
+        # divisor, a team's live count, stays below 2^16 and the centroid
+        # sums below 2^30, so no int32 sum wraps
+        per_team = -(-game.num_entities // game.num_players)
+        if per_team >= 1 << 16:
+            raise ConfigError(
+                f"arena: {per_team} entities per team exceeds the exact-division "
+                "envelope (a team's live count must stay below 2^16); use more players"
+            )
+        if per_team * (arena.ARENA_MASK >> arena.CENTROID_SHIFT) >= 1 << 30:
+            raise ConfigError("arena: the centroid sums exceed the 2^30 budget")
+        self.reduce_len = 3 * game.num_players  # per team: count, Σx, Σy
+
+    def reduce_partial(self, planes: torch.Tensor, owner: torch.Tensor) -> torch.Tensor:
+        """Raw int32 `[..., 3P]` sums over the entities of `[..., n_planes,
+        N]` planes: per team, its living count, Σ(px>>6) and Σ(py>>6)."""
+        return arena.team_sums(planes[..., 0, :], planes[..., 1, :], planes[..., 4, :], owner,
+                               self.game.num_players)
+
+    def reduce_finalize(self, raw: torch.Tensor):
+        """Complete raw sums `[3P]` -> (cx, cy, count), each int32 [P]."""
+        return arena.finalize(raw, self.game.num_players)
+
+    def step(self, planes: torch.Tensor, player_inputs: torch.Tensor, owner: torch.Tensor,
+             statuses=None, red=None) -> torch.Tensor:
+        """One frame on `[6, N]` planes; `red`: the finalized reduction of
+        the state entering the step, or None to reduce inline."""
+        if planes.dim() != 2:
+            raise ConfigError("arena steps one world at a time: planes [6, N]")
+        if red is None:
+            red = self.reduce_finalize(self.reduce_partial(planes, owner))
+        inp, throttle = arena.entity_inputs(player_inputs, statuses, owner, self.game.input_size)
+        return torch.stack(arena.step_planes(*planes.unbind(0), inp, throttle, owner, red,
+                                             self.game.num_players))
 
 
-def get_adapter(game) -> ExGamePlanes:
+_ADAPTERS: Dict[type, Callable] = {ex_game.ExGame: ExGamePlanes, arena.Arena: ArenaPlanes}
+
+
+def get_adapter(game) -> PlaneAdapter:
     for cls in type(game).__mro__:
         if cls in _ADAPTERS:
             return _ADAPTERS[cls](game)
     raise RegistryMiss(f"no plane adapter registered for {type(game).__name__}")
+
+
+def layout_of(keys=None, n_planes=None):
+    """The registered adapter class whose planes hold exactly these state
+    keys (`keys`, the frame leaf ignored) or this many planes: how a carry
+    crosses between the reference's layout and the port's without its game."""
+    for cls in dict.fromkeys(_ADAPTERS.values()):
+        if keys is not None and {key for _, key, _ in cls.planes} == set(keys) - {"frame"}:
+            return cls
+        if n_planes is not None and len(cls.planes) == n_planes:
+            return cls
+    raise RegistryMiss(f"no plane layout for keys {keys} / {n_planes} planes")
 
 
 def plane_groups(adapter) -> Dict[str, list]:
@@ -165,8 +243,9 @@ def partial_checksum_planes(planes: torch.Tensor, weights: torch.Tensor):
 
 def vmem_estimate(game, check_distance: int) -> int:
     """Bytes of VMEM windows the reference's whole-batch kernel needs
-    (state + ring planes, in and out) — the reference's single formula,
-    kept here only as the `backend="auto"` switch."""
+    (state + ring planes of the game's adapter, in and out) — the
+    reference's single formula, kept here only as the `backend="auto"`
+    switch."""
     return 2 * len(get_adapter(game).planes) * (1 + check_distance + 2) * game.num_entities * 4
 
 
@@ -186,6 +265,7 @@ class PlaneContext:
         self.hist_len = check_distance + 2
         self.n = game.num_entities
         self.n_planes = len(self.adapter.planes)
+        self.reduce_len = self.adapter.reduce_len  # 0, or 3P for arena
         self.device = torch.device(device)
         self.cs_entries, self.cs_frame_weight = derive_checksum_weights(game, self.adapter)
         self._weights = None

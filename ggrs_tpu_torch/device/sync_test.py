@@ -13,11 +13,19 @@ carry (`ggrs_tpu_torch.convert` documents its layout) is updated in place.
 Backends:
   "cuda-fused"  K1, the whole-batch kernel (`fused_core`);
   "cuda-tiled"  K2, the entity-tiled kernel plus its verdict post-pass
-                (`tiled_core`);
-  "torch"       the plain PyTorch version (`fused_core.plain_batch`);
+                (`tiled_core`); for a game with a cross-entity reduction
+                (arena), the injected-reduction route, K5 + K2 one tick
+                per launch + the verdict (`injected_core`);
+  "torch"       the plain PyTorch version of the reference's XLA scan
+                (`plain_scan`: every step reduces inline);
   "auto"        on CUDA, K1 while the reference's VMEM estimate of the
-                configuration stays within 96 MB and K2 beyond, as the
-                reference chooses on a TPU; on the CPU, "torch".
+                configuration stays within 96 MB (and, for arena, while
+                K1's grid can be resident on the card for its grid
+                barriers), K2 beyond, as the reference chooses on a TPU.
+                Beyond the envelope the reference answers arena with its
+                XLA scan; the port keeps its plain version off the card,
+                so it takes the injected-reduction kernel route there.
+                On the CPU, "torch".
 A kernel backend given a CPU carry runs its plain version; on a CUDA
 carry it launches its kernel or raises — it never falls back.
 """
@@ -29,9 +37,10 @@ import torch
 
 from ..convert import carry_to_reference
 from ..errors import ConfigError, MismatchedChecksum
-from .fused_core import FusedSyncTestCore, plain_batch
-from .planes import VMEM_BUDGET_BYTES, PlaneContext, pack_planes, vmem_estimate
-from .tiled_core import TiledSyncTestCore
+from .fused_core import FusedSyncTestCore
+from .injected_core import InjectedReduceCore
+from .planes import VMEM_BUDGET_BYTES, PlaneContext, get_adapter, pack_planes, vmem_estimate
+from .tiled_core import TiledSyncTestCore, plain_parts, plain_verdict
 
 BACKENDS = ("auto", "torch", "cuda-fused", "cuda-tiled")
 
@@ -51,15 +60,33 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+# blocks of 128 entities per SM that arena's K1 is built to keep resident
+# (csrc/synctest_fused.cu kArenaMinBlocksPerSm)
+ARENA_FUSED_BLOCKS_PER_SM = 8
+
+
 def pick_backend(game, check_distance: int, device: torch.device) -> str:
     """Resolve backend="auto": K1 inside the reference's whole-batch VMEM
-    envelope, K2 beyond it (the only registered adapter, ex_game's, is
-    per-entity independent, so the tiled kernel takes any world size)."""
+    envelope, K2 beyond it (ex_game is per-entity independent, so K2 takes
+    any world size; arena takes it with injected reductions). Arena's K1
+    also needs its whole grid resident at once."""
     if device.type != "cuda":
         return "torch"
-    if vmem_estimate(game, check_distance) <= VMEM_BUDGET_BYTES:
-        return "cuda-fused"
-    return "cuda-tiled"
+    if vmem_estimate(game, check_distance) > VMEM_BUDGET_BYTES:
+        return "cuda-tiled"
+    if get_adapter(game).reduce_len:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        if -(-game.num_entities // 128) > ARENA_FUSED_BLOCKS_PER_SM * sms:
+            return "cuda-tiled"
+    return "cuda-fused"
+
+
+def plain_scan(carry, inputs: torch.Tensor, ctx: PlaneContext) -> None:
+    """T ticks in plain PyTorch as the reference's XLA scan runs them
+    (`TpuSyncTestSession._tick`): every step reduces inline from the state
+    entering it."""
+    parts_hi, parts_lo = plain_parts(carry, inputs, ctx)
+    plain_verdict(carry, parts_hi, parts_lo, ctx)
 
 
 def initial_carry(ctx: PlaneContext):
@@ -108,7 +135,8 @@ class DeviceSyncTestSession:
         self.hist_len = self.ctx.hist_len
         self.carry = initial_carry(self.ctx)
         # the kernel wrapper (None for the plain backend)
-        self.core = {"cuda-fused": FusedSyncTestCore, "cuda-tiled": TiledSyncTestCore}.get(
+        tiled = InjectedReduceCore if self.ctx.reduce_len else TiledSyncTestCore
+        self.core = {"cuda-fused": FusedSyncTestCore, "cuda-tiled": tiled}.get(
             backend, lambda ctx: None
         )(self.ctx)
         self._raw_inputs: list = []  # host-side delay shift buffer
@@ -133,7 +161,9 @@ class DeviceSyncTestSession:
             eff = np.asarray(raw_inputs, dtype=np.uint8)
         inputs = torch.from_numpy(eff.astype(np.int32)).to(self.device)
         if self.core is None:
-            plain_batch(self.carry, inputs, self.ctx)
+            plain_scan(self.carry, inputs, self.ctx)
+        elif isinstance(self.core, InjectedReduceCore):
+            self.core.batch(self.carry, inputs, frame=start)
         else:
             self.core.batch(self.carry, inputs)
         self.current_frame += t

@@ -24,7 +24,7 @@ import torch
 from ..errors import ConfigError
 from ..kernels import build, launch
 from ..ops import fixed_point as fx
-from .planes import partial_checksum_planes
+from .planes import ExGamePlanes, partial_checksum_planes
 
 VERIFY_KEYS = ("h_tag", "h_hi", "h_lo", "flag")
 
@@ -136,6 +136,7 @@ class TickCore:
         if carry["state"].device.type == "cpu":
             return plain_tick_multi(carry, rows, self.core)
         core, ctx = self.core, self.core.ctx
+        launch.require_adapter(ctx, ExGamePlanes, self.kernel)
         device = carry["state"].device
         n, W, t_rows = ctx.n, core.window, rows.shape[0]
         shapes = dict(

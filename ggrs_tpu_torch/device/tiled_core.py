@@ -18,20 +18,34 @@ On a CUDA carry each step launches its kernel (`csrc/synctest_tiled.cu`);
 on a CPU carry it runs the plain version beside it (`plain_parts`,
 `plain_verdict`). The plain versions are also what the tests hold against
 the reference and what `chip_smoke.py` holds the kernels against.
+
+A game with a cross-entity reduction (arena) runs here only in the
+reference's `external_reduce` mode: one tick per launch, with the complete
+raw reduction table `red_raw [d+1, R]` handed in (row i for the resim step
+of frame base+i, row d for the frontier step), which the caller builds
+with K5 (`injected_core`). Each block finalizes the table itself, so the
+entity tiles stay independent.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..errors import ConfigError
 from ..kernels import build, launch
 from ..ops import fixed_point as fx
 from .planes import PlaneContext, partial_checksum_planes
 
 
-def plain_parts(carry, inputs: torch.Tensor, ctx: PlaneContext):
+def plain_parts(carry, inputs: torch.Tensor, ctx: PlaneContext, red_of=None, on_frontier=None):
     """T SyncTest ticks on the carry in place (the reference's `_tick`
-    without its history compare); returns (parts_hi, parts_lo) [T, d]."""
+    without its history compare); returns (parts_hi, parts_lo) [T, d].
+
+    For a game with a reduction: `red_of(f, i)` gives the finalized
+    reduction the step of frame f uses (i: the resim step's index, d for
+    the frontier step), None to reduce inline from the state entering the
+    step; `on_frontier(c, state)` sees each tick's new frontier state (of
+    frame c+1)."""
     d, ring_len = ctx.d, ctx.ring_len
     t_ticks = inputs.shape[0]
     c0 = int(carry["meta"][0])
@@ -40,8 +54,9 @@ def plain_parts(carry, inputs: torch.Tensor, ctx: PlaneContext):
     parts_hi = torch.zeros((t_ticks, d), dtype=torch.int32, device=device)
     parts_lo = torch.zeros((t_ticks, d), dtype=torch.int32, device=device)
 
-    def step(state, player_inputs):
-        return ctx.adapter.step(state, player_inputs, ctx.owner)
+    def step(state, player_inputs, f, i):
+        red = red_of(f, i) if red_of is not None else None
+        return ctx.adapter.step(state, player_inputs, ctx.owner, red=red)
 
     def save(state, frame, t, j):
         slot = frame % ring_len
@@ -59,10 +74,12 @@ def plain_parts(carry, inputs: torch.Tensor, ctx: PlaneContext):
                 f = base + i
                 if i > 0:
                     save(state, f, t, i - 1)
-                state = step(state, iring[f % (d + 2)])
+                state = step(state, iring[f % (d + 2)], f, i)
         save(state, c, t, d - 1)
         iring[c % (d + 2)] = inputs[t]
-        state = step(state, inputs[t])
+        state = step(state, inputs[t], c, d)
+        if on_frontier is not None:
+            on_frontier(c, state)
     carry["state"].copy_(state)
     return parts_hi, parts_lo
 
@@ -106,6 +123,18 @@ def plain_verdict(carry, parts_hi: torch.Tensor, parts_lo: torch.Tensor, ctx: Pl
     put("meta", [c0 + len(ph), mismatch, mismatch_frame])
 
 
+def check_injected(ctx: PlaneContext, inputs: torch.Tensor, red_raw) -> None:
+    """A reduction game runs K2 one tick at a time on an injected table (the
+    reference asserts the same, pallas_tiled.py:204-209): tick t+1's
+    frontier reduction does not exist when tick t launches."""
+    if red_raw is None:
+        raise ConfigError("a game with a cross-entity reduction needs its red_raw table (injected_core)")
+    if inputs.shape[0] != 1:
+        raise ConfigError(f"an injected-reduction launch runs one tick, got {inputs.shape[0]}")
+    if tuple(red_raw.shape) != (ctx.d + 1, ctx.reduce_len):
+        raise ConfigError(f"red_raw has shape {tuple(red_raw.shape)}, expected {(ctx.d + 1, ctx.reduce_len)}")
+
+
 class TiledSyncTestCore:
     """K2's wrappers for one (game, players, check_distance); counts its
     launches in `launches` (the tiled kernel) and `verdict_launches`."""
@@ -117,27 +146,45 @@ class TiledSyncTestCore:
         self.launches = 0
         self.verdict_launches = 0
 
-    def run_kernel(self, carry, inputs: torch.Tensor):
-        """T ticks in place; returns (parts_hi, parts_lo) [T, d] int32."""
-        if carry["state"].device.type == "cpu":
-            return plain_parts(carry, inputs, self.ctx)
+    def run_kernel(self, carry, inputs: torch.Tensor, red_raw=None):
+        """T ticks in place; returns (parts_hi, parts_lo) [T, d] int32. A
+        game with a reduction takes one tick and its injected table
+        `red_raw` int32 [d+1, R]."""
         ctx = self.ctx
+        if ctx.reduce_len:
+            check_injected(ctx, inputs, red_raw)
+        if carry["state"].device.type == "cpu":
+            if red_raw is None:
+                return plain_parts(carry, inputs, ctx)
+            rows = [ctx.adapter.reduce_finalize(r) for r in red_raw]
+            return plain_parts(carry, inputs, ctx, red_of=lambda f, i: rows[i])
         launch.check_carry(carry, ctx, inputs)
         lib = build.load(self.kernel)
         P, I = launch.P, launch.I
-        launch.declare(lib, "synctest_tiled_launch",
-                       [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, P])
         t_ticks = inputs.shape[0]
         device = carry["state"].device
         parts = torch.empty((2, t_ticks, ctx.d), dtype=torch.int32, device=device)
         iring_out = torch.empty_like(carry["iring"])
-        rc = lib.synctest_tiled_launch(
-            carry["state"].data_ptr(), carry["ring"].data_ptr(), carry["r_frame"].data_ptr(),
-            carry["iring"].data_ptr(), iring_out.data_ptr(), carry["meta"].data_ptr(),
-            inputs.data_ptr(), parts.data_ptr(),
-            ctx.n, ctx.num_players, ctx.input_size, ctx.d, t_ticks, ctx.game.substeps,
-            launch.weights_arg(ctx), launch.stream_of(device),
-        )
+        ptrs = (carry["state"].data_ptr(), carry["ring"].data_ptr(), carry["r_frame"].data_ptr(),
+                carry["iring"].data_ptr(), iring_out.data_ptr(), carry["meta"].data_ptr(),
+                inputs.data_ptr())
+        if ctx.reduce_len:
+            launch.check_teams(ctx)
+            launch.check_tensors(device, red_raw=(red_raw, (ctx.d + 1, ctx.reduce_len)))
+            launch.declare(lib, "synctest_tiled_arena_launch", [P] * 9 + [I] * 5 + [P, P])
+            rc = lib.synctest_tiled_arena_launch(
+                *ptrs, red_raw.data_ptr(), parts.data_ptr(),
+                ctx.n, ctx.num_players, ctx.input_size, ctx.d, t_ticks,
+                launch.weights_arg(ctx), launch.stream_of(device),
+            )
+        else:
+            launch.declare(lib, "synctest_tiled_launch",
+                           [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, P])
+            rc = lib.synctest_tiled_launch(
+                *ptrs, parts.data_ptr(),
+                ctx.n, ctx.num_players, ctx.input_size, ctx.d, t_ticks, ctx.game.substeps,
+                launch.weights_arg(ctx), launch.stream_of(device),
+            )
         launch.raise_on(rc, self.kernel)
         self.launches += 1
         carry["iring"] = iring_out

@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 )
 
 # every kernel source of the port, the order `chip_smoke.py` builds them in
-KINDS = ("synctest_fused", "synctest_tiled", "resim_tick", "beam_rollout")
+KINDS = ("synctest_fused", "synctest_tiled", "resim_tick", "beam_rollout", "reduce_table")
 
 # the kernel-library handles, one per source, loaded at first use
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -57,10 +57,29 @@ def check_carry(carry, ctx, inputs: torch.Tensor) -> None:
     )
 
 
+def require_adapter(ctx, adapter_cls, kernel: str) -> None:
+    """A kernel built for one model's planes refuses another's."""
+    if type(ctx.adapter) is not adapter_cls:
+        raise ConfigError(
+            f"{kernel} runs {adapter_cls.__name__} only, not {type(ctx.adapter).__name__}: "
+            "that game is not ported to this kernel yet"
+        )
+
+
+MAX_TEAMS = 16  # csrc/arena_step.cuh kMaxTeams
+
+
+def check_teams(ctx) -> None:
+    """The arena kernels reduce at most 16 teams per block."""
+    if ctx.num_players > MAX_TEAMS:
+        raise ConfigError(f"the arena kernels take at most {MAX_TEAMS} players, got {ctx.num_players}")
+
+
 def weights_arg(ctx):
-    """The 11 checksum ints the kernels take: w[5], base[5], frame weight."""
+    """The 2K+1 checksum ints the kernels take for K planes: w[K], base[K],
+    frame weight (11 for ex_game, 13 for arena)."""
     vals = [w for _, w, _ in ctx.cs_entries] + [b for _, _, b in ctx.cs_entries]
-    return (ctypes.c_int * 11)(*vals, ctx.cs_frame_weight)
+    return (ctypes.c_int * (len(vals) + 1))(*vals, ctx.cs_frame_weight)
 
 
 def stage(arr: np.ndarray, device: torch.device) -> torch.Tensor:

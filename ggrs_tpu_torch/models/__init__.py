@@ -1,1 +1,1 @@
-"""Device games (ex_game)."""
+"""Device games (ex_game, arena)."""

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (ggrs_tpu_torch/csrc/): a build that cannot run
 raises a typed error, and, on a card only, each kernel equals its plain
-PyTorch version bit for bit after every batch (K1, K2), dispatch (K3) or
-speculation (K4).
+PyTorch version bit for bit after every batch (K1, K2, and both for
+arena), dispatch (K3), speculation (K4) or table (K5).
 
 This file imports no jax, so on a machine with a card and no jax it runs
 without the suite's conftest:
@@ -14,11 +14,15 @@ import pytest
 import torch
 
 from chip_smoke import random_tick_rows
-from ggrs_tpu_torch import DeviceRollbackBackend, ExGame, KernelError, SaveGameState, SessionBuilder
+from ggrs_tpu_torch import (
+    Arena, DeviceRollbackBackend, ExGame, KernelError, SaveGameState, SessionBuilder,
+)
 from ggrs_tpu_torch.convert import CARRY_KEYS, copy_carry
 from ggrs_tpu_torch.device import sync_test
 from ggrs_tpu_torch.device.beam_core import plain_rollout
 from ggrs_tpu_torch.device.fused_core import FusedSyncTestCore, plain_batch
+from ggrs_tpu_torch.device.injected_core import InjectedReduceCore
+from ggrs_tpu_torch.device.reduce_core import ReduceTableCore, plain_reduce_table, source_slots
 from ggrs_tpu_torch.device.planes import PlaneContext
 from ggrs_tpu_torch.device.resim import RESIM_KEYS, ResimCore
 from ggrs_tpu_torch.device.tick_core import plain_tick_multi
@@ -157,3 +161,90 @@ def test_beam_request_path_matches_cpu_on_card(cuda_card):
     assert runs[0][:4] == runs[1][:4]
     for k in ("frame", "pos", "vel", "rot"):
         assert np.array_equal(runs[0][4][k], runs[1][4][k]), k
+
+
+def arena_script(rng, t_ticks, players, input_size):
+    raw = rng.integers(0, 64, size=(t_ticks, players, input_size))
+    if input_size == 2:
+        raw[..., 1] = rng.integers(0, 16, size=(t_ticks, players))
+    return torch.from_numpy(raw.astype(np.int32)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("players,input_size,t_ticks", [(2, 1, 24), (4, 2, 24), (2, 1, 1)])
+def test_arena_fused_kernel_matches_plain_on_card(cuda_card, players, input_size, t_ticks):
+    """K1 for arena (cached reductions when T > 1, inline when T == 1;
+    grid barriers, cooperative launch) equals plain_batch after every
+    batch, across the frame-d boundary, and after hp corruption of the
+    slot the next rollback loads."""
+    ctx = PlaneContext(Arena(players, 4096, input_size), players, 8, torch.device("cuda"))
+    core = FusedSyncTestCore(ctx)
+    kernel = sync_test.initial_carry(ctx)
+    plain = copy_carry(kernel)
+    rng = np.random.default_rng(players + t_ticks)
+    batches = 3 if t_ticks > 1 else 14
+    for b in range(batches):
+        if b == batches - 1:  # kill 64 entities in the slot the next rollback loads
+            slot = (int(kernel["meta"][0]) - ctx.d) % ctx.ring_len
+            for carry in (kernel, plain):
+                carry["ring"][slot, 4, :64] = 0
+        inputs = arena_script(rng, t_ticks, players, input_size)
+        core.batch(kernel, inputs)
+        plain_batch(plain, inputs, ctx)
+        torch.cuda.synchronize()
+        for k in CARRY_KEYS:
+            assert torch.equal(kernel[k], plain[k]), (b, k)
+    assert core.launches == batches
+    assert int(kernel["meta"][1]) == 1  # the probe latched
+
+
+@pytest.mark.cuda
+def test_arena_fused_grid_that_cannot_be_resident_raises(cuda_card):
+    """K1's arena grid must be resident at once for its barriers: a world
+    of 8176 blocks raises KernelError instead of launching."""
+    ctx = PlaneContext(Arena(16, (1 << 20) - 16 * 128), 16, 1, torch.device("cuda"))
+    carry = sync_test.initial_carry(ctx)
+    with pytest.raises(KernelError, match="resident"):
+        FusedSyncTestCore(ctx).batch(carry, torch.zeros((2, 16, 1), dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 65536])
+def test_reduce_table_matches_plain_on_card(cuda_card, n):
+    """K5 equals plain_reduce_table over d+1 ring slots and the state, and
+    over the state alone, on a carry with dead entities."""
+    ctx = PlaneContext(Arena(3, n), 3, 8, torch.device("cuda"))
+    carry = sync_test.initial_carry(ctx)
+    FusedSyncTestCore(ctx).batch(carry, arena_script(np.random.default_rng(1), 20, 3, 1))
+    carry["ring"][2, 4, ::7] = 0
+    core = ReduceTableCore(ctx)
+    for frame in (3, 20):
+        slots = source_slots(frame, ctx.d, ctx.ring_len)
+        got = core.reduce_sources(carry, frame)
+        want = plain_reduce_table(torch.stack([carry["state"] if s < 0 else carry["ring"][s] for s in slots]), ctx)
+        assert torch.equal(got, want), frame
+    assert torch.equal(core.frontier(carry), plain_reduce_table(carry["state"][None], ctx))
+    assert torch.equal(core.table(carry["ring"]), plain_reduce_table(carry["ring"], ctx))
+    assert core.launches == 4
+
+
+@pytest.mark.cuda
+def test_arena_injected_route_matches_plain_on_card(cuda_card):
+    """The injected-reduction route (K5 tables, K2 one tick per launch, the
+    verdict) on the card equals the same route on a CPU copy of the carry
+    (its plain twin) after every batch, across the frame-d boundary."""
+    ctx = PlaneContext(Arena(2, 4096), 2, 8, torch.device("cuda"))
+    cpu_ctx = PlaneContext(Arena(2, 4096), 2, 8, "cpu")
+    core, twin = InjectedReduceCore(ctx), InjectedReduceCore(cpu_ctx)
+    kernel = sync_test.initial_carry(ctx)
+    plain = {k: v.cpu() for k, v in kernel.items()}
+    rng = np.random.default_rng(5)
+    for b in range(3):
+        inputs = arena_script(rng, 7, 2, 1)
+        core.batch(kernel, inputs, frame=7 * b)
+        twin.batch(plain, inputs.cpu())
+        torch.cuda.synchronize()
+        for k in CARRY_KEYS:
+            assert torch.equal(kernel[k].cpu(), plain[k]), (b, k)
+    assert core.tiled.launches == 21 and core.tiled.verdict_launches == 21
+    assert core.reduce.launches == 3 + 18
