@@ -80,7 +80,32 @@ NVIDIA card (written for an H100). Run from the repository root:
    after; the final carry must equal the plain version's and `check()` must
    pass. Prints ms per batch (K1) or per tick (injection route) p50/p90
    from CUDA events and rollback-frames/s.
-10. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
+10. Holds arena's K3 body (a whole-world reduction and a grid barrier
+   before every advance) against plain_tick_multi after every dispatch
+   (his/los and the whole core, device verification on, tolerance zero):
+   ar4_l16 (Arena(4, 4096), max_prediction 9, bench.py:1275's 16-row
+   buffers with an 8-frame rollback in every row, timed per rollback
+   tick), ar2_4096, ar2_65536, ar4_w (Arena(4, 4096, input_size=2) at
+   max_prediction 12, DISCONNECTED slots) and ar4_153600 (a few rows,
+   parity only), each with a kill probe (hp = 0 in the slot the next
+   rollback loads) through the request path that kernel and plain version
+   latch at the same frame. Then arena's K4 body against plain_rollout
+   (trajectory, checksums, anchor): ab16_4096 (Arena(2, 4096), 16 x 11),
+   ab16_65536 (the case the reference sends to XLA) and ab16_4p_w
+   (Arena(4, 4096, input_size=2), 16 x 14, 20% DISCONNECTED), each with a
+   kill probe on the anchor.
+11. Drives arena's request path, `SessionBuilder().start_synctest_session()`
+   (check distance 8) -> `DeviceRollbackBackend(Arena(2, N), 9,
+   device_verify=True)` at 4096 and 65536, eager and lazy_ticks=8, and
+   Arena(4, 4096) with 16-row lazy buffers; then the beam path at
+   ab16_4096 and ab16_65536 beside a beam-off twin and a plain twin, over
+   three scripts (constant, per-frame varying below 64, a 6-frame toggle).
+   K3's (and K4's) launch counts are set to 0 before each run and must be
+   above 0 after, adoptions above 0; the final core must equal the plain
+   version's and `check()` must pass. Prints ms per tick (p50/p90, CUDA
+   events and host wall time), K3 or K4 device ms, rollback-frames/s and
+   the adopted share.
+12. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
    as the last line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the result lines. Without a CUDA device,
@@ -171,6 +196,40 @@ INJECTED_SHAPES = [
 INJECTED_BATCH = 30  # ticks per advance_frames on the injection route
 INJECTED_MAIN_BATCHES = {"ai_4096": 20, "ai_65536": 10}
 TIMED_LAUNCHES = 200  # K5 / K2 single-tick launches queued per timing
+# arena on the request path (K3's arena body): key, players, entities,
+# input_size, max_prediction
+ARENA_TICK_SHAPES = [
+    ("ar4_l16", 4, 4096, 1, 9),  # bench.py:1275 bench_arena_request_path
+    ("ar2_4096", 2, 4096, 1, 9),
+    ("ar2_65536", 2, 65536, 1, 9),  # top of arena's envelope (32768 per team)
+    ("ar4_w", 4, 4096, 2, 12),  # the throttle byte and DISCONNECTED slots
+    ("ar4_153600", 4, 153600, 1, 9),  # near the top of the reference's whole_world_fits
+]
+ARENA_ROLLBACK_ROWS = 16  # ar4_l16: 16-row buffers, an 8-frame rollback in every row
+ARENA_STREAM_ROWS = {"ar4_153600": 8}  # random rows past the spin-up; parity only there
+ARENA_TICK_ROWS = 8  # rows per multi-row dispatch of the random streams
+# the arena request path: key, players, entities, lazy_ticks, ticks, K3 timing reps
+ARENA_REQUEST_RUNS = [
+    ("ar2_4096", 2, 4096, 0, 200, 200),
+    ("ar2_4096", 2, 4096, LAZY_TICKS, 200, 200),
+    ("ar2_65536", 2, 65536, 0, 104, 40),
+    ("ar2_65536", 2, 65536, LAZY_TICKS, 104, 40),
+    ("ar4_l16", 4, 4096, ARENA_ROLLBACK_ROWS, 160, 50),
+]
+# the arena beam (K4's arena body): key, players, entities, max_prediction,
+# beam width, steps (L = 11 at a SyncTest depth of 8 and max_prediction 9)
+ARENA_BEAM_SHAPES = [
+    ("ab16_4096", 2, 4096, 9, 16, 11),
+    ("ab16_65536", 2, 65536, 9, 16, 11),  # the case the reference sends to XLA
+    ("ab16_4p_w", 4, 4096, 12, 16, 14),  # the throttle byte, 20% DISCONNECTED cells
+]
+ARENA_TIMED_SPECULATIONS = {"ab16_4096": 200, "ab16_65536": 50}
+ARENA_BEAM_PATH_TICKS = {"ab16_4096": 100, "ab16_65536": 40}
+ARENA_BEAM_SCRIPTS = {
+    "constant": lambda t, h: 3 + 2 * h,
+    "varying": lambda t, h: (t * (h + 3) + h) % 64,
+    "toggle6": lambda t, h: (1 if (t // 6) % 2 == 0 else 9) + h,
+}
 # int32 ops arena's step always executes per entity (ggrs_tpu_torch/csrc/
 # arena_step.cuh): alive test 1, thrust axes 10, overdrive test 4, accel 5,
 # energy 5, velocity update 4, rally test 2, friction 4, |v|^2 test 4, dead
@@ -278,13 +337,15 @@ def carry_err(torch, a, b, keys) -> int:
 
 def tick_bound(rows, n, core):
     """Least ms of one K3 dispatch of these rows, vs 69 int32 ops per
-    entity-advance and 15 per entity-save (over the int32 peak). Bytes
-    (over the HBM rate) count only what the dispatch must move, one 20 B
-    entity column each: a ring slot loaded before any row of the launch
-    saved it, the state read only when a row uses it before any load, each
-    distinct slot saved (its final value), and the state written; plus the
-    rows read and his/los written. The ring's frame tags and the verify
-    history (under a hundred words) are left out."""
+    entity-advance and 15 per entity-save for ex_game, 64 + (3 + 3P) per
+    entity-advance (the step and its reduction) and 18 per entity-save for
+    arena (over the int32 peak). Bytes (over the HBM rate) count only what
+    the dispatch must move, one entity column each (20 B for ex_game, 24 B
+    for arena): a ring slot loaded before any row of the launch saved it,
+    the state read only when a row uses it before any load, each distinct
+    slot saved (its final value), and the state written; plus the rows read
+    and his/los written. The ring's frame tags, the verify history and
+    arena's reduction rows (under a few hundred words) are left out."""
     W, ring_len = core.window, core.ring_len
     saved, read, state_read, have_state = set(), set(), False, False
     for row in rows:
@@ -297,15 +358,19 @@ def tick_bound(rows, n, core):
             state_read = have_state = True
         saved |= slots
     saves = int((rows[:, core.off_save : core.off_status] < ring_len).sum())
-    advances = int(rows[:, 2].sum()) * core.game.substeps
+    advances = int(rows[:, 2].sum())
     columns = len(read) + state_read + len(saved) + 1
-    nbytes = 4 * 5 * n * columns + rows.nbytes + 2 * 4 * rows.shape[0] * W
-    ops = n * (advances * OPS_PER_SUBSTEP + saves * OPS_PER_SAVE)
+    nbytes = 4 * core.ctx.n_planes * n * columns + rows.nbytes + 2 * 4 * rows.shape[0] * W
+    if core.ctx.reduce_len:  # arena
+        ops = n * (advances * (OPS_PER_ARENA_STEP + team_ops(core.num_players)) + saves * OPS_PER_ARENA_SAVE)
+    else:
+        ops = n * (advances * core.game.substeps * OPS_PER_SUBSTEP + saves * OPS_PER_SAVE)
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
-def random_tick_args(players: int, max_prediction: int, n_rows: int, seed: int, mod: int = 16):
+def random_tick_args(players: int, max_prediction: int, n_rows: int, seed: int, mod: int = 16,
+                     input_size: int = 1):
     """`n_rows` seeded, session-shaped tick rows as `ResimCore.pack_tick_row`
     arguments (do_load, load_slot, inputs, statuses, save_slots,
     advance_count, start_frame). The shape is what sessions emit: a spin-up
@@ -313,7 +378,9 @@ def random_tick_args(players: int, max_prediction: int, n_rows: int, seed: int, 
     rollback of max_prediction - 1 frames and rows with random rollback
     depths up to max_prediction - 1; dense saves with 10% of them skipped, a
     trailing save 30% of the time, and 15% of the slots with one
-    DISCONNECTED player. The tests drive ResimCore with it too."""
+    DISCONNECTED player. Input byte 0 is drawn below `mod` (ex_game 16,
+    arena 64); with `input_size` 2 the second byte is drawn from 0..7
+    (arena's throttle). The tests drive ResimCore with it too."""
     import numpy as np
 
     from ggrs_tpu_torch.types import InputStatus
@@ -331,10 +398,12 @@ def random_tick_args(players: int, max_prediction: int, n_rows: int, seed: int, 
         do_load = depth > 0 and frame > depth
         count = depth + 1 if do_load else 1
         start = frame - depth if do_load else frame
-        inputs = np.zeros((W, players, 1), np.uint8)
+        inputs = np.zeros((W, players, input_size), np.uint8)
         statuses = np.zeros((W, players), np.int32)
         for i in range(count):
-            inputs[i] = r.integers(0, mod, (players, 1))
+            inputs[i, :, :1] = r.integers(0, mod, (players, 1))
+            if input_size > 1:
+                inputs[i, :, 1:] = r.integers(0, 8, (players, input_size - 1))
             if r.random() < 0.15:
                 statuses[i, r.integers(0, players)] = int(InputStatus.DISCONNECTED)
         slots = np.full((W,), ring_len, np.int32)
@@ -348,12 +417,26 @@ def random_tick_args(players: int, max_prediction: int, n_rows: int, seed: int, 
     return out
 
 
-def random_tick_rows(core, n_rows: int, seed: int):
+def random_tick_rows(core, n_rows: int, seed: int, mod: int = 16):
     """The same stream packed into int32 [n_rows, L] rows for `core`."""
     import numpy as np
 
-    args = random_tick_args(core.num_players, core.max_prediction, n_rows, seed)
+    args = random_tick_args(core.num_players, core.max_prediction, n_rows, seed, mod,
+                            core.game.input_size)
     return np.stack([core.pack_tick_row(*a[:6], start_frame=a[6]) for a in args])
+
+
+def prime_row(core):
+    """A row that saves the live world into every ring slot and advances
+    nothing. Random streams (and bench.py:1275's buffer) load slots their
+    own rows may never have saved; after this row such a load finds the
+    initial world instead of an all-zero one, which for arena is a world
+    of dead entities."""
+    import numpy as np
+
+    W, P, I = core.window, core.num_players, core.game.input_size
+    return core.pack_tick_row(False, 0, np.zeros((W, P, I), np.uint8), np.zeros((W, P), np.int32),
+                              np.arange(W, dtype=np.int32), 0)
 
 
 class PlainTick:
@@ -372,16 +455,18 @@ class PlainTick:
         return plain_tick_multi(carry, rows, self.core)
 
 
-def request_stack(n, players, mp, lazy, dev, plain, host_lag=None):
+def request_stack(n, players, mp, lazy, dev, plain, host_lag=None, game=None):
     """A port SyncTest session and the backend that fulfils it, with the
     verdict on the device — or, with `host_lag` set, checked on the host
     through the lazy checksums, `host_lag` ticks late (0: every tick).
-    `plain` swaps the backend's K3 wrapper for the plain version."""
+    `plain` swaps the backend's K3 wrapper for the plain version. `game`:
+    ExGame(players, n) unless given."""
     from ggrs_tpu_torch import DeviceRollbackBackend, ExGame, SessionBuilder
 
     device_verify = host_lag is None
+    game = game or ExGame(players, n)
     sess = (
-        SessionBuilder(input_size=1)
+        SessionBuilder(input_size=game.input_size)
         .with_num_players(players)
         .with_max_prediction_window(mp)
         .with_check_distance(CHECK_DISTANCE)
@@ -389,7 +474,7 @@ def request_stack(n, players, mp, lazy, dev, plain, host_lag=None):
         .with_deferred_checksum_verification(host_lag or 0)
         .start_synctest_session()
     )
-    backend = DeviceRollbackBackend(ExGame(players, n), mp, players,
+    backend = DeviceRollbackBackend(game, mp, players,
                                     device_verify=device_verify, lazy_ticks=lazy, device=dev)
     if plain:
         backend.core.tick_core = PlainTick(backend.core)
@@ -397,8 +482,9 @@ def request_stack(n, players, mp, lazy, dev, plain, host_lag=None):
 
 
 def add_inputs(sess, row) -> None:
+    """One tick's inputs: row[h] is player h's byte, or its bytes."""
     for h, b in enumerate(row):
-        sess.add_local_input(h, bytes([int(b)]))
+        sess.add_local_input(h, bytes(int(v) for v in (b if hasattr(b, "__len__") else [b])))
 
 
 def tick_phase(torch, np, dev, tag):
@@ -463,10 +549,6 @@ def tick_phase(torch, np, dev, tag):
 def request_path_phase(torch, np, dev, tag, errs):
     """The main path of this slice, eager and lazy, at r2_4096 and r2_1m.
     Returns (per-run summaries, K3 entries for the kernels line)."""
-    from ggrs_tpu_torch import AdvanceFrame, LoadGameState
-    from ggrs_tpu_torch.device.resim import RESIM_KEYS
-    from ggrs_tpu_torch.device.tick_core import plain_tick_multi
-
     runs, entries = [], []
     for key, players, n, mp in TICK_SHAPES:
         if key not in REQUEST_PATH_TICKS:
@@ -474,108 +556,130 @@ def request_path_phase(torch, np, dev, tag, errs):
         ticks = REQUEST_PATH_TICKS[key]
         script = np.random.default_rng(n + 1).integers(0, 16, size=(ticks, players))
         for lazy in (0, LAZY_TICKS):
-            sess, backend = request_stack(n, players, mp, lazy, dev, plain=False)
-            psess, pbackend = request_stack(n, players, mp, lazy, dev, plain=True)
-            tc = backend.core.tick_core
-            marks, wall_ms, sess_ms, issued = [], [], [], []
-            torch.cuda.synchronize()
-            tc.launches = 0
-            t_run = time.perf_counter()
-            for row in script:
-                t0 = time.perf_counter()
-                add_inputs(sess, row)
-                reqs = sess.advance_frame()
-                t1 = time.perf_counter()
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                backend.handle_requests(reqs)
-                end.record()
-                t2 = time.perf_counter()
-                marks.append((start, end))
-                issued.append(reqs)
-                sess_ms.append((t1 - t0) * 1e3)
-                wall_ms.append((t2 - t1) * 1e3)
-            backend.block_until_ready()
-            run_s = time.perf_counter() - t_run
-            launches = tc.launches
-            if launches < 1:
-                fail(f"{key} lazy={lazy}: the request path launched no K3 kernel")
-            # frames resimulated: every advance of a tick that loads, less
-            # its new frame (the spin-up ticks before the first rollback
-            # resimulate nothing)
-            resimulated = sum(
-                sum(isinstance(r, AdvanceFrame) for r in reqs) - 1
-                for reqs in issued if any(isinstance(r, LoadGameState) for r in reqs)
-            )
-            event_ms = sorted(s.elapsed_time(e) for s, e in marks)
-            for row in script:
-                add_inputs(psess, row)
-                pbackend.handle_requests(psess.advance_frame())
-            pbackend.block_until_ready()
-            if carry_err(torch, backend.core.carry, pbackend.core.carry, RESIM_KEYS):
-                fail(f"{key} lazy={lazy}: the request path's core differs from the plain version's")
-            backend.check()
-            pbackend.check()
-            state = backend.state_numpy()
-            if state["pos"].shape != (n, 2) or int(state["frame"]) != ticks:
-                fail(f"{key} lazy={lazy}: state has the wrong shape or frame")
-
-            # K3 alone on exactly the rows this run dispatched (its middle
-            # dispatch), back to back on a copy of the core
-            t_rows = 1 if lazy == 0 else LAZY_TICKS
-            recorded = pbackend.core.tick_core.rows[t_rows]
-            rows = recorded[len(recorded) // 2]
-            core = backend.core
-            timed = {k: v.clone() for k, v in core.carry.items()}
-            ptimed = {k: v.clone() for k, v in core.carry.items()}
-            ms = queued_ms(torch, lambda: tc.tick_multi(timed, rows), TIMED_DISPATCHES[key])
-            b2b_ms = events_ms(torch, lambda: tc.tick_multi(timed, rows), TIMED_DISPATCHES[key])
-            plain_ms = events_ms(torch, lambda: plain_tick_multi(ptimed, rows, core), 1)
-            b_ms, b_by = tick_bound(rows.cpu().numpy(), n, core)
-            del timed, ptimed
-
-            def pct(v, q):
-                return v[min(len(v) - 1, (len(v) * q) // 100)]
-
-            wall_sorted, sess_sorted = sorted(wall_ms), sorted(sess_ms)
-            mode = "eager" if lazy == 0 else f"lazy_ticks={lazy}"
-            run = {
-                "key": key, "mode": mode, "ticks": ticks, "launches": launches,
-                "event_ms_per_tick_p50": pct(event_ms, 50), "event_ms_per_tick_p90": pct(event_ms, 90),
-                "host_ms_per_tick_p50": pct(wall_sorted, 50), "host_ms_per_tick_p90": pct(wall_sorted, 90),
-                "session_ms_per_tick_p50": pct(sess_sorted, 50),
-                "run_ms_per_tick": run_s * 1e3 / ticks,
-                "frames_resimulated": resimulated,
-                "rollback_frames_per_s": resimulated / run_s,
-                "kernel_ms_per_dispatch": ms, "kernel_ms_back_to_back": b2b_ms,
-                "rows_per_dispatch": t_rows,
-                # derived, not a trace: K3 device time over the run's wall time
-                "device_busy_share": launches * ms / (run_s * 1e3),
-            }
+            run, entry = request_path_run(torch, np, dev, tag, key, None, players, n, mp, lazy, script,
+                                          TIMED_DISPATCHES[key], errs[key])
             runs.append(run)
-            print(f"request path {key} {mode}: {launches} K3 launches over {ticks} ticks; per tick "
-                  f"event p50 {run['event_ms_per_tick_p50']:.4f} ms (p90 {run['event_ms_per_tick_p90']:.4f}), "
-                  f"handle_requests host p50 {run['host_ms_per_tick_p50']:.4f} ms "
-                  f"(p90 {run['host_ms_per_tick_p90']:.4f}), session host p50 "
-                  f"{run['session_ms_per_tick_p50']:.4f} ms, whole run {run['run_ms_per_tick']:.4f} ms/tick, "
-                  f"{run['rollback_frames_per_s']:.1f} rollback-frames/s ({resimulated} frames "
-                  f"resimulated); K3 {ms:.4f} ms per "
-                  f"{t_rows}-row dispatch on the card ({b2b_ms:.4f} ms launched back to back from "
-                  f"Python) vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); K3 busy "
-                  f"{run['device_busy_share']:.3f} of the run {tag}")
-            entries.append({
-                "name": "resim_tick", "route": "cuda",
-                "source": "ggrs_tpu_torch/csrc/resim_tick.cu",
-                "replaces": "ggrs_tpu/tpu/pallas_resim.py:324",
-                "tpu_counterpart": "PallasTickCore._build + _scalar_pass",
-                "shape": f"{n} entities, P={players}, max_prediction {mp}, T={t_rows} SyncTest rows (d={CHECK_DISTANCE})",
-                "max_abs_err": errs[key], "bit_equal": errs[key] == 0,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None, "launches": launches, "ms_back_to_back": b2b_ms,
-            })
-            del sess, backend, psess, pbackend
+            entries.append(entry)
     host_verification_check(np, dev, tag)
     return runs, entries
+
+
+def request_path_run(torch, np, dev, tag, key, game_fn, players, n, mp, lazy, script, reps, err):
+    """One run of the request path (SyncTest session, check distance 8,
+    device verification) on `game_fn()` (ExGame when None) beside the same
+    path with K3 swapped for its plain version: K3's launch count set to 0
+    before and above 0 after, the final cores equal, `check()` passing;
+    then K3 timed alone on the run's middle dispatch. Returns (the run's
+    summary, its K3 entry for the kernels line)."""
+    from ggrs_tpu_torch import AdvanceFrame, LoadGameState
+    from ggrs_tpu_torch.device.resim import RESIM_KEYS
+    from ggrs_tpu_torch.device.tick_core import plain_tick_multi
+
+    ticks = len(script)
+    game = game_fn() if game_fn else None
+    sess, backend = request_stack(n, players, mp, lazy, dev, plain=False, game=game)
+    psess, pbackend = request_stack(n, players, mp, lazy, dev, plain=True, game=game_fn() if game_fn else None)
+    arena = backend.core.ctx.reduce_len > 0
+    tc = backend.core.tick_core
+    marks, wall_ms, sess_ms, issued = [], [], [], []
+    torch.cuda.synchronize()
+    tc.launches = 0
+    t_run = time.perf_counter()
+    for row in script:
+        t0 = time.perf_counter()
+        add_inputs(sess, row)
+        reqs = sess.advance_frame()
+        t1 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        backend.handle_requests(reqs)
+        end.record()
+        t2 = time.perf_counter()
+        marks.append((start, end))
+        issued.append(reqs)
+        sess_ms.append((t1 - t0) * 1e3)
+        wall_ms.append((t2 - t1) * 1e3)
+    backend.block_until_ready()
+    run_s = time.perf_counter() - t_run
+    launches = tc.launches
+    if launches < 1:
+        fail(f"{key} lazy={lazy}: the request path launched no K3 kernel")
+    # frames resimulated: every advance of a tick that loads, less its new
+    # frame (the spin-up ticks before the first rollback resimulate nothing)
+    resimulated = sum(
+        sum(isinstance(r, AdvanceFrame) for r in reqs) - 1
+        for reqs in issued if any(isinstance(r, LoadGameState) for r in reqs)
+    )
+    event_ms = sorted(s.elapsed_time(e) for s, e in marks)
+    for row in script:
+        add_inputs(psess, row)
+        pbackend.handle_requests(psess.advance_frame())
+    pbackend.block_until_ready()
+    if carry_err(torch, backend.core.carry, pbackend.core.carry, RESIM_KEYS):
+        fail(f"{key} lazy={lazy}: the request path's core differs from the plain version's")
+    backend.check()
+    pbackend.check()
+    state = backend.state_numpy()
+    if state["pos"].shape != (n, 2) or int(state["frame"]) != ticks:
+        fail(f"{key} lazy={lazy}: state has the wrong shape or frame")
+
+    # K3 alone on exactly the rows this run dispatched (its middle
+    # dispatch), back to back on a copy of the core
+    t_rows = 1 if lazy == 0 else lazy
+    recorded = pbackend.core.tick_core.rows[t_rows]
+    rows = recorded[len(recorded) // 2]
+    core = backend.core
+    timed = {k: v.clone() for k, v in core.carry.items()}
+    ptimed = {k: v.clone() for k, v in core.carry.items()}
+    ms = queued_ms(torch, lambda: tc.tick_multi(timed, rows), reps)
+    b2b_ms = events_ms(torch, lambda: tc.tick_multi(timed, rows), reps)
+    plain_ms = events_ms(torch, lambda: plain_tick_multi(ptimed, rows, core), 1)
+    b_ms, b_by = tick_bound(rows.cpu().numpy(), n, core)
+    del timed, ptimed
+
+    def pct(v, q):
+        return v[min(len(v) - 1, (len(v) * q) // 100)]
+
+    wall_sorted, sess_sorted = sorted(wall_ms), sorted(sess_ms)
+    mode = "eager" if lazy == 0 else f"lazy_ticks={lazy}"
+    run = {
+        "key": key, "mode": mode, "ticks": ticks, "launches": launches,
+        "event_ms_per_tick_p50": pct(event_ms, 50), "event_ms_per_tick_p90": pct(event_ms, 90),
+        "host_ms_per_tick_p50": pct(wall_sorted, 50), "host_ms_per_tick_p90": pct(wall_sorted, 90),
+        "slowest_tick_ms": max(w + t for w, t in zip(wall_ms, sess_ms)),  # session + handle_requests
+        "session_ms_per_tick_p50": pct(sess_sorted, 50),
+        "run_ms_per_tick": run_s * 1e3 / ticks,
+        "frames_resimulated": resimulated,
+        "rollback_frames_per_s": resimulated / run_s,
+        "kernel_ms_per_dispatch": ms, "kernel_ms_back_to_back": b2b_ms,
+        "rows_per_dispatch": t_rows,
+        # derived, not a trace: K3 device time over the run's wall time
+        "device_busy_share": launches * ms / (run_s * 1e3),
+    }
+    print(f"request path {key} {mode}: {launches} K3 launches over {ticks} ticks; per tick "
+          f"event p50 {run['event_ms_per_tick_p50']:.4f} ms (p90 {run['event_ms_per_tick_p90']:.4f}), "
+          f"handle_requests host p50 {run['host_ms_per_tick_p50']:.4f} ms "
+          f"(p90 {run['host_ms_per_tick_p90']:.4f}), slowest tick {run['slowest_tick_ms']:.4f} ms, session host p50 "
+          f"{run['session_ms_per_tick_p50']:.4f} ms, whole run {run['run_ms_per_tick']:.4f} ms/tick, "
+          f"{run['rollback_frames_per_s']:.1f} rollback-frames/s ({resimulated} frames "
+          f"resimulated); K3 {ms:.4f} ms per "
+          f"{t_rows}-row dispatch on the card ({b2b_ms:.4f} ms launched back to back from "
+          f"Python) vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); K3 busy "
+          f"{run['device_busy_share']:.3f} of the run {tag}")
+    entry = {
+        "name": "resim_tick_arena" if arena else "resim_tick", "route": "cuda",
+        "source": "ggrs_tpu_torch/csrc/resim_tick.cu",
+        "replaces": "ggrs_tpu/tpu/pallas_resim.py:324",
+        "tpu_counterpart": "PallasTickCore._build + _scalar_pass"
+                           + (" with ArenaPlanes (inline whole-world reductions)" if arena else ""),
+        "shape": f"{type(core.game).__name__}({players}, {n}), max_prediction {mp}, "
+                 f"T={t_rows} SyncTest rows (d={CHECK_DISTANCE})",
+        "max_abs_err": err, "bit_equal": err == 0,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "launches": launches, "ms_back_to_back": b2b_ms,
+    }
+    del sess, backend, psess, pbackend
+    return run, entry
 
 
 def host_verification_check(np, dev, tag):
@@ -605,15 +709,23 @@ def host_verification_check(np, dev, tag):
               f"checksums resolved through the ledger, K3 == plain, no mismatch {tag}")
 
 
-def beam_bound(n, beam, steps, players, input_size, substeps=1):
+def beam_bound(n, beam, steps, players, input_size, substeps=1, arena=False):
     """Least ms of one K4 launch: the anchor read once and the trajectory
-    written once (20 B per entity column each), plus the script and the
-    checksums, over the HBM rate; vs 69 int32 ops per entity-substep and 15
-    per entity-checksum (B*L steps and checksums, and the anchor's), over
-    the int32 peak."""
-    nbytes = 20 * n * (1 + beam * steps) + 4 * beam * steps * players * (1 + input_size) \
+    written once (20 B per entity column each, 24 B for arena), plus the
+    script and the checksums, over the HBM rate; vs 69 int32 ops per
+    entity-substep and 15 per entity-checksum (B*L steps and checksums, and
+    the anchor's) — for arena 64 per entity-step, 18 per entity-checksum
+    and 3 + 3P per entity-reduction: the anchor's, then one of each
+    member's state entering steps 1..L-1 — over the int32 peak."""
+    col = 24 if arena else 20
+    nbytes = col * n * (1 + beam * steps) + 4 * beam * steps * players * (1 + input_size) \
         + 4 * (2 * beam * steps + 3)
-    ops = n * (beam * steps * (substeps * OPS_PER_SUBSTEP + OPS_PER_SAVE) + OPS_PER_SAVE)
+    if arena:
+        reductions = 1 + beam * (steps - 1)
+        ops = n * (beam * steps * (OPS_PER_ARENA_STEP + OPS_PER_ARENA_SAVE) + OPS_PER_ARENA_SAVE
+                   + reductions * team_ops(players))
+    else:
+        ops = n * (beam * steps * (substeps * OPS_PER_SUBSTEP + OPS_PER_SAVE) + OPS_PER_SAVE)
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
@@ -690,7 +802,10 @@ def beam_phase(torch, np, dev, tag):
     return out
 
 
-def beam_stack(n, mp, width, dev, device_verify=False):
+def beam_stack(n, mp, width, dev, device_verify=False, game_cls=None, plain=False):
+    """A port SyncTest session and a backend with a beam of `width` (0:
+    off) on `game_cls(PLAYERS, n)` (ExGame unless given); `plain` swaps the
+    K3 wrapper for the plain version."""
     from ggrs_tpu_torch import DeviceRollbackBackend, ExGame, SessionBuilder
 
     sess = (
@@ -701,28 +816,41 @@ def beam_stack(n, mp, width, dev, device_verify=False):
         .with_device_checksum_verification(device_verify)
         .start_synctest_session()
     )
-    return sess, DeviceRollbackBackend(ExGame(PLAYERS, n), mp, PLAYERS, device_verify=device_verify,
-                                       beam_width=width, device=dev)
+    backend = DeviceRollbackBackend((game_cls or ExGame)(PLAYERS, n), mp, PLAYERS,
+                                    device_verify=device_verify, beam_width=width, device=dev)
+    if plain:
+        backend.core.tick_core = PlainTick(backend.core)
+    return sess, backend
 
 
-def beam_path_phase(torch, np, dev, tag, beam_errs):
+def beam_path_phase(torch, np, dev, tag, beam_errs, shapes=None, path_ticks=None, scripts=None,
+                    game_cls=None):
     """The beam request path (K4 + adoption + K3 suffixes) beside a beam-off
     twin, three scripts per shape, and a device-verify divergence probe.
+    With `game_cls` (arena) the runs verify on the device and a third,
+    plain arm (beam off, K3 swapped for its plain version) runs beside
+    them: the beam's final core must equal it and `check()` must pass.
     Returns (per-run summaries, K4 entries for the kernels line)."""
     from ggrs_tpu_torch import MismatchedChecksum, SaveGameState
+    from ggrs_tpu_torch.device.resim import RESIM_KEYS
 
+    shapes, path_ticks = shapes or BEAM_SHAPES, path_ticks or BEAM_PATH_TICKS
+    scripts, arena = scripts or BEAM_SCRIPTS, game_cls is not None
     runs, entries = [], []
-    for key, players, n, mp, width, steps in BEAM_SHAPES:
-        if key not in BEAM_PATH_TICKS:
+    for key, players, n, mp, width, steps in shapes:
+        if key not in path_ticks:
             continue
-        ticks = BEAM_PATH_TICKS[key]
+        ticks = path_ticks[key]
         k4_launches = 0
-        for name, script in BEAM_SCRIPTS.items():
-            arms = {"on": beam_stack(n, mp, width, dev), "off": beam_stack(n, mp, 0, dev)}
+        for name, script in scripts.items():
+            arms = {"on": beam_stack(n, mp, width, dev, arena, game_cls),
+                    "off": beam_stack(n, mp, 0, dev, arena, game_cls)}
+            if arena:
+                arms["plain"] = beam_stack(n, mp, 0, dev, arena, game_cls, plain=True)
             beam = arms["on"][1]
-            saves = {"on": [], "off": []}
-            host = {"on": [], "off": []}
-            marks = {"on": [], "off": []}
+            saves = {arm: [] for arm in arms}
+            host = {arm: [] for arm in arms}
+            marks = {arm: [] for arm in arms}
             torch.cuda.synchronize()
             beam.core.beam_rollout.launches = 0
             beam.core.tick_core.launches = 0
@@ -740,14 +868,21 @@ def beam_path_phase(torch, np, dev, tag, beam_errs):
                     marks[arm].append((start, end))
                     saves[arm] += [(r.frame, r.cell.checksum_getter()) for r in reqs
                                    if isinstance(r, SaveGameState)]
-                a, b = arms["on"][1].core.carry, arms["off"][1].core.carry
-                if not (torch.equal(a["state"], b["state"]) and torch.equal(a["state_frame"], b["state_frame"])):
-                    fail(f"{key} {name}: the beam's live state differs from the twin's after tick {t}")
+                a = arms["on"][1].core.carry
+                for arm in arms:
+                    b = arms[arm][1].core.carry
+                    if not (torch.equal(a["state"], b["state"]) and torch.equal(a["state_frame"], b["state_frame"])):
+                        fail(f"{key} {name}: the beam's live state differs from the {arm} twin's after tick {t}")
             torch.cuda.synchronize()
             k4, k3 = beam.core.beam_rollout.launches, beam.core.tick_core.launches
             resolved = {arm: [(f, g()) for f, g in v] for arm, v in saves.items()}
-            if resolved["on"] != resolved["off"] or len(resolved["on"]) < ticks:
+            if any(resolved[arm] != resolved["on"] for arm in arms) or len(resolved["on"]) < ticks:
                 fail(f"{key} {name}: per-save checksums differ between the beam and its twin")
+            if arena:
+                if carry_err(torch, beam.core.carry, arms["plain"][1].core.carry, RESIM_KEYS):
+                    fail(f"{key} {name}: the beam's final core differs from the plain version's")
+                beam.check()
+                arms["plain"][1].check()
             adopted = beam.beam_hits + beam.beam_partial_hits
             if k4 < 1 or k3 < 1 or adopted < 1 or beam.rollback_frames_adopted < 1:
                 fail(f"{key} {name}: K4 launches {k4}, K3 launches {k3}, adoptions {adopted} "
@@ -766,7 +901,7 @@ def beam_path_phase(torch, np, dev, tag, beam_errs):
                 v = sorted(v)
                 return v[min(len(v) - 1, (len(v) * q) // 100)]
 
-            ev = {arm: [s.elapsed_time(e) for s, e in m] for arm, m in marks.items()}
+            ev = {arm: [s.elapsed_time(e) for s, e in marks[arm]] for arm in ("on", "off")}
             run = {
                 "key": key, "script": name, "ticks": ticks, "beam_width": width,
                 "k4_launches": k4, "k3_launches": k3,
@@ -795,8 +930,8 @@ def beam_path_phase(torch, np, dev, tag, beam_errs):
         # divergence probe: corrupt the anchor the NEXT speculation rolls
         # out of (its slot is not re-saved before that launch), so the
         # adopted checksums carry the corruption into the verify history
-        sess, backend = beam_stack(n, mp, width, dev, device_verify=True)
-        script = BEAM_SCRIPTS["constant"]
+        sess, backend = beam_stack(n, mp, width, dev, device_verify=True, game_cls=game_cls)
+        script = scripts["constant"]
         for t in range(14):
             for h in range(players):
                 sess.add_local_input(h, bytes([script(t, h)]))
@@ -818,13 +953,14 @@ def beam_path_phase(torch, np, dev, tag, beam_errs):
         del sess, backend
 
         err, ms, plain_ms, b2b_ms = beam_errs[key]
-        b_ms, b_by = beam_bound(n, width, steps, players, 1)
+        b_ms, b_by = beam_bound(n, width, steps, players, 1, arena=arena)
         entries.append({
-            "name": "beam_rollout", "route": "cuda",
+            "name": "beam_rollout_arena" if arena else "beam_rollout", "route": "cuda",
             "source": "ggrs_tpu_torch/csrc/beam_rollout.cu",
             "replaces": "ggrs_tpu/tpu/pallas_beam.py:226",
-            "tpu_counterpart": "PallasBeamRollout._build + run_kernel + finish",
-            "shape": f"{n} entities, P={players}, B={width} x L={steps}",
+            "tpu_counterpart": "PallasBeamRollout._build + run_kernel + finish"
+                               + (" with ArenaPlanes (per-member whole-world reductions)" if arena else ""),
+            "shape": f"{(game_cls.__name__ + ' ') if arena else ''}{n} entities, P={players}, B={width} x L={steps}",
             "max_abs_err": err, "bit_equal": err == 0,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "launches": k4_launches, "ms_back_to_back": b2b_ms,
@@ -1233,6 +1369,220 @@ def arena_main_path_phase(torch, np, dev, tag, fused_scripts, fused_final, injec
     return runs
 
 
+def arena_rollback_rows(core, n_rows, seed):
+    """bench.py:1275's buffer: `n_rows` rows, each loading frame f - 8,
+    advancing 9 frames (8 resimulated and a new one) with dense saves, on
+    random inputs below 64."""
+    import numpy as np
+
+    W, P = core.window, core.num_players
+    rng = np.random.default_rng(seed)
+    rows, frame, depth = [], 24, 8
+    for _ in range(n_rows):
+        inputs = rng.integers(0, 64, size=(W, P, 1), dtype=np.uint8)
+        statuses = np.zeros((W, P), np.int32)
+        slots = np.full((W,), core.scratch_slot, np.int32)
+        start = frame - depth
+        for i in range(depth + 1):
+            slots[i] = (start + i) % core.ring_len
+        rows.append(core.pack_tick_row(True, start % core.ring_len, inputs, statuses, slots, depth + 1,
+                                       start_frame=start))
+        frame += 1
+    return np.stack(rows)
+
+
+def arena_script(np, rng, ticks, players, input_size):
+    """Session inputs for arena: byte 0 below 64, the throttle byte below 16."""
+    raw = rng.integers(0, 64, size=(ticks, players, input_size))
+    if input_size == 2:
+        raw[..., 1] = rng.integers(0, 16, size=(ticks, players))
+    return raw if input_size == 2 else raw[..., 0]
+
+
+def arena_tick_phase(torch, np, dev, tag):
+    """K3's arena body against plain_tick_multi after every dispatch (his/los
+    and the whole core, device verification on): seeded session-shaped
+    streams (arena's inputs, the throttle byte where the game has it, 15%
+    DISCONNECTED slots) as 1-row and 8-row dispatches, and ar4_l16's
+    rollback buffer as 16-row dispatches; then a kill probe per shape
+    through the request path. Returns ({key: max abs err}, {key: (ms, plain
+    ms, bound) of ar4_l16's buffer})."""
+    from ggrs_tpu_torch import Arena, MismatchedChecksum, ResimCore
+    from ggrs_tpu_torch.device.resim import RESIM_KEYS
+    from ggrs_tpu_torch.device.tick_core import plain_tick_multi
+
+    errs, timed = {}, {}
+    for key, players, n, input_size, mp in ARENA_TICK_SHAPES:
+        err = 0
+        for per_dispatch in [ARENA_ROLLBACK_ROWS] if key == "ar4_l16" else [1, ARENA_TICK_ROWS]:
+            core = ResimCore(Arena(players, n, input_size), mp, players, device_verify=True, device=dev)
+            plain = {k: v.clone() for k, v in core.carry.items()}
+            if key == "ar4_l16":
+                rows = np.concatenate([arena_rollback_rows(core, ARENA_ROLLBACK_ROWS, seed=3)] * 3)
+            else:
+                extra = ARENA_STREAM_ROWS.get(key, TICK_STREAM_EXTRA_ROWS)
+                rows = random_tick_rows(core, mp + 2 + extra, seed=players * 100 + mp, mod=64)
+            core.tick_multi(prime_row(core)[None])
+            plain_tick_multi(plain, core.upload(prime_row(core)[None]), core)
+            for b in range(0, len(rows), per_dispatch):
+                batch = rows[b : b + per_dispatch]
+                his, los = core.tick_multi(batch)
+                p_his, p_los = plain_tick_multi(plain, core.upload(batch), core)
+                torch.cuda.synchronize()
+                err = max(err, carry_err(torch, {"h": his, "l": los}, {"h": p_his, "l": p_los}, "hl"),
+                          carry_err(torch, core.carry, plain, RESIM_KEYS))
+                if err:
+                    fail(f"{key}: K3 (arena) and plain version differ at rows {b}.. of {per_dispatch}-row "
+                         f"dispatches (max abs err {err})")
+            if not bool((core.carry["state"][4] > 0).any()):
+                fail(f"{key}: the stream left no living entity, so it tested no reduction")
+            disconnects = int((rows[:, core.off_status : core.off_input] == 2).sum())
+            print(f"{key}: resim_tick (arena) == plain after each of {-(-len(rows) // per_dispatch)} "
+                  f"{per_dispatch}-row dispatch(es) ({players} players, {n} entities, input_size "
+                  f"{input_size}, max_prediction {mp}, device verify, {disconnects} DISCONNECTED cells) {tag}")
+            if key == "ar4_l16":
+                buf = core.upload(rows[:ARENA_ROLLBACK_ROWS])
+                ptimed = {k: v.clone() for k, v in core.carry.items()}
+                ms = queued_ms(torch, lambda: core.tick_core.tick_multi(core.carry, buf), 50)
+                plain_ms = events_ms(torch, lambda: plain_tick_multi(ptimed, buf, core), 1)
+                b_ms, b_by = tick_bound(rows[:ARENA_ROLLBACK_ROWS], n, core)
+                timed[key] = (ms, plain_ms, b_ms, b_by)
+                print(f"{key}: resim_tick (arena) {ms:.4f} ms per {ARENA_ROLLBACK_ROWS}-row buffer, "
+                      f"{ms / ARENA_ROLLBACK_ROWS:.4f} ms per rollback tick, vs plain {plain_ms:.1f} ms, "
+                      f"bound {b_ms:.4f} ms ({b_by}) {tag}")
+                del ptimed
+            del core, plain
+        errs[key] = err
+
+        # kill probe through the request path: hp = 0 for KILLED entities in
+        # the slot the next rollback loads, on the kernel's core and the
+        # plain version's alike
+        stacks = [request_stack(n, players, mp, 0, dev, plain, game=Arena(players, n, input_size))
+                  for plain in (False, True)]
+        script = arena_script(np, np.random.default_rng(7), 16, players, input_size)
+        for sess, backend in stacks:
+            for row in script[:12]:
+                add_inputs(sess, row)
+                backend.handle_requests(sess.advance_frame())
+        frame = stacks[0][1].current_frame
+        latched = []
+        for sess, backend in stacks:
+            backend.core.carry["ring"][(frame - CHECK_DISTANCE) % backend.core.ring_len, 4, :KILLED] = 0
+            add_inputs(sess, script[12])
+            backend.handle_requests(sess.advance_frame())
+            try:
+                backend.check()
+                latched.append(None)
+            except MismatchedChecksum as exc:
+                latched.append(exc.frame)
+        want = frame - CHECK_DISTANCE + 1
+        if latched != [want, want]:
+            fail(f"{key}: kill probe latched {latched} (kernel, plain), expected frame {want} on both")
+        if carry_err(torch, stacks[0][1].core.carry, stacks[1][1].core.carry, RESIM_KEYS):
+            fail(f"{key}: K3 (arena) and plain version differ after the kill probe")
+        print(f"{key}: kill probe (hp = 0 for {KILLED} entities): K3 and plain both latched frame {want}")
+        del stacks
+    return errs, timed
+
+
+def arena_beam_phase(torch, np, dev, tag):
+    """K4's arena body against plain_rollout for every speculation of a
+    short run (trajectory, checksums, anchor), a kill probe on the anchor,
+    and K4's time per launch. Returns {key: (max abs err, ms, plain ms, ms
+    back to back)}."""
+    from ggrs_tpu_torch import Arena, ResimCore
+    from ggrs_tpu_torch.device.beam_core import plain_rollout
+
+    out = {}
+    for key, players, n, mp, width, steps in ARENA_BEAM_SHAPES:
+        input_size = 2 if key.endswith("_w") else 1
+        core = ResimCore(Arena(players, n, input_size), mp, players, device=dev)
+        core.tick_multi(np.concatenate([prime_row(core)[None],
+                                        random_tick_rows(core, mp + 2 + 8, seed=n + players, mod=64)]))
+        ring, r_frame = core.carry["ring"], core.carry["r_frame"]
+        rng = np.random.default_rng(players * 1000 + width + 1)
+        disconnects = players > 2
+        err, cells = 0, 0
+        for k in range(BEAM_SPECULATIONS):
+            slot = (3 * k + 1) % core.ring_len
+            inputs = rng.integers(0, 64, size=(width, steps, players, input_size), dtype=np.uint8)
+            if input_size == 2:
+                inputs[..., 1] = rng.integers(0, 16, size=(width, steps, players))
+            statuses = np.zeros((width, steps, players), np.int32)
+            if disconnects:
+                statuses[rng.random(statuses.shape) < 0.2] = 2  # InputStatus.DISCONNECTED
+                cells += int((statuses == 2).sum())
+            spec = core.speculate(slot, inputs, statuses)
+            plain = plain_rollout(ring[slot], r_frame[slot], torch.from_numpy(inputs).to(dev),
+                                  torch.from_numpy(statuses).to(dev), core.ctx)
+            torch.cuda.synchronize()
+            err = max(err, spec_err(torch, spec, plain))
+            if err:
+                fail(f"{key}: K4 (arena) and plain_rollout differ at speculation {k} (max abs err {err})")
+        if disconnects and not cells:
+            fail(f"{key}: no DISCONNECTED cell was drawn")
+        print(f"{key}: beam_rollout (arena) == plain_rollout for each of {BEAM_SPECULATIONS} speculations "
+              f"({players} players, {n} entities, input_size {input_size}, {width} members x {steps} steps"
+              f"{f', {cells} DISCONNECTED cells' if disconnects else ''}) {tag}")
+
+        # kill probe: hp = 0 for KILLED entities of the newest snapshot (a
+        # slot the stream never saved holds a zero world, dead already)
+        slot = int(r_frame[: core.ring_len].argmax())
+        if not bool((ring[slot, 4, :KILLED] > 0).any()):
+            fail(f"{key}: the kill probe's anchor slot {slot} holds no living entity to kill")
+        clean = core.speculate(slot, inputs, statuses)
+        saved = ring[slot, 4, :KILLED].clone()
+        ring[slot, 4, :KILLED] = 0
+        dirty = core.speculate(slot, inputs, statuses)
+        pdirty = plain_rollout(ring[slot], r_frame[slot], torch.from_numpy(inputs).to(dev),
+                               torch.from_numpy(statuses).to(dev), core.ctx)
+        ring[slot, 4, :KILLED] = saved
+        torch.cuda.synchronize()
+        if spec_err(torch, dirty, pdirty):
+            fail(f"{key}: K4 (arena) and plain_rollout differ on a killed anchor")
+        if torch.equal(clean.his, dirty.his) or torch.equal(clean.a_hi, dirty.a_hi):
+            fail(f"{key}: killing anchor entities left the speculation's checksums unchanged")
+        print(f"{key}: kill probe: killed anchor entities change every checksum, K4 == plain")
+
+        ms = b2b_ms = plain_ms = None
+        if key in ARENA_TIMED_SPECULATIONS:
+            br = core.beam_rollout
+            script = br.script(inputs, statuses)
+            reps = ARENA_TIMED_SPECULATIONS[key]
+            ms = queued_ms(torch, lambda: br.rollout(ring, r_frame, slot, script), reps)
+            b2b_ms = events_ms(torch, lambda: br.rollout(ring, r_frame, slot, script), reps)
+            t_in, t_st = torch.from_numpy(inputs).to(dev), torch.from_numpy(statuses).to(dev)
+            plain_ms = events_ms(torch, lambda: plain_rollout(ring[slot], r_frame[slot], t_in, t_st,
+                                                              core.ctx), 1)
+            b_ms, b_by = beam_bound(n, width, steps, players, input_size, arena=True)
+            print(f"{key}: beam_rollout (arena) {ms:.4f} ms per launch on the card ({b2b_ms:.4f} ms "
+                  f"launched back to back from Python) vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}) {tag}")
+        out[key] = (err, ms, plain_ms, b2b_ms)
+        del core, ring, r_frame
+    return out
+
+
+def arena_request_path_phase(torch, np, dev, tag, tick_errs, tick_timed):
+    """Arena's request path through the session, eager and lazy, at 4096
+    and 65536 entities, and ar4_l16's 16-row lazy buffers. Returns (per-run
+    summaries, K3 entries for the kernels line)."""
+    from ggrs_tpu_torch import Arena
+
+    runs, entries = [], []
+    for key, players, n, lazy, ticks, reps in ARENA_REQUEST_RUNS:
+        mp = 9
+        script = np.random.default_rng(n + lazy + 2).integers(0, 64, size=(ticks, players))
+        run, entry = request_path_run(torch, np, dev, tag, key, lambda: Arena(players, n), players, n, mp,
+                                      lazy, script, reps, tick_errs[key])
+        if key in tick_timed:  # the bench's own buffer, timed in phase 10
+            ms, _, b_ms, _ = tick_timed[key]
+            run["bench_buffer_ms"], run["bench_buffer_ms_per_rollback_tick"] = ms, ms / ARENA_ROLLBACK_ROWS
+        runs.append(run)
+        entries.append(entry)
+    return runs, entries
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1240,7 +1590,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     try:
-        from ggrs_tpu_torch import DeviceSyncTestSession, ExGame
+        from ggrs_tpu_torch import Arena, DeviceSyncTestSession, ExGame
         from ggrs_tpu_torch.convert import CARRY_KEYS, copy_carry
         from ggrs_tpu_torch.device import sync_test
         from ggrs_tpu_torch.device.fused_core import FusedSyncTestCore, plain_batch
@@ -1422,11 +1772,20 @@ def main() -> None:
                                        injected_final, fused_entries, injected_entries)
     arena_entries = list(fused_entries.values()) + list(injected_entries.values())
 
+    # -- phases 10 and 11: arena on K3 and K4, then its request and beam paths
+    arena_tick_errs, arena_tick_timed = arena_tick_phase(torch, np, dev, tag)
+    arena_beam_errs = arena_beam_phase(torch, np, dev, tag)
+    arena_request_path, arena_tick_entries = arena_request_path_phase(torch, np, dev, tag, arena_tick_errs,
+                                                                      arena_tick_timed)
+    arena_beam_path, arena_beam_entries = beam_path_phase(torch, np, dev, tag, arena_beam_errs, ARENA_BEAM_SHAPES,
+                                                          ARENA_BEAM_PATH_TICKS, ARENA_BEAM_SCRIPTS, Arena)
+
     for e in entries:
         e.pop("key")
-    entries += tick_entries + beam_entries + arena_entries
+    entries += tick_entries + beam_entries + arena_entries + arena_tick_entries + arena_beam_entries
     print(json.dumps({"card": card, "main_path": main_path, "request_path": request_path,
-                      "beam_path": beam_path, "arena_path": arena_path}))
+                      "beam_path": beam_path, "arena_path": arena_path,
+                      "arena_request_path": arena_request_path, "arena_beam_path": arena_beam_path}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

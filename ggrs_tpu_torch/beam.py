@@ -34,11 +34,11 @@ class BeamSpeculator:
         self.num_players = num_players
         self.device = resolve_device(device)
         self.ctx = PlaneContext(game, num_players, max(window - 2, 1), self.device)
-        self.rollout_core = BeamRollout(self.ctx, int(game.disconnect_input[0]), window)
+        self.rollout_core = BeamRollout(self.ctx, game.disconnect_input, window)
 
     def rollout(self, state, beam_inputs: np.ndarray, beam_statuses: np.ndarray):
-        """`state`: the reference-layout state (frame, pos, vel, rot) as
-        tensors or numpy; beam_inputs u8[B, W, P, I], beam_statuses
+        """`state`: the reference-layout state (frame and the game's leaves)
+        as tensors or numpy; beam_inputs u8[B, W, P, I], beam_statuses
         i32[B, W, P]. Returns (states with leaves [B, ...], hi[B], lo[B]):
         each member's final state and its checksum, hi/lo as int32 tensors
         holding the uint32 bit patterns."""

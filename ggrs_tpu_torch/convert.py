@@ -114,9 +114,10 @@ def copy_carry(carry) -> Dict[str, torch.Tensor]:
 #     state:  {frame i32[], pos i32[N,2], vel i32[N,2], rot i32[N]}
 #     verify: {} or {h_tag i32[R], h_hi u32[R], h_lo u32[R], flag i32[2]}
 #
-# with R = ring_len = max_prediction + 2 (slot R is the scratch slot). The
-# port keeps state [5,N], state_frame [], ring [R+1,5,N], r_frame [R+1] and
-# the verify leaves flat in one carry dict (device/resim.py).
+# for ex_game (arena's ring and state hold pos, vel, hp and energy), with
+# R = ring_len = max_prediction + 2 (slot R is the scratch slot). The port
+# keeps state [K,N], state_frame [], ring [R+1,K,N] (K planes), r_frame
+# [R+1] and the verify leaves flat in one carry dict (device/resim.py).
 # ---------------------------------------------------------------------------
 
 
@@ -168,7 +169,8 @@ def resim_to_reference(core) -> dict:
 def speculation_to_reference(spec) -> tuple:
     """A port `Speculation` -> the reference's speculation tuple as numpy:
     (traj {frame i32[B,L], pos i32[B,L,N,2], vel i32[B,L,N,2], rot
-    i32[B,L,N]}, his u32[B,L], los u32[B,L], a_hi u32[], a_lo u32[])."""
+    i32[B,L,N]} — arena's hp and energy i32[B,L,N] in place of rot —, his
+    u32[B,L], los u32[B,L], a_hi u32[], a_lo u32[])."""
     B, L = spec.his.shape
     frames = int(spec.frame) + 1 + np.arange(L, dtype=np.int32)
     traj = planes_to_reference(spec.traj, np.broadcast_to(frames, (B, L)).astype(np.int32))

@@ -26,10 +26,8 @@
 // events add nothing, so their parts stay 0.
 #pragma once
 
+#include "block.cuh"
 #include "ex_game_step.cuh"
-
-constexpr int kBlock = 128;  // entities per block
-constexpr int kWarps = kBlock / 32;
 
 template <class Weights>
 struct SyncTestArgs {
@@ -43,18 +41,6 @@ struct SyncTestArgs {
   int n, num_players, input_size, d, t_ticks, substeps;
   Weights cw;
 };
-
-// checksum weights from the launchers' int32 array: w[K], base[K], frame weight
-template <class Weights, int K>
-inline Weights weights_from(const int* cs) {
-  Weights cw;
-  for (int k = 0; k < K; ++k) {
-    cw.w[k] = (uint32_t)cs[k];
-    cw.base[k] = (uint32_t)cs[K + k];
-  }
-  cw.frame_weight = (uint32_t)cs[2 * K];
-  return cw;
-}
 
 // ex_game's traits and stepper: no reduction, the step reads input byte 0
 struct ExGameModel {
@@ -89,12 +75,6 @@ struct ExGameStepper {
 
 // dynamic shared memory the body needs: red[2 ticks][hi, lo][d][warps]
 __host__ __device__ inline size_t body_smem_words(int d) { return (size_t)4 * d * kWarps; }
-
-__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, off);
-  return v;
-}
 
 template <class M, class Stepper>
 __device__ void synctest_entity_batch(const SyncTestArgs<typename M::Weights>& a, uint32_t* red,

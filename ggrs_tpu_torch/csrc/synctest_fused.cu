@@ -19,12 +19,11 @@
 // count and centroid of the state entering it. The reference's K1 computes
 // them as the whole-world sums its single VMEM-resident program can take;
 // here the world is spread over blocks that cannot see each other, so each
-// reduction is: block sums (warp shuffles) -> uint32 atomics into a global
-// raw table -> a GRID barrier -> every block finalizes the table itself
-// (scalar work for P teams, exact floor division) into shared memory. The
-// barrier needs every block resident at once, so arena's K1 is launched
-// cooperatively, after checking co-residency, and raises (nonzero return)
-// when the grid does not fit rather than deadlocking. With the reference's
+// reduction is block sums, atomics, a GRID barrier and a finalize in every
+// block (arena_reduce.cuh). The barrier needs every block resident at once,
+// and K1 keeps one entity per thread in registers, so arena's K1 is
+// launched cooperatively, after checking co-residency, and raises (nonzero
+// return) when the grid does not fit rather than deadlocking. With the reference's
 // per-frame cache (T > 1, pallas_core.py:789-801, :863-887, :936-944) a
 // batch pays 1 + (T-1) barriers: the seed (d+1 cached frames, from the ring
 // slots and the live state) and one per tick after the frontier step. With
@@ -50,15 +49,8 @@
 // the 132 SMs at 4096 entities; capturing the batch loop in a CUDA graph.
 #include <cuda_runtime.h>
 
-#include "arena_step.cuh"
+#include "arena_reduce.cuh"
 #include "synctest_body.cuh"
-
-// returned when arena's grid cannot be resident at once (no CUDA error has
-// this value): the caller raises instead of launching a kernel that would
-// wait forever at its first grid barrier
-constexpr int kNotCoResident = -1;
-// blocks per SM the arena kernel is built for (<= 64 registers a thread)
-constexpr int kArenaMinBlocksPerSm = 8;
 
 // The last block to finish runs the bookkeeping and the verdict: every
 // thread fences its own parts atomics, then one ticket per block; the block
@@ -90,67 +82,6 @@ __global__ void __launch_bounds__(kBlock) synctest_fused_kernel(
   finish_batch(a, c0, r_frame, iring, h_tag, h_hi, h_lo, meta, done,
                reinterpret_cast<int*>(smem + body_smem_words(a.d)));
 }
-
-// A grid-wide barrier for a cooperatively launched grid: bar[0] counts the
-// blocks arrived, bar[1] is the generation; both zeroed before the launch.
-// The fences make every write a block made before the barrier (its
-// reduction atomics, its zeroing of a table row) visible to every block
-// after it. A block that waits more than ~10 s traps: the launch then fails
-// with an error instead of hanging the card.
-__device__ __forceinline__ void grid_sync(unsigned int* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned int* gen = bar + 1;
-    const unsigned int g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      for (long long spins = 0; *gen == g; ++spins) {
-        __nanosleep(100);
-        if (spins > (1ll << 27)) __trap();
-      }
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// What arena's grid-wide reduction steppers share: this entity's team and
-// the next team (its enemy), shared-memory scratch for block sums, the raw
-// table in global memory and the barrier.
-struct ArenaReduce {
-  arena::Team* fin;   // shared: finalized teams, [slots * P]
-  uint32_t* scratch;  // shared: 3 * kMaxTeams * kWarps words
-  uint32_t* raw;      // global: raw sums, [slots * 3P], zeroed before launch
-  unsigned int* bar;  // global: grid barrier
-  int num_players, input_size, team, enemy;
-
-  // add this block's sums of `s` to raw row `slot`
-  __device__ __forceinline__ void add(const arena::State& s, bool active, int slot) {
-    arena::block_team_sums<kWarps>(active, s.px, s.py, s.hp, team, num_players, scratch,
-                                   raw + (size_t)slot * 3 * num_players);
-  }
-  // after a grid barrier: finalize raw row `slot` into fin row `slot`
-  __device__ __forceinline__ void finalize(int slot) {
-    const int P = num_players;
-    for (int t = threadIdx.x; t < P; t += kBlock) {
-      const uint32_t* r = raw + (size_t)slot * 3 * P + 3 * t;  // atomics live in L2: read there
-      fin[slot * P + t] = arena::finalize((int)__ldcg(r), (int)__ldcg(r + 1), (int)__ldcg(r + 2));
-    }
-  }
-  // zero raw row `slot` (block 0 only)
-  __device__ __forceinline__ void zero(int slot) {
-    if (blockIdx.x == 0)
-      for (int j = threadIdx.x; j < 3 * num_players; j += kBlock) raw[(size_t)slot * 3 * num_players + j] = 0;
-  }
-  __device__ __forceinline__ void step(arena::State& s, const int* in, int slot) {
-    const int P = num_players;
-    arena::step(s, in[0], arena::throttle_of(in, input_size), fin[slot * P + team], fin[slot * P + enemy]);
-  }
-};
 
 // T > 1: the reference's per-frame cache. Frame f's reduction sits in row
 // f % M, M = d+3 rows (one more than the reference's d+2, so that the row
@@ -187,26 +118,6 @@ struct ArenaCacheStepper : ArenaReduce {
     finalize((c + 1) % rows);
     __syncthreads();
   }
-};
-
-// T == 1: the reference reduces inline from the state entering every step.
-// Three raw rows rotate: while step k adds to row k % 3, block 0 zeroes row
-// (k+1) % 3 and slower blocks may still read row (k-1) % 3.
-struct ArenaInlineStepper : ArenaReduce {
-  int k;
-
-  __device__ __forceinline__ void seed(const arena::State&, bool) {}
-  __device__ void step(arena::State& s, bool active, const int* in, int, int) {
-    const int slot = k % 3;
-    zero((k + 1) % 3);
-    add(s, active, slot);
-    grid_sync(bar);
-    finalize(slot);
-    __syncthreads();
-    ArenaReduce::step(s, in, slot);
-    ++k;
-  }
-  __device__ __forceinline__ void frontier_done(const arena::State&, bool, int, int) {}
 };
 
 // dynamic shared memory of the arena kernel, in words: the body's, the
@@ -290,13 +201,9 @@ extern "C" int synctest_fused_arena_launch(int* state, int* ring, int* r_frame, 
   const size_t smem = arena_smem_words(d, rows, num_players) * sizeof(uint32_t);
   const void* fn = t_ticks > 1 ? (const void*)synctest_fused_arena_kernel<true>
                                : (const void*)synctest_fused_arena_kernel<false>;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kBlock, smem)) != cudaSuccess)
-    return (int)err;
-  if ((long long)per_sm * sms < blocks) return kNotCoResident;
+  long long resident = 0;
+  if ((err = resident_blocks(fn, smem, &resident)) != cudaSuccess) return (int)err;
+  if (resident < blocks) return kNotCoResident;
   void* args[] = {&a, &r_frame, &iring, &h_tag, &h_hi, &h_lo, &meta, &done, &raw, &bar,
                   const_cast<int*>(&rows)};
   err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kBlock), args, smem, st);

@@ -5,7 +5,9 @@ The port's counterpart of `ggrs_tpu/tpu/pallas_beam.py`
 snapshot (a ring slot of a `ResimCore` carry) roll B candidate input
 scripts L frames each, and return every member's state after every step
 with its checksum, and the anchor's own checksum — one launch of
-`csrc/beam_rollout.cu` on CUDA, `plain_rollout` on the CPU.
+`csrc/beam_rollout.cu` on CUDA (ex_game's body, or arena's, which reduces
+each member's world before every step behind a grid barrier),
+`plain_rollout` on the CPU.
 
 A script is packed into ONE int32 tensor `[B, L, P, 1 + I]` (one upload):
 `[..., 0]` is the cell's status, `[..., 1:]` its input bytes. A
@@ -24,7 +26,7 @@ import torch
 from ..errors import ConfigError
 from ..kernels import build, launch
 from ..ops import fixed_point as fx
-from .planes import ExGamePlanes
+from .planes import ArenaPlanes, ExGamePlanes
 
 
 class Speculation(NamedTuple):
@@ -33,7 +35,7 @@ class Speculation(NamedTuple):
     the anchor's frame inside its trajectory's `frame` leaf, the port
     beside it. hi/lo values are int32 tensors holding uint32 bit patterns."""
 
-    traj: torch.Tensor  # [B, L, 5, N]: member b after step l, frame `frame + 1 + l`
+    traj: torch.Tensor  # [B, L, K, N] (K planes): member b after step l, frame `frame + 1 + l`
     his: torch.Tensor  # [B, L] checksum of traj[b, l]
     los: torch.Tensor  # [B, L]
     a_hi: torch.Tensor  # [] checksum of the anchor
@@ -44,11 +46,11 @@ class Speculation(NamedTuple):
 def plain_rollout(anchor_planes: torch.Tensor, frame, beam_inputs: torch.Tensor,
                   beam_statuses: torch.Tensor, ctx) -> Speculation:
     """B·L steps of the port's plane step and checksum: `anchor_planes`
-    int32 [5, N], `frame` the anchor's frame (int or 0-dim tensor),
+    int32 [K, N], `frame` the anchor's frame (int or 0-dim tensor),
     `beam_inputs` [B, L, P, I], `beam_statuses` [B, L, P]. The members
-    step side by side (one `[5, B, N]` plane stack), each with its own
-    inputs; the semantics are the reference's `_speculate_impl`
-    (ggrs_tpu/tpu/resim.py:925-956)."""
+    step side by side (one `[K, B, N]` plane stack), each with its own
+    inputs (and, for arena, its own world's reduction); the semantics are
+    the reference's `_speculate_impl` (ggrs_tpu/tpu/resim.py:925-956)."""
     B, L = beam_inputs.shape[:2]
     n_planes, n = anchor_planes.shape
     device = anchor_planes.device
@@ -82,9 +84,9 @@ class BeamRollout:
 
     kernel = "beam_rollout"
 
-    def __init__(self, ctx, disconnect_input: int, max_steps: int):
+    def __init__(self, ctx, disconnect_input, max_steps: int):
         self.ctx = ctx
-        self.disconnect_input = disconnect_input
+        self.disconnect_input = tuple(disconnect_input)  # the game's row, I ints
         self.max_steps = max_steps  # the deepest rollout a caller may ask for
         self.launches = 0
 
@@ -121,7 +123,11 @@ class BeamRollout:
             return plain_rollout(ring[anchor_slot], r_frame[anchor_slot], script[..., 1:],
                                  script[..., 0], ctx)
         B, L = script.shape[:2]
-        launch.require_adapter(ctx, ExGamePlanes, self.kernel)
+        arena = type(ctx.adapter) is ArenaPlanes
+        if arena:
+            launch.check_teams(ctx)
+        else:
+            launch.require_adapter(ctx, ExGamePlanes, self.kernel)
         device = ring.device
         n, P, I = ctx.n, ctx.num_players, ctx.input_size
         launch.check_tensors(
@@ -134,20 +140,34 @@ class BeamRollout:
             raise ConfigError(f"a rollout of {L} steps is outside 1..{self.max_steps}")
         lib = build.load(self.kernel)
         Pt, It = launch.P, launch.I
-        launch.declare(lib, "beam_rollout_launch", [Pt, It, Pt, Pt, Pt, Pt, Pt] + [It] * 7 + [Pt, Pt])
         traj = torch.empty((B, L, ctx.n_planes, n), dtype=torch.int32, device=device)
         # his [B*L], los [B*L], then a_hi, a_lo and the anchor's frame
         out = torch.empty(2 * B * L + 3, dtype=torch.int32, device=device)
-        # parts_hi [B*L + 1], parts_lo [B*L + 1] (the anchor's row last) and
-        # the last-block ticket
-        scratch = torch.empty(2 * (B * L + 1) + 1, dtype=torch.int32, device=device)
-        rc = lib.beam_rollout_launch(
-            ring.data_ptr(), anchor_slot, r_frame.data_ptr(), script.data_ptr(), traj.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(),
-            n, P, I, B, L, ctx.game.substeps, self.disconnect_input,
-            launch.weights_arg(ctx), launch.stream_of(device),
-        )
-        launch.raise_on(rc, self.kernel)
+        ptrs = (ring.data_ptr(), anchor_slot, r_frame.data_ptr(), script.data_ptr(), traj.data_ptr(),
+                out.data_ptr())
+        disconnect = launch.disconnect_arg(self.disconnect_input)
+        if arena:
+            launch.declare(lib, "beam_rollout_arena_launch", [Pt, It] + [Pt] * 5 + [It] * 5 + [Pt] * 3)
+            # parts_hi [B*L + 1], parts_lo [B*L + 1] (the anchor's row last),
+            # the ticket, the grid barrier [2] and the raw reduction rows:
+            # the anchor's, then one [3P] per (step >= 1, member)
+            scratch = torch.empty(2 * (B * L + 1) + 3 + (1 + (L - 1) * B) * ctx.reduce_len,
+                                  dtype=torch.int32, device=device)
+            rc = lib.beam_rollout_arena_launch(
+                *ptrs, scratch.data_ptr(), n, P, I, B, L, disconnect, launch.weights_arg(ctx),
+                launch.stream_of(device),
+            )
+            launch.raise_cooperative(rc, self.kernel)
+        else:
+            launch.declare(lib, "beam_rollout_launch", [Pt, It] + [Pt] * 5 + [It] * 6 + [Pt] * 3)
+            # parts_hi [B*L + 1], parts_lo [B*L + 1] (the anchor's row last)
+            # and the last-block ticket
+            scratch = torch.empty(2 * (B * L + 1) + 1, dtype=torch.int32, device=device)
+            rc = lib.beam_rollout_launch(
+                *ptrs, scratch.data_ptr(), n, P, I, B, L, ctx.game.substeps, disconnect,
+                launch.weights_arg(ctx), launch.stream_of(device),
+            )
+            launch.raise_on(rc, self.kernel)
         self.launches += 1
         bl = B * L
         return Speculation(traj, out[:bl].view(B, L), out[bl : 2 * bl].view(B, L),

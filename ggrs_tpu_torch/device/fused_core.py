@@ -34,9 +34,6 @@ from ..kernels import build, launch
 from .planes import PlaneContext
 from .tiled_core import plain_parts, plain_verdict
 
-NOT_CO_RESIDENT = -1  # csrc/synctest_fused.cu kNotCoResident
-
-
 def plain_batch(carry, inputs: torch.Tensor, ctx: PlaneContext) -> None:
     """T SyncTest ticks on the carry in place, in plain PyTorch, with K1's
     reduction semantics (the cache when T > 1)."""
@@ -92,7 +89,7 @@ class FusedSyncTestCore:
                 *ptrs, scratch.data_ptr(), ctx.n, ctx.num_players, ctx.input_size, ctx.d, t_ticks,
                 launch.weights_arg(ctx), launch.stream_of(device),
             )
-            if rc == NOT_CO_RESIDENT:
+            if rc == launch.NOT_CO_RESIDENT:
                 raise KernelError(
                     f"{self.kernel} (arena): {-(-ctx.n // 128)} blocks of 128 entities cannot all be "
                     "resident on this card for its grid barriers; use backend='cuda-tiled'"

@@ -117,17 +117,21 @@ class ArenaPlanes(PlaneAdapter):
                                self.game.num_players)
 
     def reduce_finalize(self, raw: torch.Tensor):
-        """Complete raw sums `[3P]` -> (cx, cy, count), each int32 [P]."""
+        """Complete raw sums `[..., 3P]` -> (cx, cy, count), each int32
+        `[..., P]`."""
         return arena.finalize(raw, self.game.num_players)
 
     def step(self, planes: torch.Tensor, player_inputs: torch.Tensor, owner: torch.Tensor,
              statuses=None, red=None) -> torch.Tensor:
         """One frame on `[6, N]` planes; `red`: the finalized reduction of
-        the state entering the step, or None to reduce inline."""
-        if planes.dim() != 2:
-            raise ConfigError("arena steps one world at a time: planes [6, N]")
+        the state entering the step, or None to reduce inline. With a
+        leading member axis — planes `[6, B, N]`, inputs `[B, P, I]`,
+        statuses `[B, P]`, `red` None — it steps B worlds at once, each
+        reducing its own world (the beam rollout's plain version)."""
         if red is None:
-            red = self.reduce_finalize(self.reduce_partial(planes, owner))
+            # the member axis sits after the plane axis: reduce per member
+            red = self.reduce_finalize(arena.team_sums(planes[0], planes[1], planes[4], owner,
+                                                       self.game.num_players))
         inp, throttle = arena.entity_inputs(player_inputs, statuses, owner, self.game.input_size)
         return torch.stack(arena.step_planes(*planes.unbind(0), inp, throttle, owner, red,
                                              self.game.num_players))

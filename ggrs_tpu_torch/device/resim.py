@@ -6,12 +6,13 @@ One tick is an optional ring load, then W = max_prediction + 2 fused
 words (do_load, load_slot, advance_count, start_frame), then
 save_slots[W], statuses[W*P], inputs[W*P*I] — byte for byte the
 reference's layout (`pack_tick_row`). A save slot of `ring_len` (the
-scratch slot) means "no save". The carry is packed SoA planes, updated in
-place by every dispatch:
+scratch slot) means "no save". The carry is packed SoA planes (K of
+them: px, py, vx, vy, rot for ex_game; px, py, vx, vy, hp, energy for
+arena), updated in place by every dispatch:
 
-    state       i32[5, N]           planes px, py, vx, vy, rot
+    state       i32[K, N]           the live world
     state_frame i32[]               the live world's own frame
-    ring        i32[ring_len+1, 5, N]  the last slot is the scratch slot
+    ring        i32[ring_len+1, K, N]  the last slot is the scratch slot
     r_frame     i32[ring_len+1]     the ring's frame tags
     h_tag, h_hi, h_lo i32[ring_len], flag i32[2]
                                     the device-verify first-seen history
@@ -73,7 +74,9 @@ class ResimCore:
         # PlaneContext's ring and history are d+2 long: with d =
         # max_prediction that is this core's ring_len
         self.ctx = PlaneContext(game, num_players, max_prediction, self.device)
-        self.disconnect_input = int(game.disconnect_input[0])
+        # the whole row (arena's second byte is its throttle): the kernels
+        # substitute every byte of a DISCONNECTED player's input
+        self.disconnect_input = tuple(game.disconnect_input)
         p, i = num_players, game.input_size
         self.off_save = 4
         self.off_status = self.off_save + self.window
@@ -178,7 +181,7 @@ class ResimCore:
         """Roll B candidate futures out of ring slot `anchor_slot`:
         beam_inputs u8[B, L, P, I], beam_statuses i32[B, L, P] (L at most
         the window). Asynchronous on CUDA (one K4 launch); the result holds
-        the trajectory [B, L, 5, N] (frames anchor + 1 + l), its checksums
+        the trajectory [B, L, K, N] (frames anchor + 1 + l), its checksums
         [B, L], the anchor's checksum and the anchor's frame tag."""
         if not 0 <= anchor_slot < self.ring_len:
             raise ConfigError(f"anchor slot {anchor_slot} outside the ring (0..{self.ring_len - 1})")
@@ -352,7 +355,7 @@ class ResimCore:
 
     def fetch_state(self) -> dict:
         """Device -> host copy of the live state in the reference's layout
-        (frame, pos, vel, rot) as numpy."""
+        (frame and the game's leaves) as numpy."""
         return planes_to_reference(self.carry["state"], np.int32(int(self.carry["state_frame"])))
 
     def fetch_ring_slot(self, slot: int) -> dict:

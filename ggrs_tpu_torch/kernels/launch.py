@@ -82,6 +82,23 @@ def weights_arg(ctx):
     return (ctypes.c_int * (len(vals) + 1))(*vals, ctx.cs_frame_weight)
 
 
+def disconnect_arg(row):
+    """The game's disconnect input row (I ints) as the C array the tick and
+    beam kernels substitute for a DISCONNECTED player's inputs."""
+    return (ctypes.c_int * len(row))(*row)
+
+
+NOT_CO_RESIDENT = -1  # csrc/arena_reduce.cuh kNotCoResident
+
+
+def raise_cooperative(rc: int, kernel: str) -> None:
+    """A cooperative (grid-barrier) launch's return code: not one block
+    resident, or a CUDA error, raises `KernelError`."""
+    if rc == NOT_CO_RESIDENT:
+        raise KernelError(f"{kernel}: not one block of its cooperative grid can be resident on this card")
+    raise_on(rc, kernel)
+
+
 def stage(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array -> `device`: as it is for the CPU; for CUDA an
     asynchronous copy from a FRESH pinned buffer (PyTorch's pinned-memory

@@ -96,11 +96,11 @@ def team_sums(px, py, hp, owner, num_players: int) -> torch.Tensor:
 
 
 def finalize(raw: torch.Tensor, num_players: int):
-    """Complete raw sums [3P] -> (cx [P], cy [P], count [P]) int32: the
-    centroid of each team's living entities (exact floor division), and
-    their count."""
-    raw = raw.reshape(num_players, 3)
-    count, sx, sy = raw[:, 0], raw[:, 1], raw[:, 2]
+    """Complete raw sums [..., 3P] -> (cx, cy, count), each int32 [..., P]:
+    the centroid of each team's living entities (exact floor division),
+    and their count. Leading axes (the beam's members) carry through."""
+    raw = raw.reshape(*raw.shape[:-1], num_players, 3)
+    count, sx, sy = raw[..., 0], raw[..., 1], raw[..., 2]
     safe = torch.clamp(count, min=1)
     cx = fx.floor_div(sx, safe) << CENTROID_SHIFT
     cy = fx.floor_div(sy, safe) << CENTROID_SHIFT
@@ -108,17 +108,22 @@ def finalize(raw: torch.Tensor, num_players: int):
 
 
 def entity_inputs(player_inputs: torch.Tensor, statuses, owner: torch.Tensor, input_size: int):
-    """Per-entity (input byte, throttle) int32 from uint8/int32 [P, I]
-    player inputs; a DISCONNECTED player's entities get input 0 and
-    throttle 4; `statuses` None means all CONFIRMED."""
-    rows = player_inputs.to(torch.int32).reshape(-1, input_size)
-    inp = rows[:, 0]
-    throttle = rows[:, 1] & 0x0F if input_size >= 2 else torch.full_like(inp, DISCONNECT_THROTTLE)
+    """Per-entity (input byte, throttle) int32 from uint8/int32 [..., P, I]
+    (or flat [P * I]) player inputs; a DISCONNECTED player's entities get
+    input 0 and throttle 4; `statuses` [..., P], None meaning all
+    CONFIRMED. Leading axes (the beam's members) carry through: [..., P, I]
+    -> [..., N]."""
+    rows = player_inputs.to(torch.int32)
+    if rows.dim() == 1:
+        rows = rows.reshape(-1, input_size)
+    inp = rows[..., 0]
+    throttle = rows[..., 1] & 0x0F if input_size >= 2 else torch.full_like(inp, DISCONNECT_THROTTLE)
     if statuses is not None:
         disconnected = statuses.to(torch.int32) == int(InputStatus.DISCONNECTED)
         inp = torch.where(disconnected, torch.zeros_like(inp), inp)
         throttle = torch.where(disconnected, torch.full_like(throttle, DISCONNECT_THROTTLE), throttle)
-    return inp[owner.long()], throttle[owner.long()]
+    own = owner.long()
+    return inp[..., own], throttle[..., own]
 
 
 def _bit(inp, mask):
@@ -126,9 +131,10 @@ def _bit(inp, mask):
 
 
 def step_planes(px, py, vx, vy, hp, energy, inp, throttle, owner, red, num_players: int):
-    """One frame on int32 planes. `inp`/`throttle`: per-entity int32;
-    `red`: (cx, cy, count) per team for the state entering the step.
-    Returns the new (px, py, vx, vy, hp, energy)."""
+    """One frame on int32 planes `[..., N]`. `inp`/`throttle`: per-entity
+    int32; `red`: (cx, cy, count), each `[..., P]`, per team for the state
+    entering the step (leading axes: one world per member). Returns the
+    new (px, py, vx, vy, hp, energy)."""
     cx, cy, count = red
     own = owner.long()
     enemy = ((owner + 1) % num_players).long()
@@ -147,8 +153,8 @@ def step_planes(px, py, vx, vy, hp, energy, inp, throttle, owner, red, num_playe
 
     # rally: bounded pull toward the own team's centroid (arithmetic >>)
     rally = _bit(inp, INPUT_RALLY)
-    vx = vx + rally * torch.clamp((cx[own] - px) >> RALLY_SHIFT, -RALLY_MAX, RALLY_MAX)
-    vy = vy + rally * torch.clamp((cy[own] - py) >> RALLY_SHIFT, -RALLY_MAX, RALLY_MAX)
+    vx = vx + rally * torch.clamp((cx[..., own] - px) >> RALLY_SHIFT, -RALLY_MAX, RALLY_MAX)
+    vy = vy + rally * torch.clamp((cy[..., own] - py) >> RALLY_SHIFT, -RALLY_MAX, RALLY_MAX)
 
     # friction + speed clamp (floor division: the numerators can be negative)
     vx = (vx * FRICTION_NUM) >> 8
@@ -169,9 +175,9 @@ def step_planes(px, py, vx, vy, hp, energy, inp, throttle, owner, red, num_playe
     # combat inside the (pre-move) enemy centroid's toroidal Manhattan radius;
     # an extinct team projects no force
     half = 1 << (ARENA_BITS - 1)
-    dx = ((px - cx[enemy] + half) & ARENA_MASK) - half
-    dy = ((py - cy[enemy] + half) & ARENA_MASK) - half
-    hit = alive & (count[enemy] > 0) & (dx.abs() + dy.abs() < COMBAT_RANGE)
+    dx = ((px - cx[..., enemy] + half) & ARENA_MASK) - half
+    dy = ((py - cy[..., enemy] + half) & ARENA_MASK) - half
+    hit = alive & (count[..., enemy] > 0) & (dx.abs() + dy.abs() < COMBAT_RANGE)
     hp = torch.clamp(hp - hit.to(torch.int32) * DAMAGE, min=0)
     return px, py, vx, vy, hp, energy
 

@@ -216,15 +216,20 @@ def test_layouts_cross_by_keys_and_plane_count():
 
 
 def test_kernels_of_other_models_refuse_arena():
-    """K3 and K4 run ex_game's step; they refuse arena planes (ConfigError)
-    rather than run the wrong model, and the arena kernels refuse more
-    than 16 teams."""
+    """A kernel body written for one model's planes refuses another's
+    (ConfigError) rather than run the wrong model, and the arena kernels
+    refuse more than 16 teams. Arena's step takes the beam's member axis
+    (planes [6, B, N], each member reducing its own world) rather than
+    refusing it."""
     ctx = planes.PlaneContext(Arena(2, 256), 2, 4, "cpu")
     with pytest.raises(ConfigError, match="not ported"):
         launch.require_adapter(ctx, planes.ExGamePlanes, "resim_tick")
     launch.check_teams(ctx)
     with pytest.raises(ConfigError, match="16"):
         launch.check_teams(planes.PlaneContext(Arena(17, 17 * 128), 17, 4, "cpu"))
-    with pytest.raises(ConfigError):
-        planes.get_adapter(Arena(2, 256)).step(torch.zeros((6, 3, 256), dtype=torch.int32), None,
-                                               ctx.owner)
+    world = planes.pack_planes(ctx.adapter, Arena(2, 256).init_state("cpu"))
+    members = torch.stack([world, world.flip(-1)], dim=1)  # two different worlds
+    inputs = torch.tensor([[[9], [17]], [[34], [5]]], dtype=torch.int32)
+    stepped = ctx.adapter.step(members, inputs, ctx.owner)
+    for b in range(2):
+        assert torch.equal(stepped[:, b], ctx.adapter.step(members[:, b].contiguous(), inputs[b], ctx.owner))

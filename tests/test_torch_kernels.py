@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_tick_rows
+from chip_smoke import prime_row, random_tick_rows
 from ggrs_tpu_torch import (
     Arena, DeviceRollbackBackend, ExGame, KernelError, SaveGameState, SessionBuilder,
 )
@@ -248,3 +248,82 @@ def test_arena_injected_route_matches_plain_on_card(cuda_card):
             assert torch.equal(kernel[k].cpu(), plain[k]), (b, k)
     assert core.tiled.launches == 21 and core.tiled.verdict_launches == 21
     assert core.reduce.launches == 3 + 18
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("players,n,input_size,mp,rows_per_dispatch",
+                         [(2, 4096, 1, 9, 1), (4, 4096, 2, 12, 8), (2, 65536, 1, 9, 8), (4, 153600, 1, 9, 4)])
+def test_arena_tick_kernel_matches_plain_on_card(cuda_card, players, n, input_size, mp, rows_per_dispatch):
+    """K3's arena body (a whole-world reduction and a grid barrier before
+    every advance, a persistent grid looping over entity tiles) on a stream
+    with rollbacks, skipped and trailing saves, the throttle byte and
+    DISCONNECTED slots: his/los and the whole core equal
+    plain_tick_multi's after every dispatch, up to 153,600 entities."""
+    core = ResimCore(Arena(players, n, input_size), mp, players, device_verify=True, device="cuda")
+    plain = {k: v.clone() for k, v in core.carry.items()}
+    rows = np.concatenate([prime_row(core)[None],
+                           random_tick_rows(core, mp + 2 + (4 if n > 65536 else 12), seed=n + players, mod=64)])
+    for b in range(0, len(rows), rows_per_dispatch):
+        batch = rows[b : b + rows_per_dispatch]
+        his, los = core.tick_multi(batch)
+        p_his, p_los = plain_tick_multi(plain, core.upload(batch), core)
+        torch.cuda.synchronize()
+        assert torch.equal(his, p_his) and torch.equal(los, p_los), b
+        for k in RESIM_KEYS:
+            assert torch.equal(core.carry[k], plain[k]), (k, b)
+    assert core.tick_core.launches == -(-len(rows) // rows_per_dispatch)
+    assert (core.carry["state"][4] > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("players,n,input_size,B,L", [(2, 4096, 1, 16, 11), (2, 65536, 1, 16, 11),
+                                                      (4, 4096, 2, 16, 14)])
+def test_arena_beam_kernel_matches_plain_on_card(cuda_card, players, n, input_size, B, L):
+    """K4's arena body (each member reduces its own world before every
+    step; a persistent grid over (member, tile) items, so 65536 x 16 runs
+    where the reference falls back to XLA) equals plain_rollout from
+    several ring slots, with 20% DISCONNECTED cells."""
+    core = ResimCore(Arena(players, n, input_size), 12, players, device="cuda")
+    core.tick_multi(np.concatenate([prime_row(core)[None], random_tick_rows(core, 20, seed=3, mod=64)]))
+    rng = np.random.default_rng(n + B)
+    for slot in (0, 3, 7):
+        inputs = rng.integers(0, 64, size=(B, L, players, input_size), dtype=np.uint8)
+        if input_size == 2:
+            inputs[..., 1] = rng.integers(0, 16, size=(B, L, players))
+        statuses = np.where(rng.random((B, L, players)) < 0.2, 2, 0).astype(np.int32)
+        spec = core.speculate(slot, inputs, statuses)
+        plain = plain_rollout(core.carry["ring"][slot], core.carry["r_frame"][slot],
+                              torch.from_numpy(inputs).cuda(), torch.from_numpy(statuses).cuda(), core.ctx)
+        torch.cuda.synchronize()
+        for k, a, b in zip(spec._fields, spec, plain):
+            assert torch.equal(a, b), (slot, k)
+    assert core.beam_rollout.launches == 3
+
+
+@pytest.mark.cuda
+def test_arena_beam_request_path_matches_cpu_on_card(cuda_card):
+    """Arena's beam on the card (K4 speculations, adoptions, K3 suffixes)
+    and on the CPU (the plain versions) capture the same checksum for every
+    save and the same counters, on a toggling script, device verification
+    on."""
+    runs = []
+    for device in ("cuda", "cpu"):
+        sess = (SessionBuilder().with_num_players(2).with_max_prediction_window(9)
+                .with_check_distance(8).with_device_checksum_verification(True).start_synctest_session())
+        backend = DeviceRollbackBackend(Arena(2, 4096), 9, 2, beam_width=16, device_verify=True, device=device)
+        saves = []
+        for t in range(40):
+            for h in range(2):
+                sess.add_local_input(h, bytes([(1 if (t // 6) % 2 == 0 else 9) + h]))
+            reqs = sess.advance_frame()
+            backend.handle_requests(reqs)
+            saves += [(r.frame, r.cell.checksum_getter()) for r in reqs if isinstance(r, SaveGameState)]
+        backend.check()
+        runs.append(([(f, g()) for f, g in saves], backend.beam_hits, backend.beam_partial_hits,
+                     backend.beam_misses, backend.state_numpy()))
+        if device == "cuda":
+            assert backend.core.beam_rollout.launches > 0 and backend.core.tick_core.launches > 0
+    assert runs[0][:4] == runs[1][:4]
+    assert runs[0][1] + runs[0][2] > 0
+    for k in ("frame", "pos", "vel", "hp", "energy"):
+        assert np.array_equal(runs[0][4][k], runs[1][4][k]), k
