@@ -105,7 +105,31 @@ NVIDIA card (written for an H100). Run from the repository root:
    version's and `check()` must pass. Prints ms per tick (p50/p90, CUDA
    events and host wall time), K3 or K4 device ms, rollback-frames/s and
    the adopted share.
-12. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
+12. Holds swarm's K1 and K2 bodies against their plain versions, full
+   carry after every batch (K2's parts too), inputs below 128 (every axis
+   bit and BOOST): s1_4096 (Swarm(2, 4096), d=8, T=60, bench.py:891) and
+   s2_1m (Swarm(2, 1048576), d=8, T=240, 308 MB of state and ring), each
+   with a position probe (px of the slot the next rollback loads) that
+   kernel and plain version latch at the same frame.
+13. Drives swarm's fused main path, `DeviceSyncTestSession(Swarm(2, N),
+   2, 8, backend="auto")`: auto must pick K1 at 4096 and K2 at 1M; launch
+   counts 0 before, above 0 after; carry == plain; `check()` passes.
+14. Holds swarm's K3 body against plain_tick_multi after every dispatch
+   (sr2_4096: Swarm(2, 4096) at max_prediction 9; sr4_w: Swarm(4, 4096)
+   at 12, 30 rows with DISCONNECTED slots), a position probe each through
+   the request path; and swarm's K4 body against plain_rollout (sb16_4096:
+   16 x 11; sb16_4p: 4 players, 16 x 14, 20% DISCONNECTED cells) with a
+   position probe on the anchor.
+15. Drives swarm's request path (sr2_4096, eager and lazy_ticks=8) and its
+   beam (sb16_4096, three scripts, beside a beam-off and a plain twin), as
+   phases 5 and 7 do for ex_game: launches above 0, adoptions above 0,
+   final core == plain, `check()` passes.
+16. Arena past 16 teams (a1_p17: Arena(17, 4352); a1_p32: Arena(32, 4096);
+   the kernels sum teams 16 a pass), parity only bar K1's time: K1 with
+   the cache and inline, the injection route and K5 alone, K3 rows and K4
+   speculations against their plain versions, kill probes on K1 and the
+   injection route, then the main path (auto -> K1) with its launch count.
+17. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
    as the last line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the result lines. Without a CUDA device,
@@ -230,6 +254,37 @@ ARENA_BEAM_SCRIPTS = {
     "varying": lambda t, h: (t * (h + 3) + h) % 64,
     "toggle6": lambda t, h: (1 if (t // 6) % 2 == 0 else 9) + h,
 }
+# swarm (K1-K4's swarm bodies). Inputs below 128 exercise all six axis
+# bits and BOOST (bench.py:67-70); the probes corrupt px, which the torus
+# wrap keeps (a corrupted charge or velocity may be clamped back)
+SWARM_MOD = 128
+SWARM_SHAPES = [
+    # key, kernel "auto" must choose, entities, check distance, ticks per batch, batches
+    ("s1_4096", "cuda-fused", 4096, 8, 60, 5),  # bench.py:891, the reference's headline swarm cell
+    ("s2_1m", "cuda-tiled", 1 << 20, 8, 240, 2),  # bench.py:242's 1M world on swarm: 308 MB of state and ring
+]
+SWARM_TIMED = {"s1_4096": 20, "s2_1m": 3}
+SWARM_MAIN_BATCHES = {"s1_4096": 100, "s2_1m": 8}
+SWARM_TICK_SHAPES = [
+    ("sr2_4096", 2, 4096, 9),  # the 4096-entity request path on swarm
+    ("sr4_w", 4, 4096, 12),  # 4-player rows with DISCONNECTED slots; parity only
+]
+SWARM_REQUEST_RUNS = [("sr2_4096", 2, 4096, 0, 200, 200), ("sr2_4096", 2, 4096, LAZY_TICKS, 200, 200)]
+SWARM_BEAM_SHAPES = [
+    ("sb16_4096", 2, 4096, 9, 16, 11),
+    ("sb16_4p", 4, 4096, 12, 16, 14),  # 4 players, 20% DISCONNECTED cells; parity only
+]
+SWARM_TIMED_SPECULATIONS = {"sb16_4096": 200}
+SWARM_BEAM_PATH_TICKS = {"sb16_4096": 100}
+SWARM_BEAM_SCRIPTS = {
+    "constant": lambda t, h: 5 + 16 * h,
+    "varying": lambda t, h: (t * (h + 3) + h) % SWARM_MOD,
+    "toggle6": lambda t, h: (65 if (t // 6) % 2 == 0 else 22) + h,
+}
+# arena past 16 teams (the kernels sum teams 16 a pass): parity on K1-K5
+ARENA_TEAM_SHAPES = [("a1_p17", 17, 4352), ("a1_p32", 32, 4096)]
+ARENA_TEAM_BATCHES = 3  # K1 batches of 20 ticks, the main path's too
+
 # int32 ops arena's step always executes per entity (ggrs_tpu_torch/csrc/
 # arena_step.cuh): alive test 1, thrust axes 10, overdrive test 4, accel 5,
 # energy 5, velocity update 4, rally test 2, friction 4, |v|^2 test 4, dead
@@ -238,6 +293,28 @@ ARENA_BEAM_SCRIPTS = {
 # divisions run only for some entities and are not counted (a least time).
 OPS_PER_ARENA_STEP = 64
 OPS_PER_ARENA_SAVE = 18  # 6 weighted products and 12 adds
+
+
+# int32 ops swarm's step always executes per entity (ggrs_tpu_torch/csrc/
+# swarm_step.cuh): boost test 4, accel select 1, battery 5, per axis friction
+# 2, thrust bits 5 and the velocity update 2 (27), |v|^2 test 6, torus
+# integrate 6. The clamp's sqrt and divisions run only for entities over
+# the limit and are not counted (a least time).
+OPS_PER_SWARM_STEP = 49
+OPS_PER_SWARM_SAVE = 21  # 7 weighted products and 14 adds
+# per kernel body (its name suffix): bytes of one entity column, int32 ops
+# of one entity-step and of one entity-save
+MODEL_COST = {
+    "": (20, OPS_PER_SUBSTEP, OPS_PER_SAVE),
+    "_arena": (24, OPS_PER_ARENA_STEP, OPS_PER_ARENA_SAVE),
+    "_swarm": (28, OPS_PER_SWARM_STEP, OPS_PER_SWARM_SAVE),
+}
+COUNTERPART_NOTE = {"": "", "_arena": " with ArenaPlanes (whole-world reductions)", "_swarm": " with SwarmPlanes"}
+
+
+def body_suffix(game_cls) -> str:
+    """The suffix of a model's kernel bodies: "" (ex_game), "_arena", "_swarm"."""
+    return {"Arena": "_arena", "Swarm": "_swarm"}.get(game_cls.__name__, "")
 
 
 def team_ops(players):
@@ -296,12 +373,14 @@ def batch_work(n, d, t_ticks, c0, substeps=1):
     return steps * substeps, saves
 
 
-def bound(n, d, t_ticks, c0, ring_len):
+def bound(n, d, t_ticks, c0, ring_len, suffix=""):
     """Least ms of one batch: each state/ring/input byte read once and
-    written once, vs the batch's int32 ops at the ALU peak."""
+    written once, vs the batch's int32 ops at the ALU peak (`MODEL_COST`
+    of the body: ex_game's unless `suffix` names another)."""
+    col, step_ops, save_ops = MODEL_COST[suffix]
     steps, saves = batch_work(n, d, t_ticks, c0)
-    nbytes = 2 * 4 * 5 * n * (1 + ring_len) + 4 * t_ticks * PLAYERS * 2
-    ops = n * (steps * OPS_PER_SUBSTEP + saves * OPS_PER_SAVE)
+    nbytes = 2 * col * n * (1 + ring_len) + 4 * t_ticks * PLAYERS * 2
+    ops = n * (steps * step_ops + saves * save_ops)
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
@@ -364,7 +443,8 @@ def tick_bound(rows, n, core):
     if core.ctx.reduce_len:  # arena
         ops = n * (advances * (OPS_PER_ARENA_STEP + team_ops(core.num_players)) + saves * OPS_PER_ARENA_SAVE)
     else:
-        ops = n * (advances * core.game.substeps * OPS_PER_SUBSTEP + saves * OPS_PER_SAVE)
+        _, step_ops, save_ops = MODEL_COST[body_suffix(type(core.game))]
+        ops = n * (advances * getattr(core.game, "substeps", 1) * step_ops + saves * save_ops)
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
@@ -487,20 +567,24 @@ def add_inputs(sess, row) -> None:
         sess.add_local_input(h, bytes(int(v) for v in (b if hasattr(b, "__len__") else [b])))
 
 
-def tick_phase(torch, np, dev, tag):
+def tick_phase(torch, np, dev, tag, shapes=None, game_cls=None, mod=16, probe_plane=4):
     """K3 against its plain version after every dispatch, then a divergence
-    probe per shape through the request path. Returns {key: max abs err}."""
+    probe per shape through the request path (`probe_plane` of the slot the
+    next rollback loads). `game_cls`: ExGame unless given, its inputs below
+    `mod`. Returns {key: max abs err}."""
     from ggrs_tpu_torch import ExGame, MismatchedChecksum, ResimCore
     from ggrs_tpu_torch.device.resim import RESIM_KEYS
     from ggrs_tpu_torch.device.tick_core import plain_tick_multi
 
+    game_cls = game_cls or ExGame
+    name = f"resim_tick{body_suffix(game_cls)}"
     errs = {}
-    for key, players, n, mp in TICK_SHAPES:
+    for key, players, n, mp in shapes or TICK_SHAPES:
         err = 0
         for per_dispatch in (1, 8):
-            core = ResimCore(ExGame(players, n), mp, players, device_verify=True, device=dev)
+            core = ResimCore(game_cls(players, n), mp, players, device_verify=True, device=dev)
             plain = {k: v.clone() for k, v in core.carry.items()}
-            rows = random_tick_rows(core, mp + 2 + TICK_STREAM_EXTRA_ROWS, seed=players * 100 + mp)
+            rows = random_tick_rows(core, mp + 2 + TICK_STREAM_EXTRA_ROWS, seed=players * 100 + mp, mod=mod)
             for b in range(0, len(rows), per_dispatch):
                 batch = rows[b : b + per_dispatch]
                 his, los = core.tick_multi(batch)
@@ -511,16 +595,18 @@ def tick_phase(torch, np, dev, tag):
                 if err:
                     fail(f"{key}: K3 and plain version differ at rows {b}.. of {per_dispatch}-row dispatches "
                          f"(max abs err {err})")
-            print(f"{key}: resim_tick == plain after each of {-(-len(rows) // per_dispatch)} "
+            print(f"{key}: {name} == plain after each of {-(-len(rows) // per_dispatch)} "
                   f"{per_dispatch}-row dispatch(es) ({players} players, {n} entities, "
                   f"max_prediction {mp}, device verify, 15% disconnect slots) {tag}")
             del core, plain
         errs[key] = err
 
-        # divergence probe: corrupt the heading plane of the slot the next
-        # rollback loads, on the kernel's core and the plain version's alike
-        stacks = [request_stack(n, players, mp, 0, dev, plain) for plain in (False, True)]
-        script = np.random.default_rng(7).integers(0, 16, size=(16, players))
+        # divergence probe: corrupt a plane the step never clamps back (ex_game's
+        # heading, swarm's x) in the slot the next rollback loads, on the
+        # kernel's core and the plain version's alike
+        stacks = [request_stack(n, players, mp, 0, dev, plain, game=game_cls(players, n))
+                  for plain in (False, True)]
+        script = np.random.default_rng(7).integers(0, mod, size=(16, players))
         for sess, backend in stacks:
             for row in script[:12]:
                 add_inputs(sess, row)
@@ -528,7 +614,7 @@ def tick_phase(torch, np, dev, tag):
         frame = stacks[0][1].current_frame
         latched = []
         for sess, backend in stacks:
-            backend.core.carry["ring"][(frame - CHECK_DISTANCE) % backend.core.ring_len, 4, 0] += 7
+            backend.core.carry["ring"][(frame - CHECK_DISTANCE) % backend.core.ring_len, probe_plane, 0] += 7
             add_inputs(sess, script[12])
             backend.handle_requests(sess.advance_frame())
             try:
@@ -579,7 +665,7 @@ def request_path_run(torch, np, dev, tag, key, game_fn, players, n, mp, lazy, sc
     game = game_fn() if game_fn else None
     sess, backend = request_stack(n, players, mp, lazy, dev, plain=False, game=game)
     psess, pbackend = request_stack(n, players, mp, lazy, dev, plain=True, game=game_fn() if game_fn else None)
-    arena = backend.core.ctx.reduce_len > 0
+    suffix = body_suffix(type(backend.core.game))
     tc = backend.core.tick_core
     marks, wall_ms, sess_ms, issued = [], [], [], []
     torch.cuda.synchronize()
@@ -620,7 +706,7 @@ def request_path_run(torch, np, dev, tag, key, game_fn, players, n, mp, lazy, sc
     backend.check()
     pbackend.check()
     state = backend.state_numpy()
-    if state["pos"].shape != (n, 2) or int(state["frame"]) != ticks:
+    if state["pos"].shape[0] != n or int(state["frame"]) != ticks:
         fail(f"{key} lazy={lazy}: state has the wrong shape or frame")
 
     # K3 alone on exactly the rows this run dispatched (its middle
@@ -667,11 +753,10 @@ def request_path_run(torch, np, dev, tag, key, game_fn, players, n, mp, lazy, sc
           f"Python) vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); K3 busy "
           f"{run['device_busy_share']:.3f} of the run {tag}")
     entry = {
-        "name": "resim_tick_arena" if arena else "resim_tick", "route": "cuda",
+        "name": f"resim_tick{suffix}", "route": "cuda",
         "source": "ggrs_tpu_torch/csrc/resim_tick.cu",
         "replaces": "ggrs_tpu/tpu/pallas_resim.py:324",
-        "tpu_counterpart": "PallasTickCore._build + _scalar_pass"
-                           + (" with ArenaPlanes (inline whole-world reductions)" if arena else ""),
+        "tpu_counterpart": "PallasTickCore._build + _scalar_pass" + COUNTERPART_NOTE[suffix],
         "shape": f"{type(core.game).__name__}({players}, {n}), max_prediction {mp}, "
                  f"T={t_rows} SyncTest rows (d={CHECK_DISTANCE})",
         "max_abs_err": err, "bit_equal": err == 0,
@@ -709,23 +794,20 @@ def host_verification_check(np, dev, tag):
               f"checksums resolved through the ledger, K3 == plain, no mismatch {tag}")
 
 
-def beam_bound(n, beam, steps, players, input_size, substeps=1, arena=False):
+def beam_bound(n, beam, steps, players, input_size, substeps=1, suffix=""):
     """Least ms of one K4 launch: the anchor read once and the trajectory
-    written once (20 B per entity column each, 24 B for arena), plus the
-    script and the checksums, over the HBM rate; vs 69 int32 ops per
-    entity-substep and 15 per entity-checksum (B*L steps and checksums, and
-    the anchor's) — for arena 64 per entity-step, 18 per entity-checksum
-    and 3 + 3P per entity-reduction: the anchor's, then one of each
-    member's state entering steps 1..L-1 — over the int32 peak."""
-    col = 24 if arena else 20
+    written once (one entity column each: 20 B for ex_game, 24 B for arena,
+    28 B for swarm), plus the script and the checksums, over the HBM rate;
+    vs the int32 ops of B*L entity-steps and checksums and the anchor's
+    checksum (`MODEL_COST`), for arena also 3 + 3P per entity-reduction:
+    the anchor's, then one of each member's state entering steps 1..L-1 —
+    over the int32 peak."""
+    col, step_ops, save_ops = MODEL_COST[suffix]
     nbytes = col * n * (1 + beam * steps) + 4 * beam * steps * players * (1 + input_size) \
         + 4 * (2 * beam * steps + 3)
-    if arena:
-        reductions = 1 + beam * (steps - 1)
-        ops = n * (beam * steps * (OPS_PER_ARENA_STEP + OPS_PER_ARENA_SAVE) + OPS_PER_ARENA_SAVE
-                   + reductions * team_ops(players))
-    else:
-        ops = n * (beam * steps * (substeps * OPS_PER_SUBSTEP + OPS_PER_SAVE) + OPS_PER_SAVE)
+    ops = n * (beam * steps * (substeps * step_ops + save_ops) + save_ops)
+    if suffix == "_arena":
+        ops += n * (1 + beam * (steps - 1)) * team_ops(players)
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
@@ -735,24 +817,27 @@ def spec_err(torch, a, b) -> int:
     return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max()) for x, y in zip(a, b))
 
 
-def beam_phase(torch, np, dev, tag):
+def beam_phase(torch, np, dev, tag, shapes=None, game_cls=None, mod=16, probe_plane=4, timed=None):
     """K4 against plain_rollout for every speculation of a short run, a
-    divergence probe, and K4's time per launch. Returns {key: (max abs err,
-    ms, plain ms, ms back to back)}."""
+    divergence probe (`probe_plane` of the anchor), and K4's time per
+    launch. `game_cls`: ExGame unless given, its inputs below `mod`.
+    Returns {key: (max abs err, ms, plain ms, ms back to back)}."""
     from ggrs_tpu_torch import ExGame, ResimCore
     from ggrs_tpu_torch.device.beam_core import plain_rollout
 
+    game_cls, timed = game_cls or ExGame, timed or TIMED_SPECULATIONS
+    name, suffix = f"beam_rollout{body_suffix(game_cls)}", body_suffix(game_cls)
     out = {}
-    for key, players, n, mp, width, steps in BEAM_SHAPES:
-        core = ResimCore(ExGame(players, n), mp, players, device=dev)
-        core.tick_multi(random_tick_rows(core, mp + 2 + 8, seed=n + players))
+    for key, players, n, mp, width, steps in shapes or BEAM_SHAPES:
+        core = ResimCore(game_cls(players, n), mp, players, device=dev)
+        core.tick_multi(random_tick_rows(core, mp + 2 + 8, seed=n + players, mod=mod))
         ring, r_frame = core.carry["ring"], core.carry["r_frame"]
         rng = np.random.default_rng(players * 1000 + width)
         disconnects = players > 2
         err, cells = 0, 0
         for k in range(BEAM_SPECULATIONS):
             slot = (3 * k + 1) % core.ring_len
-            inputs = rng.integers(0, 16, size=(width, steps, players, 1), dtype=np.uint8)
+            inputs = rng.integers(0, mod, size=(width, steps, players, 1), dtype=np.uint8)
             statuses = np.zeros((width, steps, players), np.int32)
             if disconnects:
                 statuses[rng.random(statuses.shape) < 0.2] = 2  # InputStatus.DISCONNECTED
@@ -766,17 +851,18 @@ def beam_phase(torch, np, dev, tag):
                 fail(f"{key}: K4 and plain_rollout differ at speculation {k} (max abs err {err})")
         if disconnects and not cells:
             fail(f"{key}: no DISCONNECTED cell was drawn")
-        print(f"{key}: beam_rollout == plain_rollout for each of {BEAM_SPECULATIONS} speculations "
+        print(f"{key}: {name} == plain_rollout for each of {BEAM_SPECULATIONS} speculations "
               f"({players} players, {n} entities, {width} members x {steps} steps"
               f"{f', {cells} DISCONNECTED cells' if disconnects else ''}) {tag}")
 
-        # divergence probe: the heading plane of the anchor slot
+        # divergence probe: a plane the step never clamps back (ex_game's
+        # heading, swarm's x) of the anchor slot
         clean = core.speculate(slot, inputs, statuses)
-        ring[slot, 4, 0] += 7
+        ring[slot, probe_plane, 0] += 7
         dirty = core.speculate(slot, inputs, statuses)
         pdirty = plain_rollout(ring[slot], r_frame[slot], torch.from_numpy(inputs).to(dev),
                                torch.from_numpy(statuses).to(dev), core.ctx)
-        ring[slot, 4, 0] -= 7
+        ring[slot, probe_plane, 0] -= 7
         torch.cuda.synchronize()
         if spec_err(torch, dirty, pdirty):
             fail(f"{key}: K4 and plain_rollout differ on a corrupted anchor")
@@ -785,17 +871,17 @@ def beam_phase(torch, np, dev, tag):
         print(f"{key}: divergence probe: corrupted anchor changes every checksum, K4 == plain")
 
         ms = b2b_ms = plain_ms = None
-        if key in TIMED_SPECULATIONS:
+        if key in timed:
             br = core.beam_rollout
             script = br.script(inputs, statuses)
-            reps = TIMED_SPECULATIONS[key]
+            reps = timed[key]
             ms = queued_ms(torch, lambda: br.rollout(ring, r_frame, slot, script), reps)
             b2b_ms = events_ms(torch, lambda: br.rollout(ring, r_frame, slot, script), reps)
             t_in, t_st = torch.from_numpy(inputs).to(dev), torch.from_numpy(statuses).to(dev)
             plain_ms = events_ms(torch, lambda: plain_rollout(ring[slot], r_frame[slot], t_in, t_st,
                                                               core.ctx), 1)
-            b_ms, b_by = beam_bound(n, width, steps, players, 1)
-            print(f"{key}: beam_rollout {ms:.4f} ms per launch on the card ({b2b_ms:.4f} ms launched "
+            b_ms, b_by = beam_bound(n, width, steps, players, 1, suffix=suffix)
+            print(f"{key}: {name} {ms:.4f} ms per launch on the card ({b2b_ms:.4f} ms launched "
                   f"back to back from Python) vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}) {tag}")
         out[key] = (err, ms, plain_ms, b2b_ms)
         del core, ring, r_frame
@@ -824,18 +910,20 @@ def beam_stack(n, mp, width, dev, device_verify=False, game_cls=None, plain=Fals
 
 
 def beam_path_phase(torch, np, dev, tag, beam_errs, shapes=None, path_ticks=None, scripts=None,
-                    game_cls=None):
+                    game_cls=None, probe_plane=4):
     """The beam request path (K4 + adoption + K3 suffixes) beside a beam-off
-    twin, three scripts per shape, and a device-verify divergence probe.
-    With `game_cls` (arena) the runs verify on the device and a third,
-    plain arm (beam off, K3 swapped for its plain version) runs beside
-    them: the beam's final core must equal it and `check()` must pass.
-    Returns (per-run summaries, K4 entries for the kernels line)."""
+    twin, three scripts per shape, and a device-verify divergence probe
+    (`probe_plane` of the next anchor). With `game_cls` (arena, swarm) the
+    runs verify on the device and a third, plain arm (beam off, K3 swapped
+    for its plain version) runs beside them: the beam's final core must
+    equal it and `check()` must pass. Returns (per-run summaries, K4
+    entries for the kernels line)."""
     from ggrs_tpu_torch import MismatchedChecksum, SaveGameState
     from ggrs_tpu_torch.device.resim import RESIM_KEYS
 
     shapes, path_ticks = shapes or BEAM_SHAPES, path_ticks or BEAM_PATH_TICKS
-    scripts, arena = scripts or BEAM_SCRIPTS, game_cls is not None
+    scripts, verified = scripts or BEAM_SCRIPTS, game_cls is not None
+    suffix = body_suffix(game_cls) if verified else ""
     runs, entries = [], []
     for key, players, n, mp, width, steps in shapes:
         if key not in path_ticks:
@@ -843,10 +931,10 @@ def beam_path_phase(torch, np, dev, tag, beam_errs, shapes=None, path_ticks=None
         ticks = path_ticks[key]
         k4_launches = 0
         for name, script in scripts.items():
-            arms = {"on": beam_stack(n, mp, width, dev, arena, game_cls),
-                    "off": beam_stack(n, mp, 0, dev, arena, game_cls)}
-            if arena:
-                arms["plain"] = beam_stack(n, mp, 0, dev, arena, game_cls, plain=True)
+            arms = {"on": beam_stack(n, mp, width, dev, verified, game_cls),
+                    "off": beam_stack(n, mp, 0, dev, verified, game_cls)}
+            if verified:
+                arms["plain"] = beam_stack(n, mp, 0, dev, verified, game_cls, plain=True)
             beam = arms["on"][1]
             saves = {arm: [] for arm in arms}
             host = {arm: [] for arm in arms}
@@ -878,7 +966,7 @@ def beam_path_phase(torch, np, dev, tag, beam_errs, shapes=None, path_ticks=None
             resolved = {arm: [(f, g()) for f, g in v] for arm, v in saves.items()}
             if any(resolved[arm] != resolved["on"] for arm in arms) or len(resolved["on"]) < ticks:
                 fail(f"{key} {name}: per-save checksums differ between the beam and its twin")
-            if arena:
+            if verified:
                 if carry_err(torch, beam.core.carry, arms["plain"][1].core.carry, RESIM_KEYS):
                     fail(f"{key} {name}: the beam's final core differs from the plain version's")
                 beam.check()
@@ -936,7 +1024,8 @@ def beam_path_phase(torch, np, dev, tag, beam_errs, shapes=None, path_ticks=None
             for h in range(players):
                 sess.add_local_input(h, bytes([script(t, h)]))
             backend.handle_requests(sess.advance_frame())
-        backend.core.carry["ring"][(backend.current_frame + 1 - backend._depth) % backend.core.ring_len, 4, 0] += 7
+        backend.core.carry["ring"][(backend.current_frame + 1 - backend._depth) % backend.core.ring_len,
+                                   probe_plane, 0] += 7
         latched = None
         for t in range(14, 18):
             for h in range(players):
@@ -953,14 +1042,13 @@ def beam_path_phase(torch, np, dev, tag, beam_errs, shapes=None, path_ticks=None
         del sess, backend
 
         err, ms, plain_ms, b2b_ms = beam_errs[key]
-        b_ms, b_by = beam_bound(n, width, steps, players, 1, arena=arena)
+        b_ms, b_by = beam_bound(n, width, steps, players, 1, suffix=suffix)
         entries.append({
-            "name": "beam_rollout_arena" if arena else "beam_rollout", "route": "cuda",
+            "name": f"beam_rollout{suffix}", "route": "cuda",
             "source": "ggrs_tpu_torch/csrc/beam_rollout.cu",
             "replaces": "ggrs_tpu/tpu/pallas_beam.py:226",
-            "tpu_counterpart": "PallasBeamRollout._build + run_kernel + finish"
-                               + (" with ArenaPlanes (per-member whole-world reductions)" if arena else ""),
-            "shape": f"{(game_cls.__name__ + ' ') if arena else ''}{n} entities, P={players}, B={width} x L={steps}",
+            "tpu_counterpart": "PallasBeamRollout._build + run_kernel + finish" + COUNTERPART_NOTE[suffix],
+            "shape": f"{(game_cls.__name__ + ' ') if verified else ''}{n} entities, P={players}, B={width} x L={steps}",
             "max_abs_err": err, "bit_equal": err == 0,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "launches": k4_launches, "ms_back_to_back": b2b_ms,
@@ -1554,7 +1642,7 @@ def arena_beam_phase(torch, np, dev, tag):
             t_in, t_st = torch.from_numpy(inputs).to(dev), torch.from_numpy(statuses).to(dev)
             plain_ms = events_ms(torch, lambda: plain_rollout(ring[slot], r_frame[slot], t_in, t_st,
                                                               core.ctx), 1)
-            b_ms, b_by = beam_bound(n, width, steps, players, input_size, arena=True)
+            b_ms, b_by = beam_bound(n, width, steps, players, input_size, suffix="_arena")
             print(f"{key}: beam_rollout (arena) {ms:.4f} ms per launch on the card ({b2b_ms:.4f} ms "
                   f"launched back to back from Python) vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
                   f"({b_by}) {tag}")
@@ -1583,6 +1671,302 @@ def arena_request_path_phase(torch, np, dev, tag, tick_errs, tick_timed):
     return runs, entries
 
 
+def swarm_synctest_phase(torch, np, dev, tag):
+    """K1's and K2's swarm bodies against their plain versions, full carry
+    after every batch (K2's parts too), a position probe per shape (px of
+    the slot the next rollback loads), and each kernel's time. Returns
+    (scripts, plain final carries, entries keyed by (name, key))."""
+    from ggrs_tpu_torch import Swarm
+    from ggrs_tpu_torch.convert import CARRY_KEYS, copy_carry
+    from ggrs_tpu_torch.device import sync_test
+    from ggrs_tpu_torch.device.fused_core import FusedSyncTestCore, plain_batch
+    from ggrs_tpu_torch.device.planes import PlaneContext
+    from ggrs_tpu_torch.device.tiled_core import TiledSyncTestCore, plain_parts, plain_verdict
+
+    rng = np.random.default_rng(891)
+    scripts = {key: [rng.integers(0, SWARM_MOD, size=(t, PLAYERS, 1), dtype=np.uint8) for _ in range(b)]
+               for key, _, _, _, t, b in SWARM_SHAPES}
+    plain_final, entries = {}, {}
+    for key, backend, n, d, t_ticks, batches in SWARM_SHAPES:
+        ctx = PlaneContext(Swarm(PLAYERS, n), PLAYERS, d, dev)
+        tiled = backend == "cuda-tiled"
+        core = TiledSyncTestCore(ctx) if tiled else FusedSyncTestCore(ctx)
+        name = f"{core.kernel}_swarm"
+        kc = sync_test.initial_carry(ctx)
+        pc = copy_carry(kc)
+        err = 0
+        for raw in scripts[key]:
+            inputs = torch.from_numpy(raw.astype(np.int32)).to(dev)
+            if tiled:  # the parts too, before the verdict folds them
+                k_hi, k_lo = core.run_kernel(kc, inputs)
+                p_hi, p_lo = plain_parts(pc, inputs, ctx)
+                err = max(err, carry_err(torch, {"h": k_hi, "l": k_lo}, {"h": p_hi, "l": p_lo}, "hl"))
+                core.verdict(kc, k_hi, k_lo)
+                plain_verdict(pc, p_hi, p_lo, ctx)
+            else:
+                core.batch(kc, inputs)
+                plain_batch(pc, inputs, ctx)
+            torch.cuda.synchronize()
+            err = max(err, carry_err(torch, kc, pc, CARRY_KEYS))
+            if err:
+                fail(f"{key}: {name} and its plain version differ (max abs err {err})")
+        if int(pc["state"][6].min()) >= 192:
+            fail(f"{key}: no battery drained, so BOOST was never exercised")
+        print(f"{key}: {name} == plain after each of {batches} batch(es) ({n} entities, d={d}, T={t_ticks}, "
+              f"inputs below {SWARM_MOD}) {tag}")
+        plain_final[key] = copy_carry(pc)
+
+        c = int(kc["meta"][0])
+        probe = [copy_carry(kc), copy_carry(pc)]
+        for carry in probe:
+            carry["ring"][(c - d) % ctx.ring_len, 0, 0] += 7  # px of entity 0
+        inputs = torch.from_numpy(scripts[key][0].astype(np.int32)).to(dev)
+        core.batch(probe[0], inputs)
+        plain_batch(probe[1], inputs, ctx)
+        torch.cuda.synchronize()
+        latched = [carry["meta"].tolist() for carry in probe]
+        if latched[0] != latched[1] or latched[0][1] != 1 or latched[0][2] != c - d + 1:
+            fail(f"{key}: position probe latched {latched}, expected frame {c - d + 1} on both")
+        if carry_err(torch, probe[0], probe[1], CARRY_KEYS):
+            fail(f"{key}: {name} and its plain version differ after the position probe")
+        print(f"{key}: position probe: both latched mismatch at frame {c - d + 1}")
+        del probe
+
+        timed, ptimed = copy_carry(kc), copy_carry(pc)
+        b_ms, b_by = bound(n, d, t_ticks, int(timed["meta"][0]), ctx.ring_len, "_swarm")
+        reps = SWARM_TIMED[key]
+        if tiled:
+            parts, pparts = [], []
+            ms = events_ms(torch, lambda: parts.append(core.run_kernel(timed, inputs)), reps)
+            v_ms = events_ms(torch, lambda: core.verdict(timed, *parts[-1]), reps)
+            plain_ms = events_ms(torch, lambda: pparts.append(plain_parts(ptimed, inputs, ctx)), 1)
+            v_plain_ms = events_ms(torch, lambda: plain_verdict(ptimed, *pparts[-1], ctx), 1)
+            v_b, v_by = least(4 * (2 * t_ticks * d + 6 * ctx.hist_len + 6), 12 * t_ticks * d)
+            entries[("synctest_verdict", key)] = {
+                "name": "synctest_verdict", "route": "cuda", "source": "ggrs_tpu_torch/csrc/synctest_tiled.cu",
+                "replaces": "ggrs_tpu/tpu/pallas_tiled.py:468",
+                "tpu_counterpart": "PallasTiledSyncTestCore._verdict (jnp post-pass of K2), swarm's batches",
+                "shape": f"T={t_ticks}, d={d} events", "max_abs_err": err, "bit_equal": err == 0,
+                "ms": v_ms, "plain_ms": v_plain_ms, "bound_ms": v_b, "bound_by": v_by, "library_ms": None,
+                "launches": 0,
+            }
+        else:
+            ms = events_ms(torch, lambda: core.batch(timed, inputs), reps)
+            plain_ms = events_ms(torch, lambda: plain_batch(ptimed, inputs, ctx), 1)
+        print(f"{key}: {name} {ms:.4f} ms/batch vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}) {tag}")
+        entries[(name, key)] = {
+            "name": name, "route": "cuda", "source": f"ggrs_tpu_torch/csrc/{core.kernel}.cu",
+            "replaces": "ggrs_tpu/tpu/pallas_tiled.py:428" if tiled else "ggrs_tpu/tpu/pallas_core.py:979",
+            "tpu_counterpart": ("PallasTiledSyncTestCore._build" if tiled else "PallasSyncTestCore._build")
+                               + " with SwarmPlanes",
+            "shape": f"Swarm({PLAYERS}, {n}), d={d}, T={t_ticks}", "max_abs_err": err, "bit_equal": err == 0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "launches": 0,
+        }
+        del timed, ptimed, kc, pc
+    return scripts, plain_final, entries
+
+
+def swarm_main_path_phase(torch, np, dev, tag, scripts, plain_final, entries):
+    """Swarm's fused path through the session: auto -> K1 at 4096 and K2 +
+    the verdict at 1M; launch counts set to 0 before and above 0 after,
+    the final carry equal to the plain version's, `check()` passing."""
+    from ggrs_tpu_torch import DeviceSyncTestSession, Swarm
+    from ggrs_tpu_torch.convert import CARRY_KEYS
+
+    runs = []
+    for key, backend, n, d, t_ticks, batches in SWARM_SHAPES:
+        sess = DeviceSyncTestSession(Swarm(PLAYERS, n), PLAYERS, d, backend="auto", device=dev)
+        if sess.backend != backend:
+            fail(f"{key}: auto chose {sess.backend} for swarm, expected {backend}")
+        core = sess.core
+        core.launches = 0
+        if backend == "cuda-tiled":
+            core.verdict_launches = 0
+        for raw in scripts[key]:
+            sess.advance_frames(raw)
+        sess.block_until_ready()
+        counts = {f"{core.kernel}_swarm": core.launches}
+        if backend == "cuda-tiled":
+            counts["synctest_verdict"] = core.verdict_launches
+        if min(counts.values()) < 1:
+            fail(f"{key}: the swarm main path launched no kernel of one kind: {counts}")
+        if carry_err(torch, sess.carry, plain_final[key], CARRY_KEYS):
+            fail(f"{key}: the swarm main path's carry differs from the plain version's")
+        sess.check()
+        state = sess.state_numpy()
+        if state["pos"].shape != (n, 3) or state["charge"].shape != (n,) or int(state["frame"]) != t_ticks * batches:
+            fail(f"{key}: swarm state has the wrong shape or frame")
+        reps = SWARM_MAIN_BATCHES[key]
+        samples = sorted(events_ms(torch, lambda: sess.advance_frames(scripts[key][-1]), 1) for _ in range(reps))
+        sess.check()
+        ms, p90 = samples[reps // 2], samples[(reps * 9) // 10]
+        rate = t_ticks * d / (ms / 1e3)
+        for (name, k), e in entries.items():
+            if k == key:
+                e["launches"] = counts[name]
+        print(f"swarm main path {key}: auto -> {sess.backend}, launches {counts} over {batches} batches, then "
+              f"median {ms:.4f} ms/batch (p90 {p90:.4f}, n={reps}), {rate:.1f} rollback-frames/s {tag}")
+        runs.append({"key": key, "backend": sess.backend, "ms_per_batch_p50": ms, "ms_per_batch_p90": p90,
+                     "samples": reps, "rollback_frames_per_s_p50": rate, "launches": counts})
+        del sess
+    return runs
+
+
+def swarm_request_path_phase(torch, np, dev, tag, tick_errs):
+    """Swarm's request path through the session, eager and lazy, at 4096
+    entities. Returns (per-run summaries, K3 entries for the kernels line)."""
+    from ggrs_tpu_torch import Swarm
+
+    runs, entries = [], []
+    for key, players, n, lazy, ticks, reps in SWARM_REQUEST_RUNS:
+        script = np.random.default_rng(n + lazy + 3).integers(0, SWARM_MOD, size=(ticks, players))
+        run, entry = request_path_run(torch, np, dev, tag, key, lambda: Swarm(players, n), players, n, 9, lazy,
+                                      script, reps, tick_errs[key])
+        runs.append(run)
+        entries.append(entry)
+    return runs, entries
+
+
+def arena_teams_phase(torch, np, dev, tag):
+    """Arena past 16 teams on the card: K1 with the cache (and its time) and
+    inline, the injection route (K5 + K2 + the verdict) and K5 alone, K3
+    rows and K4 speculations, each against its plain version, with kill
+    probes on K1 and the injection route; then the main path (auto -> K1)
+    with its launch count. Returns K1's entries for the kernels line."""
+    from ggrs_tpu_torch import Arena, DeviceSyncTestSession, ResimCore
+    from ggrs_tpu_torch.convert import CARRY_KEYS, copy_carry
+    from ggrs_tpu_torch.device import sync_test
+    from ggrs_tpu_torch.device.beam_core import plain_rollout
+    from ggrs_tpu_torch.device.fused_core import FusedSyncTestCore, plain_batch
+    from ggrs_tpu_torch.device.injected_core import InjectedReduceCore
+    from ggrs_tpu_torch.device.planes import PlaneContext
+    from ggrs_tpu_torch.device.reduce_core import STATE, plain_reduce_table, source_slots
+    from ggrs_tpu_torch.device.resim import RESIM_KEYS
+    from ggrs_tpu_torch.device.tick_core import plain_tick_multi
+
+    entries = []
+    d, t_ticks = CHECK_DISTANCE, 20
+    for key, players, n in ARENA_TEAM_SHAPES:
+        ctx = PlaneContext(Arena(players, n), players, d, dev)
+        rng = np.random.default_rng(players)
+        batches = [rng.integers(0, 64, size=(t_ticks, players, 1), dtype=np.uint8)
+                   for _ in range(ARENA_TEAM_BATCHES)]
+
+        def same(a, b, keys, what):
+            torch.cuda.synchronize()
+            err = carry_err(torch, a, b, keys)
+            if err:
+                fail(f"{key}: {what} and its plain version differ (max abs err {err})")
+
+        def latch(carries, run):
+            c = int(carries[0]["meta"][0])
+            for carry in carries:
+                kill(carry, d, ctx.ring_len)
+            run()
+            latched = [carry["meta"].tolist() for carry in carries]
+            if latched[0] != latched[1] or latched[0][1:] != [1, c - d + 1]:
+                fail(f"{key}: kill probe latched {latched}, expected frame {c - d + 1} on both")
+
+        # K1 with the reduction cache, its kill probe and its time
+        k1 = FusedSyncTestCore(ctx)
+        kc = sync_test.initial_carry(ctx)
+        pc = copy_carry(kc)
+        for raw in batches:
+            inputs = torch.from_numpy(raw.astype(np.int32)).to(dev)
+            k1.batch(kc, inputs)
+            plain_batch(pc, inputs, ctx)
+            same(kc, pc, CARRY_KEYS, "synctest_fused_arena (cached)")
+        final = copy_carry(pc)
+        timed, ptimed = copy_carry(kc), copy_carry(pc)
+        b_ms, b_by = arena_bound(n, players, d, t_ticks, int(timed["meta"][0]))
+        ms = events_ms(torch, lambda: k1.batch(timed, inputs), 10)
+        plain_ms = events_ms(torch, lambda: plain_batch(ptimed, inputs, ctx), 1)
+        probe = [copy_carry(kc), copy_carry(pc)]
+        latch(probe, lambda: (k1.batch(probe[0], inputs), plain_batch(probe[1], inputs, ctx)))
+        same(*probe, CARRY_KEYS, "synctest_fused_arena after the kill probe")
+
+        # K1 inline: single ticks across frame d, then the kill probe
+        kc = sync_test.initial_carry(ctx)
+        pc = copy_carry(kc)
+        for t in range(d + 4):
+            one = torch.from_numpy(batches[0][t:t + 1].astype(np.int32)).to(dev)
+            k1.batch(kc, one)
+            plain_batch(pc, one, ctx)
+            same(kc, pc, CARRY_KEYS, "synctest_fused_arena (inline)")
+        latch([kc, pc], lambda: (k1.batch(kc, one), plain_batch(pc, one, ctx)))
+
+        # the injection route across frame d, K5 alone, then the kill probe
+        route, twin = InjectedReduceCore(ctx), plain_injected(ctx)
+        kc = sync_test.initial_carry(ctx)
+        pc = copy_carry(kc)
+        for start in range(0, t_ticks, 10):
+            ten = torch.from_numpy(batches[1][start:start + 10].astype(np.int32)).to(dev)
+            route.batch(kc, ten, frame=start)
+            twin.batch(pc, ten, frame=start)
+            same(kc, pc, CARRY_KEYS, "the injection route")
+        dead = copy_carry(kc)
+        dead["ring"][:, 4, 3::5] = 0
+        for slots in (source_slots(t_ticks, d, ctx.ring_len), (STATE,)):
+            got = route.reduce.gather(dead["ring"], dead["state"], slots)
+            want = plain_reduce_table(torch.stack([dead["state"] if s == STATE else dead["ring"][s]
+                                                   for s in slots]), ctx)
+            same({"t": got}, {"t": want}, "t", f"reduce_table over {len(slots)} sources")
+        latch([kc, pc], lambda: (route.batch(kc, ten, frame=t_ticks), twin.batch(pc, ten, frame=t_ticks)))
+        same(kc, pc, CARRY_KEYS, "the injection route after the kill probe")
+
+        # K3 rows, then K4 speculations out of the ring they filled
+        core = ResimCore(Arena(players, n), 9, players, device_verify=True, device=dev)
+        plain = {k: v.clone() for k, v in core.carry.items()}
+        rows = np.concatenate([prime_row(core)[None],
+                               random_tick_rows(core, 9 + 2 + 8, seed=players, mod=64)])
+        for b in range(0, len(rows), ARENA_TICK_ROWS):
+            batch = rows[b:b + ARENA_TICK_ROWS]
+            his, los = core.tick_multi(batch)
+            p_his, p_los = plain_tick_multi(plain, core.upload(batch), core)
+            same({"h": his, "l": los}, {"h": p_his, "l": p_los}, "hl", "resim_tick_arena's checksums")
+            same(core.carry, plain, RESIM_KEYS, "resim_tick_arena")
+        spec_rng = np.random.default_rng(players + 1)
+        for slot in (1, 4):
+            inputs = spec_rng.integers(0, 64, size=(16, 11, players, 1), dtype=np.uint8)
+            statuses = np.where(spec_rng.random((16, 11, players)) < 0.2, 2, 0).astype(np.int32)
+            spec = core.speculate(slot, inputs, statuses)
+            want = plain_rollout(core.carry["ring"][slot], core.carry["r_frame"][slot],
+                                 torch.from_numpy(inputs).to(dev), torch.from_numpy(statuses).to(dev), core.ctx)
+            torch.cuda.synchronize()
+            if spec_err(torch, spec, want):
+                fail(f"{key}: beam_rollout_arena and plain_rollout differ from slot {slot}")
+        del core, plain
+
+        # the main path: auto -> K1 with the cache
+        sess = DeviceSyncTestSession(Arena(players, n), players, d, backend="auto", device=dev)
+        if sess.backend != "cuda-fused":
+            fail(f"{key}: auto chose {sess.backend}, expected cuda-fused")
+        sess.core.launches = 0
+        for raw in batches:
+            sess.advance_frames(raw)
+        sess.block_until_ready()
+        launches = sess.core.launches
+        if launches < 1 or carry_err(torch, sess.carry, final, CARRY_KEYS):
+            fail(f"{key}: the main path launched {launches} K1 kernels or ended apart from the plain version")
+        sess.check()
+        print(f"{key}: Arena({players}, {n}) past 16 teams: synctest_fused_arena (cached, inline), the injection "
+              f"route (reduce_table + synctest_tiled_arena + verdict), reduce_table, resim_tick_arena and "
+              f"beam_rollout_arena == plain, kill probes latched on both; main path auto -> K1, {launches} "
+              f"launches, carry == plain; K1 {ms:.4f} ms/batch (T={t_ticks}) vs plain {plain_ms:.1f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}) {tag}")
+        entries.append({
+            "name": "synctest_fused_arena", "route": "cuda", "source": "ggrs_tpu_torch/csrc/synctest_fused.cu",
+            "replaces": "ggrs_tpu/tpu/pallas_core.py:979",
+            "tpu_counterpart": "PallasSyncTestCore._build with ArenaPlanes (reduction cache), past 16 teams",
+            "shape": f"Arena({players}, {n}), d={d}, T={t_ticks}", "max_abs_err": 0, "bit_equal": True,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "launches": launches,
+        })
+        del sess, kc, pc, timed, ptimed, dead
+    return entries
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1590,7 +1974,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     try:
-        from ggrs_tpu_torch import Arena, DeviceSyncTestSession, ExGame
+        from ggrs_tpu_torch import Arena, DeviceSyncTestSession, ExGame, Swarm
         from ggrs_tpu_torch.convert import CARRY_KEYS, copy_carry
         from ggrs_tpu_torch.device import sync_test
         from ggrs_tpu_torch.device.fused_core import FusedSyncTestCore, plain_batch
@@ -1780,12 +2164,31 @@ def main() -> None:
     arena_beam_path, arena_beam_entries = beam_path_phase(torch, np, dev, tag, arena_beam_errs, ARENA_BEAM_SHAPES,
                                                           ARENA_BEAM_PATH_TICKS, ARENA_BEAM_SCRIPTS, Arena)
 
+    # -- phases 12 and 13: swarm on K1 and K2 (position probes), then its fused main path
+    swarm_scripts, swarm_final, swarm_fused = swarm_synctest_phase(torch, np, dev, tag)
+    swarm_path = swarm_main_path_phase(torch, np, dev, tag, swarm_scripts, swarm_final, swarm_fused)
+
+    # -- phases 14 and 15: swarm on K3 and K4, then its request and beam paths
+    swarm_tick_errs = tick_phase(torch, np, dev, tag, SWARM_TICK_SHAPES, Swarm, SWARM_MOD, probe_plane=0)
+    swarm_beam_errs = beam_phase(torch, np, dev, tag, SWARM_BEAM_SHAPES, Swarm, SWARM_MOD, probe_plane=0,
+                                 timed=SWARM_TIMED_SPECULATIONS)
+    swarm_request_path, swarm_tick_entries = swarm_request_path_phase(torch, np, dev, tag, swarm_tick_errs)
+    swarm_beam_path, swarm_beam_entries = beam_path_phase(torch, np, dev, tag, swarm_beam_errs, SWARM_BEAM_SHAPES,
+                                                          SWARM_BEAM_PATH_TICKS, SWARM_BEAM_SCRIPTS, Swarm,
+                                                          probe_plane=0)
+
+    # -- phase 16: arena past 16 teams on K1-K5
+    team_entries = arena_teams_phase(torch, np, dev, tag)
+
     for e in entries:
         e.pop("key")
     entries += tick_entries + beam_entries + arena_entries + arena_tick_entries + arena_beam_entries
+    entries += list(swarm_fused.values()) + swarm_tick_entries + swarm_beam_entries + team_entries
     print(json.dumps({"card": card, "main_path": main_path, "request_path": request_path,
                       "beam_path": beam_path, "arena_path": arena_path,
-                      "arena_request_path": arena_request_path, "arena_beam_path": arena_beam_path}))
+                      "arena_request_path": arena_request_path, "arena_beam_path": arena_beam_path,
+                      "swarm_path": swarm_path, "swarm_request_path": swarm_request_path,
+                      "swarm_beam_path": swarm_beam_path}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -9,7 +9,10 @@ as one dispatch of `ResimCore`'s packed control-word tick (K3). Slice 3
 adds beam speculation (K4). Slice 4 adds the arena family (`Arena`, with a
 per-team cross-entity reduction every frame) on the fused SyncTest path:
 K1 with grid barriers, and the injected-reduction route of K5 (the
-reduction table) and K2. The
+reduction table) and K2; slice 5 puts arena on the request path and in the
+beam (K3, K4). Slice 6 adds the third family, `Swarm` (3-D drones with a
+battery, seven planes), in K1-K4 on every path, and lifts the arena
+kernels' 16-player cap. The
 package imports torch and numpy, never jax and nothing of `ggrs_tpu`; its
 entry points run on CUDA unless the caller passes device="cpu".
 """
@@ -30,6 +33,7 @@ from .errors import (
 )
 from .models.arena import Arena
 from .models.ex_game import ExGame
+from .models.swarm import Swarm
 from .sessions.builder import SessionBuilder
 from .sessions.sync_test_session import SyncTestSession
 from .types import AdvanceFrame, InputStatus, LoadGameState, SaveGameState
@@ -54,6 +58,7 @@ __all__ = [
     "SaveGameState",
     "SessionBuilder",
     "SnapshotRef",
+    "Swarm",
     "SyncTestSession",
     "TypeContractError",
 ]

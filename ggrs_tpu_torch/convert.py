@@ -10,11 +10,13 @@ as a pytree; as numpy (`jax.device_get`) it is
     mismatch bool[], mismatch_frame i32[], frame i32[]
 
 for ex_game (arena's state and ring hold pos, vel, hp i32[N] and energy
-i32[N] instead), with R = H = d+2. The port keeps it as packed SoA
-planes, so the kernels read coalesced columns:
+i32[N] instead; swarm's pos and vel are [..., N, 3] and it holds charge
+i32[N]), with R = H = d+2. The port keeps it as packed SoA planes, so the
+kernels read coalesced columns:
 
-    state   i32[K,N]     K planes: px, py, vx, vy, rot (ex_game) or
-                         px, py, vx, vy, hp, energy (arena)
+    state   i32[K,N]     K planes: px, py, vx, vy, rot (ex_game),
+                         px, py, vx, vy, hp, energy (arena) or
+                         px, py, pz, vx, vy, vz, charge (swarm)
     ring    i32[R,K,N]
     r_frame i32[R]       the ring's frame tags
     iring   i32[d+2,P,I]
@@ -169,7 +171,8 @@ def resim_to_reference(core) -> dict:
 def speculation_to_reference(spec) -> tuple:
     """A port `Speculation` -> the reference's speculation tuple as numpy:
     (traj {frame i32[B,L], pos i32[B,L,N,2], vel i32[B,L,N,2], rot
-    i32[B,L,N]} — arena's hp and energy i32[B,L,N] in place of rot —, his
+    i32[B,L,N]} — arena's hp and energy i32[B,L,N] in place of rot, swarm's
+    [B,L,N,3] pos and vel and charge —, his
     u32[B,L], los u32[B,L], a_hi u32[], a_lo u32[])."""
     B, L = spec.his.shape
     frames = int(spec.frame) + 1 + np.arange(L, dtype=np.int32)

@@ -55,7 +55,7 @@ __device__ __forceinline__ void grid_sync(unsigned int* bar) {
 // table in global memory and the barrier.
 struct ArenaReduce {
   arena::Team* fin;   // shared: finalized teams, [slots * P]
-  uint32_t* scratch;  // shared: 3 * kMaxTeams * kWarps words
+  uint32_t* scratch;  // shared: 3 * kTeamChunk * kWarps words
   uint32_t* raw;      // global: raw sums, [slots * 3P], zeroed before launch
   unsigned int* bar;  // global: grid barrier
   int num_players, input_size, team, enemy;

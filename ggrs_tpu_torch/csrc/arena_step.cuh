@@ -26,7 +26,7 @@
 namespace arena {
 
 constexpr int kPlanes = 6;      // px, py, vx, vy, hp, energy: the port's plane order
-constexpr int kMaxTeams = 16;   // players the kernels take (3 * 16 reduction sums)
+constexpr int kTeamChunk = 16;  // teams a block sums per pass through its shared scratch
 constexpr int kInputUp = 1, kInputDown = 2, kInputLeft = 4, kInputRight = 8;
 constexpr int kInputRally = 16, kInputOverdrive = 32;
 constexpr int kArenaBits = 18, kArenaMask = (1 << kArenaBits) - 1, kCentroidShift = 6;
@@ -143,21 +143,14 @@ __device__ __forceinline__ void store(int* p, size_t n, size_t e, const State& s
   p[5 * n + e] = s.energy;
 }
 
-// Adds one block's per-team raw sums to dst[3P] (per team: living count,
-// Σ px>>6, Σ py>>6) with uint32 atomics. Every thread of the block calls it
-// with its entity's px, py, hp and team (`active` false for threads past the
-// world). Warp shuffles per team, then one pass over the warps' sums in
-// shared memory (`scratch`: 3 * kMaxTeams * kWarps words).
+// One chunk of block_team_sums: teams first..first+teams-1 (teams <=
+// kTeamChunk) through the shared scratch, then a barrier.
 template <int kWarps>
-__device__ __forceinline__ void block_team_sums(bool active, int px, int py, int hp, int team,
-                                                int num_players, uint32_t* scratch, uint32_t* dst) {
+__device__ __forceinline__ void team_chunk_sums(uint32_t one, uint32_t sx, uint32_t sy, int team, int first,
+                                                int teams, uint32_t* scratch, uint32_t* dst) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool live = active && hp > 0;
-  const uint32_t one = live ? 1u : 0u;
-  const uint32_t sx = live ? (uint32_t)(px >> kCentroidShift) : 0u;
-  const uint32_t sy = live ? (uint32_t)(py >> kCentroidShift) : 0u;
-  for (int t = 0; t < num_players; ++t) {
-    const bool mine = team == t;
+  for (int t = 0; t < teams; ++t) {
+    const bool mine = team == first + t;
     uint32_t v[3] = {mine ? one : 0u, mine ? sx : 0u, mine ? sy : 0u};
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -167,12 +160,35 @@ __device__ __forceinline__ void block_team_sums(bool active, int px, int py, int
     }
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < 3 * num_players; j += kWarps * 32) {
+  for (int j = threadIdx.x; j < 3 * teams; j += kWarps * 32) {
     uint32_t sum = 0;
     for (int w = 0; w < kWarps; ++w) sum += scratch[j * kWarps + w];
-    if (sum) atomicAdd(&dst[j], sum);
+    if (sum) atomicAdd(&dst[3 * first + j], sum);
   }
-  __syncthreads();  // scratch is reused by the next call
+  __syncthreads();  // scratch is reused by the next chunk or call
+}
+
+// Adds one block's per-team raw sums to dst[3P] (per team: living count,
+// Σ px>>6, Σ py>>6) with uint32 atomics. Every thread of the block calls it
+// with its entity's px, py, hp and team (`active` false for threads past the
+// world). The teams go in chunks of kTeamChunk: warp shuffles per team of
+// the chunk, then one pass over the warps' sums in shared memory
+// (`scratch`: 3 * kTeamChunk * kWarps words, whatever P is). Up to 16 teams
+// take one chunk by a branch of their own, which compiles to the one-pass
+// code the kernels had before they took more teams.
+template <int kWarps>
+__device__ __forceinline__ void block_team_sums(bool active, int px, int py, int hp, int team,
+                                                int num_players, uint32_t* scratch, uint32_t* dst) {
+  const bool live = active && hp > 0;
+  const uint32_t one = live ? 1u : 0u;
+  const uint32_t sx = live ? (uint32_t)(px >> kCentroidShift) : 0u;
+  const uint32_t sy = live ? (uint32_t)(py >> kCentroidShift) : 0u;
+  if (num_players <= kTeamChunk) {
+    team_chunk_sums<kWarps>(one, sx, sy, team, 0, num_players, scratch, dst);
+    return;
+  }
+  for (int first = 0; first < num_players; first += kTeamChunk)
+    team_chunk_sums<kWarps>(one, sx, sy, team, first, min(kTeamChunk, num_players - first), scratch, dst);
 }
 
 // Model traits for the SyncTest body (synctest_body.cuh)

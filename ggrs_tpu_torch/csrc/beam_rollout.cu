@@ -1,4 +1,4 @@
-// K4 — the speculative beam rollout for ex_game and arena on Hopper.
+// K4 — the speculative beam rollout for ex_game, swarm and arena on Hopper.
 //
 // Replaces: ggrs_tpu/tpu/pallas_beam.py, PallasBeamRollout._build (the
 // pallas_call at :226) with run_kernel (:253) and finish (:268), and the
@@ -13,12 +13,13 @@
 // Script layout (int32): [B, L, P, 1 + I], per cell its status then its
 // input bytes; ex_game reads the first byte.
 //
-// Design (ex_game; arena's body is below). The TPU kernel walks entity
+// Design (ex_game and swarm, one template over the model's traits,
+// exg::Model or swarm::Model; arena's body is below). The TPU kernel walks entity
 // tiles in order and carries the per-(member, step) partial checksums
 // across tiles in SMEM. Here blocks run
 // in parallel and in no order, so the grid is 2-D: blockIdx.x an entity
 // tile of 128, blockIdx.y a member. One thread owns one (entity, member):
-// it loads its anchor column once (5 planes, 20 B), steps it L times in
+// it loads its anchor column once (ex_game: 5 planes, 20 B), steps it L times in
 // registers and, after each step, writes the column to traj[b, l] (each
 // plane a coalesced 512 B row per block). The member axis multiplies the
 // parallelism by B — at 4096 entities one thread per entity would leave
@@ -38,7 +39,8 @@
 // 4096 entities the grid is 512 blocks of 128 and each thread's chain of
 // L dependent steps sets the time (latency, as for resim_tick at that
 // size); at 65536 entities (B = 12) the 173 MB of trajectory writes should
-// set it.
+// set it. Swarm's columns are 28 B (7 planes), its step 49 ops and its
+// checksum 21: bytes bound it at 4096 as well.
 //
 // Left for later: several members per thread (the anchor load and the
 // entity weights amortised); streaming stores that bypass L2 for the
@@ -48,25 +50,28 @@
 #include "arena_reduce.cuh"
 #include "block.cuh"
 #include "ex_game_step.cuh"
+#include "swarm_step.cuh"
 
 namespace {
 
 constexpr int kDisconnected = 2;  // InputStatus.DISCONNECTED
 
+template <class Weights>
 struct BeamArgs {
-  const int* anchor;        // [5, n] ring[anchor_slot]
+  const int* anchor;        // [K, n] ring[anchor_slot] (K planes)
   const int* anchor_frame;  // [1] r_frame[anchor_slot]
   const int* script;        // [B, L, P, 1 + I]
-  int* traj;                // [B, L, 5, n] out
+  int* traj;                // [B, L, K, n] out
   int* out;                 // [2*B*L + 3] out: his[B*L], los[B*L], a_hi, a_lo, frame
   uint32_t* parts_hi;       // [B*L + 1] zeroed before launch; the anchor's row last
   uint32_t* parts_lo;       // [B*L + 1]
   uint32_t* done;           // last-block ticket, zeroed before launch
   int n, num_players, input_size, beam, steps, substeps, disconnect_input;
-  exg::Weights cw;
+  Weights cw;
 };
 
-__global__ void __launch_bounds__(kBlock) beam_rollout_kernel(BeamArgs a) {
+template <class M>
+__global__ void __launch_bounds__(kBlock) beam_rollout_kernel(BeamArgs<typename M::Weights> a) {
   extern __shared__ int smem[];
   const int L = a.steps, P = a.num_players, I = a.input_size;
   int* inp = smem;                                         // [L][P] resolved input bytes
@@ -76,7 +81,7 @@ __global__ void __launch_bounds__(kBlock) beam_rollout_kernel(BeamArgs a) {
   const int e = blockIdx.x * kBlock + threadIdx.x;
   const bool active = e < a.n;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const size_t n = (size_t)a.n, slot_stride = (size_t)exg::kPlanes * n;
+  const size_t n = (size_t)a.n, slot_stride = (size_t)M::kPlanes * n;
 
   // member b's script, with the disconnect substitution, into shared memory
   for (int k = threadIdx.x; k < L * P; k += kBlock) {
@@ -84,15 +89,15 @@ __global__ void __launch_bounds__(kBlock) beam_rollout_kernel(BeamArgs a) {
     inp[k] = cell[0] == kDisconnected ? a.disconnect_input : cell[1];
   }
 
-  uint32_t ew[exg::kPlanes];
-  exg::entity_weights(a.cw, (uint32_t)e, ew);
-  exg::State s = active ? exg::load(a.anchor, n, e) : exg::State{0, 0, 0, 0, 0};
+  uint32_t ew[M::kPlanes];
+  M::entity_weights(a.cw, (uint32_t)e, ew);
+  typename M::State s = active ? M::load(a.anchor, n, e) : typename M::State{};
   const int owner = e % P;
 
   const bool anchor_row = b == 0;
   if (anchor_row) {
     uint32_t hi = 0, lo = 0;
-    if (active) exg::checksum_terms(s, ew, hi, lo);
+    if (active) M::checksum_terms(s, ew, hi, lo);
     hi = warp_sum(hi);
     lo = warp_sum(lo);
     if (lane == 0) {
@@ -106,9 +111,9 @@ __global__ void __launch_bounds__(kBlock) beam_rollout_kernel(BeamArgs a) {
   for (int l = 0; l < L; ++l) {
     uint32_t hi = 0, lo = 0;
     if (active) {
-      exg::step(s, inp[l * P + owner], a.substeps);
-      exg::store(traj_b + (size_t)l * slot_stride, n, e, s);
-      exg::checksum_terms(s, ew, hi, lo);
+      M::step(s, inp[l * P + owner], a.substeps);
+      M::store(traj_b + (size_t)l * slot_stride, n, e, s);
+      M::checksum_terms(s, ew, hi, lo);
     }
     hi = warp_sum(hi);
     lo = warp_sum(lo);
@@ -225,15 +230,15 @@ __device__ __forceinline__ void block_checksum_add(uint32_t hi, uint32_t lo, uin
 // dynamic shared memory of the arena rollout, in words: finalized teams
 // [B][P], block-sum scratch, checksum sums [2][warps]
 __host__ __device__ inline size_t arena_beam_smem_words(int beam, int p) {
-  return 3 * (size_t)beam * p + 3 * (size_t)arena::kMaxTeams * kWarps + 2 * (size_t)kWarps;
+  return 3 * (size_t)beam * p + 3 * (size_t)arena::kTeamChunk * kWarps + 2 * (size_t)kWarps;
 }
 
 __global__ void __launch_bounds__(kBlock, kArenaMinBlocksPerSm) beam_rollout_arena_kernel(ArenaBeamArgs a) {
   extern __shared__ int smem[];
   const int L = a.steps, P = a.num_players, I = a.input_size, B = a.beam;
   arena::Team* fin = reinterpret_cast<arena::Team*>(smem);           // [B][P]
-  uint32_t* scratch = reinterpret_cast<uint32_t*>(fin + (size_t)B * P);  // 3 * kMaxTeams * kWarps
-  uint32_t* red = scratch + 3 * arena::kMaxTeams * kWarps;           // [2][warps]
+  uint32_t* scratch = reinterpret_cast<uint32_t*>(fin + (size_t)B * P);  // 3 * kTeamChunk * kWarps
+  uint32_t* red = scratch + 3 * arena::kTeamChunk * kWarps;           // [2][warps]
 
   const int tiles = (a.n + kBlock - 1) / kBlock;
   const int items = B * tiles;  // item = b * tiles + tile
@@ -317,21 +322,20 @@ __global__ void __launch_bounds__(kBlock, kArenaMinBlocksPerSm) beam_rollout_are
 
 }  // namespace
 
-// Returns the CUDA error of the scratch reset or the launch (0 on success).
-// ring: [slots, 5, n]; r_frame: [slots]; scratch: parts_hi [B*L+1],
-// parts_lo [B*L+1], done [1]. disconnect_row: the game's disconnect input, I
-// ints in host memory. cs: 11 int32 — checksum w[5], base[5], frame weight.
-extern "C" int beam_rollout_launch(const int* ring, int anchor_slot, const int* r_frame,
-                                   const int* script, int* traj, int* out, uint32_t* scratch,
-                                   int n, int num_players, int input_size, int beam, int steps,
-                                   int substeps, const int* disconnect_row, const int* cs,
-                                   void* stream) {
+namespace {
+
+// The rollout of a model with no reduction. Returns the CUDA error of the
+// scratch reset, the shared-memory attribute or the launch (0 on success).
+template <class M>
+int launch_beam(const int* ring, int anchor_slot, const int* r_frame, const int* script, int* traj,
+                int* out, uint32_t* scratch, int n, int num_players, int input_size, int beam, int steps,
+                int substeps, const int* disconnect_row, const int* cs, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t rows = (size_t)beam * steps + 1;
   cudaError_t err = cudaMemsetAsync(scratch, 0, (2 * rows + 1) * sizeof(uint32_t), st);
   if (err != cudaSuccess) return (int)err;
-  BeamArgs a;
-  a.anchor = ring + (size_t)anchor_slot * exg::kPlanes * (size_t)n;
+  BeamArgs<typename M::Weights> a;
+  a.anchor = ring + (size_t)anchor_slot * M::kPlanes * (size_t)n;
   a.anchor_frame = r_frame + anchor_slot;
   a.script = script;
   a.traj = traj;
@@ -345,21 +349,41 @@ extern "C" int beam_rollout_launch(const int* ring, int anchor_slot, const int* 
   a.beam = beam;
   a.steps = steps;
   a.substeps = substeps;
-  a.disconnect_input = disconnect_row[0];  // ex_game reads byte 0
-  for (int k = 0; k < exg::kPlanes; ++k) {
-    a.cw.w[k] = (uint32_t)cs[k];
-    a.cw.base[k] = (uint32_t)cs[exg::kPlanes + k];
-  }
-  a.cw.frame_weight = (uint32_t)cs[2 * exg::kPlanes];
+  a.disconnect_input = disconnect_row[0];  // the step reads byte 0
+  a.cw = weights_from<typename M::Weights, M::kPlanes>(cs);
   const size_t smem = ((size_t)steps * num_players + 2 * ((size_t)steps + 1) * kWarps) * sizeof(int);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(beam_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(beam_rollout_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((n + kBlock - 1) / kBlock, beam);
-  beam_rollout_kernel<<<grid, kBlock, smem, st>>>(a);
+  beam_rollout_kernel<M><<<grid, kBlock, smem, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ring: [slots, K, n]; r_frame: [slots]; scratch: parts_hi [B*L+1],
+// parts_lo [B*L+1], done [1]. disconnect_row: the game's disconnect input, I
+// ints in host memory.
+// ex_game. cs: 11 int32 — checksum w[5], base[5], frame weight.
+extern "C" int beam_rollout_launch(const int* ring, int anchor_slot, const int* r_frame,
+                                   const int* script, int* traj, int* out, uint32_t* scratch,
+                                   int n, int num_players, int input_size, int beam, int steps,
+                                   int substeps, const int* disconnect_row, const int* cs,
+                                   void* stream) {
+  return launch_beam<exg::Model>(ring, anchor_slot, r_frame, script, traj, out, scratch, n, num_players,
+                                 input_size, beam, steps, substeps, disconnect_row, cs, stream);
+}
+
+// swarm. cs: 15 int32 — checksum w[7], base[7], frame weight.
+extern "C" int beam_rollout_swarm_launch(const int* ring, int anchor_slot, const int* r_frame,
+                                         const int* script, int* traj, int* out, uint32_t* scratch,
+                                         int n, int num_players, int input_size, int beam, int steps,
+                                         const int* disconnect_row, const int* cs, void* stream) {
+  return launch_beam<swarm::Model>(ring, anchor_slot, r_frame, script, traj, out, scratch, n, num_players,
+                                   input_size, beam, steps, 1, disconnect_row, cs, stream);
 }
 
 // The arena rollout, launched cooperatively on as many blocks as can be

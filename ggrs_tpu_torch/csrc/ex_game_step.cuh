@@ -1,5 +1,6 @@
 // ex_game's deterministic step and checksum terms for ONE entity, shared by
-// the SyncTest kernels (synctest_fused.cu, synctest_tiled.cu).
+// the SyncTest kernels (synctest_fused.cu, synctest_tiled.cu), the request
+// path's tick (resim_tick.cu) and the beam rollout (beam_rollout.cu).
 //
 // The device counterpart of ggrs_tpu_torch/models/ex_game.py
 // `substep_planes` and of the reference's ExGamePlanes._substep
@@ -135,5 +136,31 @@ __device__ __forceinline__ void store(int* planes, size_t n, size_t e, const Sta
   planes[3 * n + e] = s.vy;
   planes[4 * n + e] = s.rot;
 }
+
+// Model traits for the per-entity bodies (synctest_body.cuh, resim_tick.cu,
+// beam_rollout.cu): the state, its load/store, its checksum terms, and the
+// step of one entity on its owner's input byte
+struct Model {
+  static constexpr int kPlanes = exg::kPlanes;
+  using State = exg::State;
+  using Weights = exg::Weights;
+  static __device__ __forceinline__ State load(const int* p, size_t n, size_t e) {
+    return exg::load(p, n, e);
+  }
+  static __device__ __forceinline__ void store(int* p, size_t n, size_t e, const State& s) {
+    exg::store(p, n, e, s);
+  }
+  static __device__ __forceinline__ void entity_weights(const Weights& cw, uint32_t gi,
+                                                        uint32_t (&ew)[kPlanes]) {
+    exg::entity_weights(cw, gi, ew);
+  }
+  static __device__ __forceinline__ void checksum_terms(const State& s, const uint32_t (&ew)[kPlanes],
+                                                        uint32_t& hi, uint32_t& lo) {
+    exg::checksum_terms(s, ew, hi, lo);
+  }
+  static __device__ __forceinline__ void step(State& s, int inp, int substeps) {
+    exg::step(s, inp, substeps);
+  }
+};
 
 }  // namespace exg

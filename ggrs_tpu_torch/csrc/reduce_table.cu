@@ -31,7 +31,7 @@ constexpr int kWarps = kBlock / 32;
 __global__ void __launch_bounds__(kBlock) reduce_table_kernel(const int* ring, const int* state,
                                                               const int* slots, size_t slot_stride,
                                                               int n, int num_players, uint32_t* out) {
-  __shared__ uint32_t scratch[3 * arena::kMaxTeams * kWarps];
+  __shared__ uint32_t scratch[3 * arena::kTeamChunk * kWarps];
   const int s = blockIdx.y;
   const int e = blockIdx.x * kBlock + threadIdx.x;
   const bool active = e < n;

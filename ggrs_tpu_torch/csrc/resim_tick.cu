@@ -1,4 +1,5 @@
-// K3 — ResimCore's packed control-word tick for ex_game and arena on Hopper.
+// K3 — ResimCore's packed control-word tick for ex_game, swarm and arena on
+// Hopper.
 //
 // Replaces: ggrs_tpu/tpu/pallas_resim.py, PallasTickCore._build (the
 // pallas_call at :324) and its scalar post-pass _scalar_pass (:356). One
@@ -14,8 +15,9 @@
 // scratch slot, index W) means "no save"; the ring has W+1 slots and the
 // scratch slot is never written. W == ring_len == max_prediction + 2.
 //
-// Design (ex_game; arena's body is below): one thread owns one entity for
-// all T rows, as in the SyncTest kernels (synctest_body.cuh): its state
+// Design (ex_game and swarm, one template over the model's traits,
+// exg::Model or swarm::Model; arena's body is below): one thread owns one
+// entity for all T rows, as in the SyncTest kernels (synctest_body.cuh): its state
 // stays in registers and it reads
 // and writes only its own ring column, so a row may load the slot an
 // earlier row of the same launch saved. Every thread reads the same control
@@ -35,7 +37,8 @@
 // SyncTest tick (1 load, 8 saves, 9 advances) is ~220 B per entity, 220 MB
 // at 1M entities, ~0.066 ms at 3.35 TB/s; its int32 work is 69 ops per
 // advance and 15 per save, 741 per entity, ~0.044 ms at 1M entities on
-// 16.7 Tops/s. So large worlds are bound by the ring bytes. At 4096
+// 16.7 Tops/s. So large worlds are bound by the ring bytes (swarm: 28 B a
+// column, 49 ops an advance and 21 a save). At 4096
 // entities only 32 blocks exist, and each thread's serial chain of steps
 // plus the serial scalar pass set the time, not any peak rate.
 //
@@ -47,15 +50,17 @@
 #include "arena_reduce.cuh"
 #include "block.cuh"
 #include "ex_game_step.cuh"
+#include "swarm_step.cuh"
 
 namespace {
 
 constexpr int kDisconnected = 2;  // InputStatus.DISCONNECTED
 
+template <class Weights>
 struct TickArgs {
-  int* state;          // [5, n] live world
+  int* state;          // [K, n] live world (K planes)
   int* state_frame;    // [1] the live world's own frame
-  int* ring;           // [W+1, 5, n]
+  int* ring;           // [W+1, K, n]
   int* r_frame;        // [W+1] ring-frame tags
   int* h_tag;          // [W] device-verify history, null when verification is off
   int* h_hi;           // [W]
@@ -68,7 +73,7 @@ struct TickArgs {
   uint32_t* parts_lo;  // [T, W]
   uint32_t* done;      // last-block ticket, zeroed before launch
   int n, num_players, input_size, window, t_rows, substeps, disconnect_input;
-  exg::Weights cw;
+  Weights cw;
 };
 
 __host__ __device__ inline int row_len(int w, int p, int i) { return 4 + w + w * p + w * p * i; }
@@ -120,7 +125,8 @@ __device__ void tick_scalar_pass(const Args& a) {
   *a.state_frame = sf;
 }
 
-__global__ void __launch_bounds__(kBlock) resim_tick_kernel(TickArgs a) {
+template <class M>
+__global__ void __launch_bounds__(kBlock) resim_tick_kernel(TickArgs<typename M::Weights> a) {
   extern __shared__ int smem[];
   const int W = a.window, P = a.num_players, I = a.input_size;
   const int off_save = 4, off_status = 4 + W, off_input = off_status + W * P;
@@ -132,11 +138,11 @@ __global__ void __launch_bounds__(kBlock) resim_tick_kernel(TickArgs a) {
   const bool active = e < a.n;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int owner = e % P;
-  const size_t n = (size_t)a.n, slot_stride = (size_t)exg::kPlanes * n;
+  const size_t n = (size_t)a.n, slot_stride = (size_t)M::kPlanes * n;
 
-  uint32_t ew[exg::kPlanes];
-  exg::entity_weights(a.cw, (uint32_t)e, ew);
-  exg::State s = active ? exg::load(a.state, n, e) : exg::State{0, 0, 0, 0, 0};
+  uint32_t ew[M::kPlanes];
+  M::entity_weights(a.cw, (uint32_t)e, ew);
+  typename M::State s = active ? M::load(a.state, n, e) : typename M::State{};
 
   for (int t = 0; t < a.t_rows; ++t) {
     // row t into its buffer: the other buffer may still be read by the
@@ -145,15 +151,15 @@ __global__ void __launch_bounds__(kBlock) resim_tick_kernel(TickArgs a) {
     for (int k = threadIdx.x; k < L; k += kBlock) row[k] = a.rows[(size_t)t * L + k];
     __syncthreads();
 
-    if (row[0] != 0 && active) s = exg::load(a.ring + (size_t)row[1] * slot_stride, n, e);
+    if (row[0] != 0 && active) s = M::load(a.ring + (size_t)row[1] * slot_stride, n, e);
     const int adv = row[2];
     for (int i = 0; i < W; ++i) {
       const int slot = row[off_save + i];
       if (slot < W) {  // save-then-advance: slot i snapshots the pre-advance state
         uint32_t hi = 0, lo = 0;
         if (active) {
-          exg::store(a.ring + (size_t)slot * slot_stride, n, e, s);
-          exg::checksum_terms(s, ew, hi, lo);
+          M::store(a.ring + (size_t)slot * slot_stride, n, e, s);
+          M::checksum_terms(s, ew, hi, lo);
         }
         hi = warp_sum(hi);
         lo = warp_sum(lo);
@@ -167,7 +173,7 @@ __global__ void __launch_bounds__(kBlock) resim_tick_kernel(TickArgs a) {
         const int status = row[off_status + i * P + owner];
         const int inp = status == kDisconnected ? a.disconnect_input
                                                 : row[off_input + (i * P + owner) * I];
-        exg::step(s, inp, a.substeps);
+        M::step(s, inp, a.substeps);
       }
     }
 
@@ -186,7 +192,7 @@ __global__ void __launch_bounds__(kBlock) resim_tick_kernel(TickArgs a) {
       }
     }
   }
-  if (active) exg::store(a.state, n, e, s);
+  if (active) M::store(a.state, n, e, s);
 
   // last-block-done: every thread fences its own parts atomics, then one
   // ticket per block; the block that draws the last ticket sees all parts
@@ -259,7 +265,7 @@ struct ArenaTickArgs {
 // finalized teams [P], block-sum scratch
 __host__ __device__ inline size_t arena_tick_smem_words(int w, int p, int i) {
   return 2 * (size_t)row_len(w, p, i) + 2 * (size_t)w * p + 2 * (size_t)w * kWarps + 3 * (size_t)p +
-         3 * (size_t)arena::kMaxTeams * kWarps;
+         3 * (size_t)arena::kTeamChunk * kWarps;
 }
 
 __global__ void __launch_bounds__(kBlock, kArenaMinBlocksPerSm) resim_tick_arena_kernel(ArenaTickArgs a) {
@@ -271,7 +277,7 @@ __global__ void __launch_bounds__(kBlock, kArenaMinBlocksPerSm) resim_tick_arena
   int* resolved = staged + 2 * L;                              // [W*P][2]
   uint32_t* red = reinterpret_cast<uint32_t*>(resolved + 2 * W * P);  // [hi, lo][W][warps]
   arena::Team* fin = reinterpret_cast<arena::Team*>(red + 2 * W * kWarps);  // [P]
-  uint32_t* scratch = reinterpret_cast<uint32_t*>(fin + P);   // 3 * kMaxTeams * kWarps
+  uint32_t* scratch = reinterpret_cast<uint32_t*>(fin + P);   // 3 * kTeamChunk * kWarps
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int tiles = (a.n + kBlock - 1) / kBlock;
@@ -382,21 +388,21 @@ __global__ void __launch_bounds__(kBlock, kArenaMinBlocksPerSm) resim_tick_arena
 
 }  // namespace
 
-// Returns the CUDA error of the scratch reset, the shared-memory attribute or
-// the launch (0 on success). h_tag/h_hi/h_lo/flag are null when device
-// verification is off. disconnect_row: the game's disconnect input, I ints
-// in host memory. cs: 11 int32 — checksum w[5], base[5], frame weight.
-extern "C" int resim_tick_launch(int* state, int* state_frame, int* ring, int* r_frame, int* h_tag,
-                                 int* h_hi, int* h_lo, int* flag, const int* rows, int* his,
-                                 int* los, uint32_t* scratch, int n, int num_players,
-                                 int input_size, int window, int t_rows, int substeps,
-                                 const int* disconnect_row, const int* cs, void* stream) {
+namespace {
+
+// The tick of a model with no reduction. Returns the CUDA error of the
+// scratch reset, the shared-memory attribute or the launch (0 on success).
+template <class M>
+int launch_tick(int* state, int* state_frame, int* ring, int* r_frame, int* h_tag, int* h_hi, int* h_lo,
+                int* flag, const int* rows, int* his, int* los, uint32_t* scratch, int n, int num_players,
+                int input_size, int window, int t_rows, int substeps, const int* disconnect_row,
+                const int* cs, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t events = (size_t)t_rows * window;
   // scratch: parts_hi [T*W], parts_lo [T*W], done counter [1]
   cudaError_t err = cudaMemsetAsync(scratch, 0, (2 * events + 1) * sizeof(uint32_t), st);
   if (err != cudaSuccess) return (int)err;
-  TickArgs a;
+  TickArgs<typename M::Weights> a;
   a.state = state;
   a.state_frame = state_frame;
   a.ring = ring;
@@ -417,23 +423,45 @@ extern "C" int resim_tick_launch(int* state, int* state_frame, int* ring, int* r
   a.window = window;
   a.t_rows = t_rows;
   a.substeps = substeps;
-  a.disconnect_input = disconnect_row[0];  // ex_game reads byte 0
-  for (int k = 0; k < exg::kPlanes; ++k) {
-    a.cw.w[k] = (uint32_t)cs[k];
-    a.cw.base[k] = (uint32_t)cs[exg::kPlanes + k];
-  }
-  a.cw.frame_weight = (uint32_t)cs[2 * exg::kPlanes];
+  a.disconnect_input = disconnect_row[0];  // the step reads byte 0
+  a.cw = weights_from<typename M::Weights, M::kPlanes>(cs);
   const size_t smem =
       (2 * (size_t)row_len(window, num_players, input_size) + 2 * (size_t)window * kWarps) *
       sizeof(int);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(resim_tick_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(resim_tick_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (n + kBlock - 1) / kBlock;
-  resim_tick_kernel<<<blocks, kBlock, smem, st>>>(a);
+  resim_tick_kernel<M><<<blocks, kBlock, smem, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// h_tag/h_hi/h_lo/flag are null when device verification is off.
+// disconnect_row: the game's disconnect input, I ints in host memory.
+// ex_game. cs: 11 int32 — checksum w[5], base[5], frame weight.
+extern "C" int resim_tick_launch(int* state, int* state_frame, int* ring, int* r_frame, int* h_tag,
+                                 int* h_hi, int* h_lo, int* flag, const int* rows, int* his,
+                                 int* los, uint32_t* scratch, int n, int num_players,
+                                 int input_size, int window, int t_rows, int substeps,
+                                 const int* disconnect_row, const int* cs, void* stream) {
+  return launch_tick<exg::Model>(state, state_frame, ring, r_frame, h_tag, h_hi, h_lo, flag, rows, his,
+                                 los, scratch, n, num_players, input_size, window, t_rows, substeps,
+                                 disconnect_row, cs, stream);
+}
+
+// swarm. cs: 15 int32 — checksum w[7], base[7], frame weight.
+extern "C" int resim_tick_swarm_launch(int* state, int* state_frame, int* ring, int* r_frame, int* h_tag,
+                                       int* h_hi, int* h_lo, int* flag, const int* rows, int* his,
+                                       int* los, uint32_t* scratch, int n, int num_players,
+                                       int input_size, int window, int t_rows,
+                                       const int* disconnect_row, const int* cs, void* stream) {
+  return launch_tick<swarm::Model>(state, state_frame, ring, r_frame, h_tag, h_hi, h_lo, flag, rows, his,
+                                   los, scratch, n, num_players, input_size, window, t_rows, 1,
+                                   disconnect_row, cs, stream);
 }
 
 // The arena tick, launched cooperatively on as many blocks as can be

@@ -1,7 +1,7 @@
 // The SyncTest batch body shared by the whole-batch kernels
 // (synctest_fused.cu) and the entity-tiled kernels (synctest_tiled.cu), for
 // every model: the model's state, load/store and checksum terms come in as
-// a traits struct (ExGameModel here, arena::Model in arena_step.cuh), and
+// a traits struct (exg::Model, swarm::Model, arena::Model), and
 // its step as a stepper object, which also owns whatever the step needs
 // besides the entity's own state and its owner's input (arena's per-team
 // centroids: cached, inline or injected).
@@ -27,7 +27,6 @@
 #pragma once
 
 #include "block.cuh"
-#include "ex_game_step.cuh"
 
 template <class Weights>
 struct SyncTestArgs {
@@ -42,35 +41,17 @@ struct SyncTestArgs {
   Weights cw;
 };
 
-// ex_game's traits and stepper: no reduction, the step reads input byte 0
-struct ExGameModel {
-  static constexpr int kPlanes = exg::kPlanes;
-  using State = exg::State;
-  using Weights = exg::Weights;
-  static __device__ __forceinline__ State load(const int* p, size_t n, size_t e) {
-    return exg::load(p, n, e);
-  }
-  static __device__ __forceinline__ void store(int* p, size_t n, size_t e, const State& s) {
-    exg::store(p, n, e, s);
-  }
-  static __device__ __forceinline__ void entity_weights(const Weights& cw, uint32_t gi,
-                                                        uint32_t (&ew)[kPlanes]) {
-    exg::entity_weights(cw, gi, ew);
-  }
-  static __device__ __forceinline__ void checksum_terms(const State& s, const uint32_t (&ew)[kPlanes],
-                                                        uint32_t& hi, uint32_t& lo) {
-    exg::checksum_terms(s, ew, hi, lo);
-  }
-};
-
-struct ExGameStepper {
+// The stepper of a model with no reduction (ex_game, swarm): the step of
+// one entity reads its owner's input byte; `substeps` is ex_game's
+template <class M>
+struct EntityStepper {
   int substeps;
-  __device__ __forceinline__ void seed(const exg::State&, bool) {}
+  __device__ __forceinline__ void seed(const typename M::State&, bool) {}
   // f: the frame stepped; i: the resim step's index (d: the frontier step)
-  __device__ __forceinline__ void step(exg::State& s, bool, const int* in, int, int) {
-    exg::step(s, in[0], substeps);
+  __device__ __forceinline__ void step(typename M::State& s, bool, const int* in, int, int) {
+    M::step(s, in[0], substeps);
   }
-  __device__ __forceinline__ void frontier_done(const exg::State&, bool, int, int) {}
+  __device__ __forceinline__ void frontier_done(const typename M::State&, bool, int, int) {}
 };
 
 // dynamic shared memory the body needs: red[2 ticks][hi, lo][d][warps]

@@ -1,5 +1,5 @@
-// K1 — the whole-batch fused SyncTest kernel on Hopper, for ex_game and for
-// arena.
+// K1 — the whole-batch fused SyncTest kernel on Hopper, for ex_game, swarm
+// and arena.
 //
 // Replaces: ggrs_tpu/tpu/pallas_core.py, PallasSyncTestCore._build (the
 // pallas_call at :979). One launch runs T SyncTest ticks: the masked load of
@@ -13,7 +13,9 @@
 // per-event checksums are block-reduced and added to a [T, d] scratch with
 // uint32 atomics. The LAST block to finish (a done-counter ticket) then runs
 // the history compare serially over the events in (t, j) order, with no
-// host round trip and no second launch.
+// host round trip and no second launch. ex_game and swarm (7 planes: a
+// 3-D position and velocity and a battery) are one template over the
+// model's traits (exg::Model, swarm::Model), each behind its own entry point.
 //
 // Arena adds a cross-entity reduction to every step: per team, the living
 // count and centroid of the state entering it. The reference's K1 computes
@@ -50,6 +52,7 @@
 #include <cuda_runtime.h>
 
 #include "arena_reduce.cuh"
+#include "swarm_step.cuh"
 #include "synctest_body.cuh"
 
 // The last block to finish runs the bookkeeping and the verdict: every
@@ -72,13 +75,15 @@ __device__ void finish_batch(const SyncTestArgs<Weights>& a, int c0, int* r_fram
                    meta, sh);
 }
 
+// a model with no reduction (ex_game, swarm)
+template <class M>
 __global__ void __launch_bounds__(kBlock) synctest_fused_kernel(
-    SyncTestArgs<exg::Weights> a, int* r_frame, int* iring, int* h_tag, int* h_hi, int* h_lo,
+    SyncTestArgs<typename M::Weights> a, int* r_frame, int* iring, int* h_tag, int* h_hi, int* h_lo,
     int* meta, uint32_t* done) {
   extern __shared__ uint32_t smem[];
   const int c0 = a.meta[0];
-  ExGameStepper st{a.substeps};
-  synctest_entity_batch<ExGameModel>(a, smem, st);
+  EntityStepper<M> st{a.substeps};
+  synctest_entity_batch<M>(a, smem, st);
   finish_batch(a, c0, r_frame, iring, h_tag, h_hi, h_lo, meta, done,
                reinterpret_cast<int*>(smem + body_smem_words(a.d)));
 }
@@ -124,7 +129,7 @@ struct ArenaCacheStepper : ArenaReduce {
 // verdict's, the finalized teams and the block-sum scratch
 __host__ __device__ inline size_t arena_smem_words(int d, int rows, int num_players) {
   return body_smem_words(d) + 3 * (size_t)(d + 2) + 3 * (size_t)rows * num_players +
-         3 * (size_t)arena::kMaxTeams * kWarps;
+         3 * (size_t)arena::kTeamChunk * kWarps;
 }
 
 template <bool kCache>
@@ -150,26 +155,48 @@ __global__ void __launch_bounds__(kBlock, kArenaMinBlocksPerSm) synctest_fused_a
   finish_batch(a, c0, r_frame, iring, h_tag, h_hi, h_lo, meta, done, verdict_sh);
 }
 
-// Returns the CUDA error of the scratch reset or the launch (0 on success).
-// cs: 11 int32 — checksum w[5], base[5], frame weight.
-extern "C" int synctest_fused_launch(int* state, int* ring, int* r_frame, int* iring, int* h_tag,
-                                     int* h_hi, int* h_lo, int* meta, const int* inputs,
-                                     uint32_t* scratch, int n, int num_players, int input_size,
-                                     int d, int t_ticks, int substeps, const int* cs,
-                                     void* stream) {
+namespace {
+
+// The batch of a model with no reduction. Returns the CUDA error of the
+// scratch reset or the launch (0 on success).
+template <class M>
+int launch_fused(int* state, int* ring, int* r_frame, int* iring, int* h_tag, int* h_hi, int* h_lo,
+                 int* meta, const int* inputs, uint32_t* scratch, int n, int num_players,
+                 int input_size, int d, int t_ticks, int substeps, const int* cs, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t events = (size_t)t_ticks * d;
   // scratch: parts_hi [T*d], parts_lo [T*d], done counter [1]
   cudaError_t err = cudaMemsetAsync(scratch, 0, (2 * events + 1) * sizeof(uint32_t), st);
   if (err != cudaSuccess) return (int)err;
-  SyncTestArgs<exg::Weights> a{state, ring, iring, inputs, meta, scratch, scratch + events,
-                               n, num_players, input_size, d, t_ticks, substeps,
-                               weights_from<exg::Weights, exg::kPlanes>(cs)};
+  SyncTestArgs<typename M::Weights> a{state, ring, iring, inputs, meta, scratch, scratch + events,
+                                      n, num_players, input_size, d, t_ticks, substeps,
+                                      weights_from<typename M::Weights, M::kPlanes>(cs)};
   const int blocks = (n + kBlock - 1) / kBlock;
   const size_t smem = (body_smem_words(d) + 3 * (size_t)(d + 2)) * sizeof(uint32_t);
-  synctest_fused_kernel<<<blocks, kBlock, smem, st>>>(a, r_frame, iring, h_tag, h_hi, h_lo, meta,
-                                                      scratch + 2 * events);
+  synctest_fused_kernel<M><<<blocks, kBlock, smem, st>>>(a, r_frame, iring, h_tag, h_hi, h_lo, meta,
+                                                         scratch + 2 * events);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ex_game. cs: 11 int32 — checksum w[5], base[5], frame weight.
+extern "C" int synctest_fused_launch(int* state, int* ring, int* r_frame, int* iring, int* h_tag,
+                                     int* h_hi, int* h_lo, int* meta, const int* inputs,
+                                     uint32_t* scratch, int n, int num_players, int input_size,
+                                     int d, int t_ticks, int substeps, const int* cs,
+                                     void* stream) {
+  return launch_fused<exg::Model>(state, ring, r_frame, iring, h_tag, h_hi, h_lo, meta, inputs, scratch,
+                                  n, num_players, input_size, d, t_ticks, substeps, cs, stream);
+}
+
+// swarm. cs: 15 int32 — checksum w[7], base[7], frame weight.
+extern "C" int synctest_fused_swarm_launch(int* state, int* ring, int* r_frame, int* iring, int* h_tag,
+                                           int* h_hi, int* h_lo, int* meta, const int* inputs,
+                                           uint32_t* scratch, int n, int num_players, int input_size,
+                                           int d, int t_ticks, const int* cs, void* stream) {
+  return launch_fused<swarm::Model>(state, ring, r_frame, iring, h_tag, h_hi, h_lo, meta, inputs, scratch,
+                                    n, num_players, input_size, d, t_ticks, 1, cs, stream);
 }
 
 // Number of rows of arena's raw reduction table for a batch of t_ticks.
@@ -178,7 +205,8 @@ extern "C" int synctest_fused_arena_rows(int d, int t_ticks) { return t_ticks > 
 // The arena batch, launched cooperatively. scratch: parts_hi [T*d],
 // parts_lo [T*d], done counter [1], barrier [2], raw table
 // [rows * 3P] (rows from synctest_fused_arena_rows). Returns the CUDA error
-// of the reset, the occupancy query or the launch, or kNotCoResident.
+// of the reset, the shared-memory attribute, the occupancy query or the
+// launch, or kNotCoResident.
 // cs: 13 int32 — checksum w[6], base[6], frame weight.
 extern "C" int synctest_fused_arena_launch(int* state, int* ring, int* r_frame, int* iring,
                                            int* h_tag, int* h_hi, int* h_lo, int* meta,
@@ -201,6 +229,10 @@ extern "C" int synctest_fused_arena_launch(int* state, int* ring, int* r_frame, 
   const size_t smem = arena_smem_words(d, rows, num_players) * sizeof(uint32_t);
   const void* fn = t_ticks > 1 ? (const void*)synctest_fused_arena_kernel<true>
                                : (const void*)synctest_fused_arena_kernel<false>;
+  if (smem > 48 * 1024) {  // many teams: the finalized table outgrows the default
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   long long resident = 0;
   if ((err = resident_blocks(fn, smem, &resident)) != cudaSuccess) return (int)err;
   if (resident < blocks) return kNotCoResident;

@@ -1,6 +1,6 @@
-// K2 — the entity-tiled SyncTest kernel on Hopper (ex_game, and arena with
-// an injected reduction table), and the small kernel that runs its
-// first-seen history post-pass.
+// K2 — the entity-tiled SyncTest kernel on Hopper (ex_game and swarm, and
+// arena with an injected reduction table), and the small kernel that runs
+// its first-seen history post-pass.
 //
 // Replaces: ggrs_tpu/tpu/pallas_tiled.py, PallasTiledSyncTestCore._build
 // (the pallas_call at :428), for worlds past the whole-batch envelope. On
@@ -40,16 +40,19 @@
 #include <cuda_runtime.h>
 
 #include "arena_step.cuh"
+#include "swarm_step.cuh"
 #include "synctest_body.cuh"
 
-__global__ void __launch_bounds__(kBlock) synctest_tiled_kernel(SyncTestArgs<exg::Weights> a,
+// a model with no reduction (ex_game, swarm): one template over its traits
+template <class M>
+__global__ void __launch_bounds__(kBlock) synctest_tiled_kernel(SyncTestArgs<typename M::Weights> a,
                                                                 int* r_frame, int* iring_out) {
   extern __shared__ uint32_t smem[];
   if (blockIdx.x == 0 && threadIdx.x == 0)
     synctest_bookkeeping(r_frame, a.iring, iring_out, a.inputs, a.meta[0], a.t_ticks, a.d,
                          a.num_players * a.input_size);
-  ExGameStepper st{a.substeps};
-  synctest_entity_batch<ExGameModel>(a, smem, st);
+  EntityStepper<M> st{a.substeps};
+  synctest_entity_batch<M>(a, smem, st);
 }
 
 // arena's step from the injected table: the resim step i (and the frontier
@@ -92,25 +95,46 @@ __global__ void synctest_verdict_kernel(const uint32_t* parts_hi, const uint32_t
     synctest_verdict(parts_hi, parts_lo, t_ticks, d, frame_weight, h_tag, h_hi, h_lo, meta, sh);
 }
 
-// The entry points return the CUDA error of their launch (0 on success).
-// cs: 11 int32 — checksum w[5], base[5], frame weight.
-extern "C" int synctest_tiled_launch(int* state, int* ring, int* r_frame, const int* iring,
-                                     int* iring_out, const int* meta, const int* inputs,
-                                     uint32_t* parts, int n, int num_players, int input_size,
-                                     int d, int t_ticks, int substeps, const int* cs,
-                                     void* stream) {
+namespace {
+
+template <class M>
+int launch_tiled(int* state, int* ring, int* r_frame, const int* iring, int* iring_out, const int* meta,
+                 const int* inputs, uint32_t* parts, int n, int num_players, int input_size, int d,
+                 int t_ticks, int substeps, const int* cs, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t events = (size_t)t_ticks * d;
   // parts: parts_hi [T*d] then parts_lo [T*d]
   cudaError_t err = cudaMemsetAsync(parts, 0, 2 * events * sizeof(uint32_t), st);
   if (err != cudaSuccess) return (int)err;
-  SyncTestArgs<exg::Weights> a{state, ring, iring, inputs, meta, parts, parts + events,
-                               n, num_players, input_size, d, t_ticks, substeps,
-                               weights_from<exg::Weights, exg::kPlanes>(cs)};
+  SyncTestArgs<typename M::Weights> a{state, ring, iring, inputs, meta, parts, parts + events,
+                                      n, num_players, input_size, d, t_ticks, substeps,
+                                      weights_from<typename M::Weights, M::kPlanes>(cs)};
   const int blocks = (n + kBlock - 1) / kBlock;
   const size_t smem = body_smem_words(d) * sizeof(uint32_t);
-  synctest_tiled_kernel<<<blocks, kBlock, smem, st>>>(a, r_frame, iring_out);
+  synctest_tiled_kernel<M><<<blocks, kBlock, smem, st>>>(a, r_frame, iring_out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The entry points return the CUDA error of their launch (0 on success).
+// ex_game. cs: 11 int32 — checksum w[5], base[5], frame weight.
+extern "C" int synctest_tiled_launch(int* state, int* ring, int* r_frame, const int* iring,
+                                     int* iring_out, const int* meta, const int* inputs,
+                                     uint32_t* parts, int n, int num_players, int input_size,
+                                     int d, int t_ticks, int substeps, const int* cs,
+                                     void* stream) {
+  return launch_tiled<exg::Model>(state, ring, r_frame, iring, iring_out, meta, inputs, parts, n,
+                                  num_players, input_size, d, t_ticks, substeps, cs, stream);
+}
+
+// swarm. cs: 15 int32 — checksum w[7], base[7], frame weight.
+extern "C" int synctest_tiled_swarm_launch(int* state, int* ring, int* r_frame, const int* iring,
+                                           int* iring_out, const int* meta, const int* inputs,
+                                           uint32_t* parts, int n, int num_players, int input_size,
+                                           int d, int t_ticks, const int* cs, void* stream) {
+  return launch_tiled<swarm::Model>(state, ring, r_frame, iring, iring_out, meta, inputs, parts, n,
+                                    num_players, input_size, d, t_ticks, 1, cs, stream);
 }
 
 // Arena, one tick (t_ticks must be 1) on the injected red_raw [d+1, 3P].
@@ -129,6 +153,11 @@ extern "C" int synctest_tiled_arena_launch(int* state, int* ring, int* r_frame, 
                                  weights_from<arena::Weights, arena::kPlanes>(cs)};
   const int blocks = (n + kBlock - 1) / kBlock;
   const size_t smem = (body_smem_words(d) + 3 * (size_t)(d + 1) * num_players) * sizeof(uint32_t);
+  if (smem > 48 * 1024) {  // many teams: the finalized table outgrows the default
+    err = cudaFuncSetAttribute(synctest_tiled_arena_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   synctest_tiled_arena_kernel<<<blocks, kBlock, smem, st>>>(a, r_frame, iring_out, red_raw);
   return (int)cudaGetLastError();
 }

@@ -5,8 +5,9 @@ The port's counterpart of `ggrs_tpu/tpu/pallas_beam.py`
 snapshot (a ring slot of a `ResimCore` carry) roll B candidate input
 scripts L frames each, and return every member's state after every step
 with its checksum, and the anchor's own checksum — one launch of
-`csrc/beam_rollout.cu` on CUDA (ex_game's body, or arena's, which reduces
-each member's world before every step behind a grid barrier),
+`csrc/beam_rollout.cu` on CUDA (ex_game's or swarm's body, one template,
+or arena's, which reduces each member's world before every step behind a
+grid barrier; `launch.ENTRIES` chooses),
 `plain_rollout` on the CPU.
 
 A script is packed into ONE int32 tensor `[B, L, P, 1 + I]` (one upload):
@@ -26,7 +27,6 @@ import torch
 from ..errors import ConfigError
 from ..kernels import build, launch
 from ..ops import fixed_point as fx
-from .planes import ArenaPlanes, ExGamePlanes
 
 
 class Speculation(NamedTuple):
@@ -123,11 +123,7 @@ class BeamRollout:
             return plain_rollout(ring[anchor_slot], r_frame[anchor_slot], script[..., 1:],
                                  script[..., 0], ctx)
         B, L = script.shape[:2]
-        arena = type(ctx.adapter) is ArenaPlanes
-        if arena:
-            launch.check_teams(ctx)
-        else:
-            launch.require_adapter(ctx, ExGamePlanes, self.kernel)
+        entry = launch.require_adapter(ctx, self.kernel)
         device = ring.device
         n, P, I = ctx.n, ctx.num_players, ctx.input_size
         launch.check_tensors(
@@ -146,27 +142,24 @@ class BeamRollout:
         ptrs = (ring.data_ptr(), anchor_slot, r_frame.data_ptr(), script.data_ptr(), traj.data_ptr(),
                 out.data_ptr())
         disconnect = launch.disconnect_arg(self.disconnect_input)
-        if arena:
-            launch.declare(lib, "beam_rollout_arena_launch", [Pt, It] + [Pt] * 5 + [It] * 5 + [Pt] * 3)
+        if entry.reduces:
+            fn = launch.declare(lib, entry.symbol, [Pt, It] + [Pt] * 5 + [It] * 5 + [Pt] * 3)
             # parts_hi [B*L + 1], parts_lo [B*L + 1] (the anchor's row last),
             # the ticket, the grid barrier [2] and the raw reduction rows:
             # the anchor's, then one [3P] per (step >= 1, member)
             scratch = torch.empty(2 * (B * L + 1) + 3 + (1 + (L - 1) * B) * ctx.reduce_len,
                                   dtype=torch.int32, device=device)
-            rc = lib.beam_rollout_arena_launch(
-                *ptrs, scratch.data_ptr(), n, P, I, B, L, disconnect, launch.weights_arg(ctx),
-                launch.stream_of(device),
-            )
+            rc = fn(*ptrs, scratch.data_ptr(), n, P, I, B, L, disconnect, launch.weights_arg(ctx),
+                    launch.stream_of(device))
             launch.raise_cooperative(rc, self.kernel)
         else:
-            launch.declare(lib, "beam_rollout_launch", [Pt, It] + [Pt] * 5 + [It] * 6 + [Pt] * 3)
+            extra = launch.model_ints(entry, ctx)
+            fn = launch.declare(lib, entry.symbol, [Pt, It] + [Pt] * 5 + [It] * (5 + len(extra)) + [Pt] * 3)
             # parts_hi [B*L + 1], parts_lo [B*L + 1] (the anchor's row last)
             # and the last-block ticket
             scratch = torch.empty(2 * (B * L + 1) + 1, dtype=torch.int32, device=device)
-            rc = lib.beam_rollout_launch(
-                *ptrs, scratch.data_ptr(), n, P, I, B, L, ctx.game.substeps, disconnect,
-                launch.weights_arg(ctx), launch.stream_of(device),
-            )
+            rc = fn(*ptrs, scratch.data_ptr(), n, P, I, B, L, *extra, disconnect, launch.weights_arg(ctx),
+                    launch.stream_of(device))
             launch.raise_on(rc, self.kernel)
         self.launches += 1
         bl = B * L

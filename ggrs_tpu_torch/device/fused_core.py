@@ -69,6 +69,7 @@ class FusedSyncTestCore:
         if carry["state"].device.type == "cpu":
             return plain_batch(carry, inputs, self.ctx)
         ctx = self.ctx
+        entry = launch.require_adapter(ctx, self.kernel)
         launch.check_carry(carry, ctx, inputs)
         lib = build.load(self.kernel)
         P, I = launch.P, launch.I
@@ -77,32 +78,26 @@ class FusedSyncTestCore:
         ptrs = (carry["state"].data_ptr(), carry["ring"].data_ptr(), carry["r_frame"].data_ptr(),
                 carry["iring"].data_ptr(), carry["h_tag"].data_ptr(), carry["h_hi"].data_ptr(),
                 carry["h_lo"].data_ptr(), carry["meta"].data_ptr(), inputs.data_ptr())
-        if ctx.reduce_len:
-            launch.check_teams(ctx)
+        if entry.reduces:
             launch.declare(lib, "synctest_fused_arena_rows", [I, I])
-            launch.declare(lib, "synctest_fused_arena_launch", [P] * 10 + [I] * 5 + [P, P])
+            fn = launch.declare(lib, entry.symbol, [P] * 10 + [I] * 5 + [P, P])
             rows = lib.synctest_fused_arena_rows(ctx.d, t_ticks)
             # parts_hi [T*d], parts_lo [T*d], ticket, barrier [2], raw table [rows, R]
             scratch = torch.empty(2 * t_ticks * ctx.d + 3 + rows * ctx.reduce_len,
                                   dtype=torch.int32, device=device)
-            rc = lib.synctest_fused_arena_launch(
-                *ptrs, scratch.data_ptr(), ctx.n, ctx.num_players, ctx.input_size, ctx.d, t_ticks,
-                launch.weights_arg(ctx), launch.stream_of(device),
-            )
+            rc = fn(*ptrs, scratch.data_ptr(), ctx.n, ctx.num_players, ctx.input_size, ctx.d, t_ticks,
+                    launch.weights_arg(ctx), launch.stream_of(device))
             if rc == launch.NOT_CO_RESIDENT:
                 raise KernelError(
                     f"{self.kernel} (arena): {-(-ctx.n // 128)} blocks of 128 entities cannot all be "
                     "resident on this card for its grid barriers; use backend='cuda-tiled'"
                 )
         else:
-            launch.declare(lib, "synctest_fused_launch",
-                           [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, P])
+            extra = launch.model_ints(entry, ctx)
+            fn = launch.declare(lib, entry.symbol, [P] * 10 + [I] * (5 + len(extra)) + [P, P])
             # parts_hi [T*d], parts_lo [T*d] and the last-block ticket
             scratch = torch.empty(2 * t_ticks * ctx.d + 1, dtype=torch.int32, device=device)
-            rc = lib.synctest_fused_launch(
-                *ptrs, scratch.data_ptr(),
-                ctx.n, ctx.num_players, ctx.input_size, ctx.d, t_ticks, ctx.game.substeps,
-                launch.weights_arg(ctx), launch.stream_of(device),
-            )
+            rc = fn(*ptrs, scratch.data_ptr(), ctx.n, ctx.num_players, ctx.input_size, ctx.d, t_ticks,
+                    *extra, launch.weights_arg(ctx), launch.stream_of(device))
         launch.raise_on(rc, self.kernel)
         self.launches += 1

@@ -4,15 +4,15 @@ versions: the counterpart of the model-generic part of
 
 A world is kept as packed SoA planes, one int32 tensor `[n_planes, N]`
 (for ex_game: px, py, vx, vy, rot; for arena: px, py, vx, vy, hp,
-energy), and the snapshot ring as
+energy; for swarm: px, py, pz, vx, vy, vz, charge), and the snapshot ring as
 `[ring_len, n_planes, N]`, so a CUDA thread that owns entity e reads each
 plane at a coalesced address. The reference packs to `[N/128, 128]` TPU
 tiles instead; the port needs no 128-alignment.
 
 Checksum weights are derived once from the game's `checksum_keys`
 (`derive_checksum_weights`), exactly as the reference derives them, and
-handed both to the plain torch checksum (`weight_planes`) and, as ten
-integers, to the CUDA kernels — one derivation, so kernel and plain
+handed both to the plain torch checksum (`weight_planes`) and, as 2K+1
+integers for K planes, to the CUDA kernels — one derivation, so kernel and plain
 version cannot disagree.
 """
 
@@ -23,7 +23,7 @@ from typing import Callable, Dict, List, Tuple
 import torch
 
 from ..errors import ConfigError, RegistryMiss
-from ..models import arena, ex_game
+from ..models import arena, ex_game, swarm
 from ..ops import fixed_point as fx
 
 # The reference's VMEM envelope: backend="auto" picks the whole-batch
@@ -137,7 +137,32 @@ class ArenaPlanes(PlaneAdapter):
                                              self.game.num_players))
 
 
-_ADAPTERS: Dict[type, Callable] = {ex_game.ExGame: ExGamePlanes, arena.Arena: ArenaPlanes}
+class SwarmPlanes(PlaneAdapter):
+    """`ggrs_tpu_torch.models.swarm` on packed planes (the reference's
+    `SwarmPlanes`, pallas_core.py:444): pos and vel are `[N, 3]`, three
+    planes a key, plus the battery plane. Its step is per-entity
+    independent, so every kernel runs it one thread per entity, and K2 at
+    any world size."""
+
+    planes = (
+        ("px", "pos", 0), ("py", "pos", 1), ("pz", "pos", 2),
+        ("vx", "vel", 0), ("vy", "vel", 1), ("vz", "vel", 2),
+        ("charge", "charge", None),
+    )
+
+    def step(self, planes: torch.Tensor, player_inputs: torch.Tensor, owner: torch.Tensor,
+             statuses=None, red=None) -> torch.Tensor:
+        """One frame on `[7, N]` planes; `statuses` as `ExGamePlanes.step`
+        takes them. With a leading member axis — planes `[7, B, N]`, inputs
+        `[B, P, input_size]`, statuses `[B, P]` — it steps B worlds at once.
+        `red` is unused: the step reduces nothing."""
+        inp = swarm.entity_inputs(player_inputs, statuses, owner)
+        return torch.stack(swarm.step_planes(*planes.unbind(0), inp))
+
+
+_ADAPTERS: Dict[type, Callable] = {
+    ex_game.ExGame: ExGamePlanes, arena.Arena: ArenaPlanes, swarm.Swarm: SwarmPlanes,
+}
 
 
 def get_adapter(game) -> PlaneAdapter:

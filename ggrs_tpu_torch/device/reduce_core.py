@@ -75,7 +75,7 @@ class ReduceTableCore:
             sources = torch.stack([state if s == STATE else ring[s] for s in slots])
             out.copy_(plain_reduce_table(sources, ctx))
             return out
-        launch.check_teams(ctx)
+        entry = launch.require_adapter(ctx, self.kernel)
         n_slots = ring.shape[0]
         if any(not -1 <= s < n_slots for s in slots) or S < 1:
             raise ConfigError(f"source slots {slots} outside the ring's {n_slots} slots")
@@ -87,8 +87,8 @@ class ReduceTableCore:
         )
         lib = build.load(self.kernel)
         P, I = launch.P, launch.I
-        launch.declare(lib, "reduce_table_launch", [P, P, P, I, I, I, I, P, P])
-        rc = lib.reduce_table_launch(
+        fn = launch.declare(lib, entry.symbol, [P, P, P, I, I, I, I, P, P])
+        rc = fn(
             ring.data_ptr(), state.data_ptr(), self._slot_tensor(tuple(slots)).data_ptr(), S,
             ctx.n, ctx.n_planes, ctx.num_players, out.data_ptr(), launch.stream_of(state.device),
         )

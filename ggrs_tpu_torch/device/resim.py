@@ -8,7 +8,8 @@ save_slots[W], statuses[W*P], inputs[W*P*I] — byte for byte the
 reference's layout (`pack_tick_row`). A save slot of `ring_len` (the
 scratch slot) means "no save". The carry is packed SoA planes (K of
 them: px, py, vx, vy, rot for ex_game; px, py, vx, vy, hp, energy for
-arena), updated in place by every dispatch:
+arena; px, py, pz, vx, vy, vz, charge for swarm), updated in place by
+every dispatch:
 
     state       i32[K, N]           the live world
     state_frame i32[]               the live world's own frame

@@ -67,9 +67,9 @@ ARENA_FUSED_BLOCKS_PER_SM = 8
 
 def pick_backend(game, check_distance: int, device: torch.device) -> str:
     """Resolve backend="auto": K1 inside the reference's whole-batch VMEM
-    envelope, K2 beyond it (ex_game is per-entity independent, so K2 takes
-    any world size; arena takes it with injected reductions). Arena's K1
-    also needs its whole grid resident at once."""
+    envelope, K2 beyond it (ex_game and swarm are per-entity independent,
+    so K2 takes any world size; arena takes it with injected reductions).
+    Arena's K1 also needs its whole grid resident at once."""
     if device.type != "cuda":
         return "torch"
     if vmem_estimate(game, check_distance) > VMEM_BUDGET_BYTES:

@@ -5,9 +5,10 @@ The port's counterpart of `ggrs_tpu/tpu/pallas_resim.py` `PallasTickCore`:
 ONE launch runs T packed tick rows (the layout `ResimCore.pack_tick_row`
 builds) on a `ResimCore` carry in place and returns the per-slot checksums
 his/los [T, W] (int32 tensors holding the uint32 bit patterns, (0, 0) for
-skipped saves) — `csrc/resim_tick.cu`, with one body per model: ex_game's
-(`resim_tick_launch`) and arena's (`resim_tick_arena_launch`, a whole-world
-reduction and a grid barrier before every advance).
+skipped saves) — `csrc/resim_tick.cu`, with one body per model, chosen by
+`launch.ENTRIES`: ex_game's and swarm's (one template, `resim_tick_launch`
+and `resim_tick_swarm_launch`) and arena's (`resim_tick_arena_launch`, a
+whole-world reduction and a grid barrier before every advance).
 
 `plain_tick_multi` is the same dispatch in plain PyTorch with the
 semantics of the reference's `ResimCore._tick_impl` (ggrs_tpu/tpu/resim.py
@@ -26,7 +27,7 @@ import torch
 from ..errors import ConfigError
 from ..kernels import build, launch
 from ..ops import fixed_point as fx
-from .planes import ArenaPlanes, ExGamePlanes, partial_checksum_planes
+from .planes import partial_checksum_planes
 
 VERIFY_KEYS = ("h_tag", "h_hi", "h_lo", "flag")
 
@@ -138,11 +139,7 @@ class TickCore:
         if carry["state"].device.type == "cpu":
             return plain_tick_multi(carry, rows, self.core)
         core, ctx = self.core, self.core.ctx
-        arena = type(ctx.adapter) is ArenaPlanes
-        if arena:
-            launch.check_teams(ctx)
-        else:
-            launch.require_adapter(ctx, ExGamePlanes, self.kernel)
+        entry = launch.require_adapter(ctx, self.kernel)
         device = carry["state"].device
         n, W, t_rows = ctx.n, core.window, rows.shape[0]
         shapes = dict(
@@ -168,25 +165,22 @@ class TickCore:
         ptrs = (carry["state"].data_ptr(), carry["state_frame"].data_ptr(), carry["ring"].data_ptr(),
                 carry["r_frame"].data_ptr(), *verify, rows.data_ptr(), his.data_ptr(), los.data_ptr())
         disconnect = launch.disconnect_arg(core.disconnect_input)
-        if arena:
-            launch.declare(lib, "resim_tick_arena_launch", [P] * 12 + [I] * 5 + [P, P, P])
+        if entry.reduces:
+            fn = launch.declare(lib, entry.symbol, [P] * 12 + [I] * 5 + [P, P, P])
             # parts_hi [T*W], parts_lo [T*W], the ticket, the grid barrier [2]
             # and one raw reduction row [3P] per (row, slot)
             scratch = torch.empty(2 * t_rows * W + 3 + t_rows * W * ctx.reduce_len,
                                   dtype=torch.int32, device=device)
-            rc = lib.resim_tick_arena_launch(
-                *ptrs, scratch.data_ptr(), n, core.num_players, ctx.input_size, W, t_rows,
-                disconnect, launch.weights_arg(ctx), launch.stream_of(device),
-            )
+            rc = fn(*ptrs, scratch.data_ptr(), n, core.num_players, ctx.input_size, W, t_rows,
+                    disconnect, launch.weights_arg(ctx), launch.stream_of(device))
             launch.raise_cooperative(rc, self.kernel)
         else:
-            launch.declare(lib, "resim_tick_launch", [P] * 12 + [I] * 6 + [P, P, P])
+            extra = launch.model_ints(entry, ctx)
+            fn = launch.declare(lib, entry.symbol, [P] * 12 + [I] * (5 + len(extra)) + [P, P, P])
             # parts_hi [T*W], parts_lo [T*W] and the last-block ticket
             scratch = torch.empty(2 * t_rows * W + 1, dtype=torch.int32, device=device)
-            rc = lib.resim_tick_launch(
-                *ptrs, scratch.data_ptr(), n, core.num_players, ctx.input_size, W, t_rows,
-                ctx.game.substeps, disconnect, launch.weights_arg(ctx), launch.stream_of(device),
-            )
+            rc = fn(*ptrs, scratch.data_ptr(), n, core.num_players, ctx.input_size, W, t_rows, *extra,
+                    disconnect, launch.weights_arg(ctx), launch.stream_of(device))
             launch.raise_on(rc, self.kernel)
         self.launches += 1
         return his, los

@@ -158,6 +158,7 @@ class TiledSyncTestCore:
                 return plain_parts(carry, inputs, ctx)
             rows = [ctx.adapter.reduce_finalize(r) for r in red_raw]
             return plain_parts(carry, inputs, ctx, red_of=lambda f, i: rows[i])
+        entry = launch.require_adapter(ctx, self.kernel)
         launch.check_carry(carry, ctx, inputs)
         lib = build.load(self.kernel)
         P, I = launch.P, launch.I
@@ -168,23 +169,16 @@ class TiledSyncTestCore:
         ptrs = (carry["state"].data_ptr(), carry["ring"].data_ptr(), carry["r_frame"].data_ptr(),
                 carry["iring"].data_ptr(), iring_out.data_ptr(), carry["meta"].data_ptr(),
                 inputs.data_ptr())
-        if ctx.reduce_len:
-            launch.check_teams(ctx)
+        if entry.reduces:
             launch.check_tensors(device, red_raw=(red_raw, (ctx.d + 1, ctx.reduce_len)))
-            launch.declare(lib, "synctest_tiled_arena_launch", [P] * 9 + [I] * 5 + [P, P])
-            rc = lib.synctest_tiled_arena_launch(
-                *ptrs, red_raw.data_ptr(), parts.data_ptr(),
-                ctx.n, ctx.num_players, ctx.input_size, ctx.d, t_ticks,
-                launch.weights_arg(ctx), launch.stream_of(device),
-            )
+            fn = launch.declare(lib, entry.symbol, [P] * 9 + [I] * 5 + [P, P])
+            rc = fn(*ptrs, red_raw.data_ptr(), parts.data_ptr(), ctx.n, ctx.num_players, ctx.input_size,
+                    ctx.d, t_ticks, launch.weights_arg(ctx), launch.stream_of(device))
         else:
-            launch.declare(lib, "synctest_tiled_launch",
-                           [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, P])
-            rc = lib.synctest_tiled_launch(
-                *ptrs, parts.data_ptr(),
-                ctx.n, ctx.num_players, ctx.input_size, ctx.d, t_ticks, ctx.game.substeps,
-                launch.weights_arg(ctx), launch.stream_of(device),
-            )
+            extra = launch.model_ints(entry, ctx)
+            fn = launch.declare(lib, entry.symbol, [P] * 8 + [I] * (5 + len(extra)) + [P, P])
+            rc = fn(*ptrs, parts.data_ptr(), ctx.n, ctx.num_players, ctx.input_size, ctx.d, t_ticks,
+                    *extra, launch.weights_arg(ctx), launch.stream_of(device))
         launch.raise_on(rc, self.kernel)
         self.launches += 1
         carry["iring"] = iring_out

@@ -1,28 +1,31 @@
-"""What every kernel wrapper does around a launch: stage host control data
-on the device, validate the tensors it hands to C, pass pointers and
-PyTorch's current stream, and turn a nonzero CUDA error into
-`KernelError`."""
+"""What every kernel wrapper does around a launch: pick the model's entry
+point (`ENTRIES`), stage host control data on the device, validate the
+tensors it hands to C, pass pointers and PyTorch's current stream, and turn
+a nonzero CUDA error into `KernelError`."""
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
 
+from ..device.planes import ArenaPlanes, ExGamePlanes, SwarmPlanes
 from ..errors import ConfigError, KernelError
 
 P = ctypes.c_void_p
 I = ctypes.c_int
 
 
-def declare(lib: ctypes.CDLL, fn: str, argtypes) -> None:
-    """Set argtypes/restype once per library function (pointers and the
-    stream as c_void_p, or ctypes would cut them to 32 bits)."""
+def declare(lib: ctypes.CDLL, fn: str, argtypes):
+    """The library function `fn`, its argtypes/restype set once (pointers
+    and the stream as c_void_p, or ctypes would cut them to 32 bits)."""
     f = getattr(lib, fn)
     if f.argtypes is None:
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
+    return f
 
 
 def check_tensors(device: torch.device, **tensors) -> None:
@@ -57,27 +60,62 @@ def check_carry(carry, ctx, inputs: torch.Tensor) -> None:
     )
 
 
-def require_adapter(ctx, adapter_cls, kernel: str) -> None:
-    """A kernel built for one model's planes refuses another's."""
-    if type(ctx.adapter) is not adapter_cls:
+class Entry(NamedTuple):
+    """One model's body in a kernel library."""
+
+    symbol: str  # the library's entry point
+    substeps: bool  # it takes the game's substeps after the shape ints (ex_game only)
+    reduces: bool  # arena's body: a cross-entity reduction, cooperative grid barriers
+
+
+# THE one choice of a kernel body: by the plane adapter's class, never by
+# `ctx.reduce_len` (a per-entity model's carry must never reach another
+# model's body: ex_game's would read swarm's 7 planes as 5 with no error)
+ENTRIES: Dict[str, Dict[type, Entry]] = {
+    "synctest_fused": {
+        ExGamePlanes: Entry("synctest_fused_launch", True, False),
+        SwarmPlanes: Entry("synctest_fused_swarm_launch", False, False),
+        ArenaPlanes: Entry("synctest_fused_arena_launch", False, True),
+    },
+    "synctest_tiled": {
+        ExGamePlanes: Entry("synctest_tiled_launch", True, False),
+        SwarmPlanes: Entry("synctest_tiled_swarm_launch", False, False),
+        ArenaPlanes: Entry("synctest_tiled_arena_launch", False, True),
+    },
+    "resim_tick": {
+        ExGamePlanes: Entry("resim_tick_launch", True, False),
+        SwarmPlanes: Entry("resim_tick_swarm_launch", False, False),
+        ArenaPlanes: Entry("resim_tick_arena_launch", False, True),
+    },
+    "beam_rollout": {
+        ExGamePlanes: Entry("beam_rollout_launch", True, False),
+        SwarmPlanes: Entry("beam_rollout_swarm_launch", False, False),
+        ArenaPlanes: Entry("beam_rollout_arena_launch", False, True),
+    },
+    "reduce_table": {ArenaPlanes: Entry("reduce_table_launch", False, True)},
+}
+
+
+def require_adapter(ctx, kernel: str) -> Entry:
+    """The entry point of `kernel` for the context's model; a model the
+    library has no body for raises ConfigError."""
+    entry = ENTRIES[kernel].get(type(ctx.adapter))
+    if entry is None:
         raise ConfigError(
-            f"{kernel} runs {adapter_cls.__name__} only, not {type(ctx.adapter).__name__}: "
-            "that game is not ported to this kernel yet"
+            f"{kernel} has no body for {type(ctx.adapter).__name__}: "
+            "that game is not ported to this kernel"
         )
+    return entry
 
 
-MAX_TEAMS = 16  # csrc/arena_step.cuh kMaxTeams
-
-
-def check_teams(ctx) -> None:
-    """The arena kernels reduce at most 16 teams per block."""
-    if ctx.num_players > MAX_TEAMS:
-        raise ConfigError(f"the arena kernels take at most {MAX_TEAMS} players, got {ctx.num_players}")
+def model_ints(entry: Entry, ctx) -> tuple:
+    """The ints a body takes after the shape ints: ex_game's substeps."""
+    return (ctx.game.substeps,) if entry.substeps else ()
 
 
 def weights_arg(ctx):
     """The 2K+1 checksum ints the kernels take for K planes: w[K], base[K],
-    frame weight (11 for ex_game, 13 for arena)."""
+    frame weight (11 for ex_game, 13 for arena, 15 for swarm)."""
     vals = [w for _, w, _ in ctx.cs_entries] + [b for _, _, b in ctx.cs_entries]
     return (ctypes.c_int * (len(vals) + 1))(*vals, ctx.cs_frame_weight)
 

@@ -1,1 +1,1 @@
-"""Device games (ex_game, arena)."""
+"""Device games (ex_game, arena, swarm)."""

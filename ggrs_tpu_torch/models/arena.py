@@ -245,17 +245,6 @@ def init_oracle(num_players: int = 2, num_entities: int = 4096) -> Dict[str, np.
     return _init_arrays(num_entities)
 
 
-def _isqrt24_np(n):
-    x, c, d = n, np.zeros_like(n), 1 << 22
-    for _ in range(12):
-        cd = c + d
-        cond = x >= cd
-        x = np.where(cond, x - cd, x)
-        c = np.where(cond, (c >> 1) + d, c >> 1)
-        d >>= 2
-    return c
-
-
 def step_oracle(state, inputs: np.ndarray, statuses: np.ndarray, num_players: int, input_size: int = 1):
     with np.errstate(over="ignore"):
         n = state["pos"].shape[0]
@@ -292,7 +281,7 @@ def step_oracle(state, inputs: np.ndarray, statuses: np.ndarray, num_players: in
         vel = (vel * FRICTION_NUM) >> 8
         vx, vy = vel[:, 0], vel[:, 1]
         m2 = vx * vx + vy * vy
-        mag = _isqrt24_np(m2)
+        mag = fx.isqrt24_np(m2)
         too_fast = m2 > MAX_SPEED * MAX_SPEED
         safe = np.where(mag == 0, 1, mag)
         vel = np.stack([np.where(too_fast, (vx * MAX_SPEED) // safe, vx),
@@ -315,14 +304,4 @@ def step_oracle(state, inputs: np.ndarray, statuses: np.ndarray, num_players: in
 def checksum_oracle(state) -> tuple:
     """(hi, lo) as Python ints: the weighted word sum over pos, vel, hp,
     energy and the frame, each word weighted (index + 1) * GOLDEN32."""
-    words = np.concatenate(
-        [np.asarray(state[k]).reshape(-1).astype(np.int64) for k in CHECKSUM_KEYS]
-        + [np.asarray(state["frame"]).reshape(-1).astype(np.int64)]
-    ) & fx.MASK32
-    idx = np.arange(1, words.size + 1, dtype=np.int64)
-    weights = (idx * fx.GOLDEN32) & fx.MASK32
-    lo16 = (words & 0xFFFF) * weights
-    hi16 = (((words >> 16) * weights) & 0xFFFF) << 16
-    hi = int(((lo16 + hi16) & fx.MASK32).sum() & fx.MASK32)
-    lo = int(words.sum() & fx.MASK32)
-    return hi, lo
+    return fx.checksum_np([state[k] for k in CHECKSUM_KEYS] + [state["frame"]])

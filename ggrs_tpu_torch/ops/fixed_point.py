@@ -87,6 +87,18 @@ def isqrt24(n: torch.Tensor) -> torch.Tensor:
     return c
 
 
+def isqrt24_np(n: np.ndarray) -> np.ndarray:
+    """`isqrt24` on numpy arrays, for the models' numpy oracles."""
+    x, c, d = n, np.zeros_like(n), 1 << 22
+    for _ in range(12):
+        cd = c + d
+        cond = x >= cd
+        x = np.where(cond, x - cd, x)
+        c = np.where(cond, (c >> 1) + d, c >> 1)
+        d >>= 2
+    return c
+
+
 def floor_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """floor(a / b) on int32 tensors, as numpy's and jax's `//` give it
     (C and CUDA `/` truncate toward zero instead)."""
@@ -133,6 +145,18 @@ def weighted_checksum_parts(parts):
         lo = (lo + words.sum()) & MASK32
         off += n
     return to_i32(hi), to_i32(lo)
+
+
+def checksum_np(parts) -> tuple:
+    """`weighted_checksum_parts` in numpy, for the models' oracles: (hi, lo)
+    as Python ints over the concatenation of `parts`, each word weighted
+    (index + 1) * GOLDEN32."""
+    words = np.concatenate([np.asarray(p).reshape(-1).astype(np.int64) for p in parts]) & MASK32
+    idx = np.arange(1, words.size + 1, dtype=np.int64)
+    weights = (idx * GOLDEN32) & MASK32
+    lo16 = (words & 0xFFFF) * weights
+    hi16 = (((words >> 16) * weights) & 0xFFFF) << 16
+    return int(((lo16 + hi16) & MASK32).sum() & MASK32), int(words.sum() & MASK32)
 
 
 def combine_checksum(hi: int, lo: int) -> int:

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 from ggrs_tpu.models import arena as ref
 from ggrs_tpu.tpu.pallas_core import ArenaPlanes as RefArenaPlanes
 from ggrs_tpu.tpu.pallas_core import derive_checksum_weights as ref_derive_weights
-from ggrs_tpu_torch import Arena, ConfigError
+from ggrs_tpu_torch import Arena, ConfigError, ExGame
 from ggrs_tpu_torch.device import planes
 from ggrs_tpu_torch.kernels import launch
 from ggrs_tpu_torch.models import arena as port
@@ -216,17 +216,19 @@ def test_layouts_cross_by_keys_and_plane_count():
 
 
 def test_kernels_of_other_models_refuse_arena():
-    """A kernel body written for one model's planes refuses another's
-    (ConfigError) rather than run the wrong model, and the arena kernels
-    refuse more than 16 teams. Arena's step takes the beam's member axis
-    (planes [6, B, N], each member reducing its own world) rather than
-    refusing it."""
+    """Each kernel library picks arena's own body by the adapter (never
+    another model's), any player count the reference allows included, and
+    a library with no body for a model refuses it (ConfigError) rather than
+    run the wrong model. Arena's step takes the beam's member axis (planes
+    [6, B, N], each member reducing its own world) rather than refusing
+    it."""
     ctx = planes.PlaneContext(Arena(2, 256), 2, 4, "cpu")
+    for kernel, bodies in launch.ENTRIES.items():
+        entry = launch.require_adapter(ctx, kernel)
+        assert entry.reduces and entry.symbol in ("reduce_table_launch", f"{kernel}_arena_launch"), kernel
+        assert launch.require_adapter(planes.PlaneContext(Arena(17, 17 * 128), 17, 4, "cpu"), kernel) == entry
     with pytest.raises(ConfigError, match="not ported"):
-        launch.require_adapter(ctx, planes.ExGamePlanes, "resim_tick")
-    launch.check_teams(ctx)
-    with pytest.raises(ConfigError, match="16"):
-        launch.check_teams(planes.PlaneContext(Arena(17, 17 * 128), 17, 4, "cpu"))
+        launch.require_adapter(planes.PlaneContext(ExGame(2, 256), 2, 4, "cpu"), "reduce_table")
     world = planes.pack_planes(ctx.adapter, Arena(2, 256).init_state("cpu"))
     members = torch.stack([world, world.flip(-1)], dim=1)  # two different worlds
     inputs = torch.tensor([[[9], [17]], [[34], [5]]], dtype=torch.int32)

@@ -100,6 +100,8 @@ SPEC_CASES = [
     ("pallas-interpret", 1024, 2, 1, 6, 5, 2, 0.0),
     ("xla", 256, 4, 2, 16, 8, 3, 0.2),
     ("xla", 200, 3, 1, 1, 1, 1, 0.3),
+    ("xla", 384, 17, 1, 4, 3, 2, 0.2),  # past 16 teams
+    ("xla", 512, 32, 2, 3, 3, 1, 0.2),
 ]
 
 
@@ -171,3 +173,31 @@ def test_arena_beam_backend_matches_reference_and_twin(name):
     assert port.beam_hits + port.beam_partial_hits > 0 and port.rollback_frames_adopted > 0
     port.check()
     ref.check()
+
+
+def test_many_teams_beam_backend_matches_twin():
+    """17 teams: the beam (each member reducing its own world, teams summed
+    16 a pass on a card) adopts and stays equal to its beam-off twin, save
+    by save and state by state."""
+    players, n, ticks = 17, 384, 24
+
+    runs = []
+    for width in (8, 0):
+        sess = (SessionBuilder(input_size=1).with_num_players(players).with_max_prediction_window(MP)
+                .with_check_distance(CD).with_device_checksum_verification(True).start_synctest_session())
+        backend = DeviceRollbackBackend(Arena(players, n), MP, players, device_verify=True, beam_width=width,
+                                        device="cpu")
+        saves = []
+        for t in range(ticks):
+            for h in range(players):
+                sess.add_local_input(h, bytes([SCRIPTS["toggle"](t, h % 4)]))
+            reqs = sess.advance_frame()
+            backend.handle_requests(reqs)
+            saves += [(r.frame, r.cell.checksum_getter()) for r in reqs if type(r).__name__ == "SaveGameState"]
+        backend.check()
+        runs.append(([(f, g()) for f, g in saves], backend.state_numpy(), backend))
+    assert runs[0][0] == runs[1][0]
+    for k, v in runs[1][1].items():
+        np.testing.assert_array_equal(runs[0][1][k], v, err_msg=k)
+    beam = runs[0][2]
+    assert beam.beam_hits + beam.beam_partial_hits > 0 and beam.rollback_frames_adopted > 0

@@ -29,8 +29,7 @@ from ggrs_tpu.models.arena import Arena as RefArena
 from ggrs_tpu.tpu import TpuRollbackBackend
 from ggrs_tpu.tpu.resim import ResimCore as RefResimCore
 from ggrs_tpu_torch import (
-    Arena, ConfigError, DeviceRollbackBackend, KernelError, MismatchedChecksum, ResimCore,
-    SessionBuilder,
+    Arena, DeviceRollbackBackend, KernelError, MismatchedChecksum, ResimCore, SessionBuilder,
 )
 from ggrs_tpu_torch.convert import resim_from_reference, resim_to_reference
 from ggrs_tpu_torch.kernels import build, launch
@@ -82,6 +81,27 @@ def test_arena_core_matches_reference(players, n, mp, input_size, ref_backend):
     assert_tree_equal(resim_to_reference(port), ref_leaves(ref))
     assert (port.carry["state"][4] > 0).any()  # a living world all along
     assert port.check_device_verdict() == ref.check_device_verdict()
+
+
+@pytest.mark.parametrize("players,n,input_size", [(17, 384, 1), (32, 512, 2)])
+def test_many_teams_core_matches_reference_xla(players, n, input_size):
+    """Past 16 teams (the K3 body sums teams 16 a pass): the plain version
+    of K3's arena body against the reference's XLA tick, DISCONNECTED
+    slots and the throttle byte included."""
+    mp = 6
+    port = ResimCore(Arena(players, n, input_size), mp, players, device_verify=True, device="cpu")
+    ref = RefResimCore(RefArena(players, n, input_size=input_size), max_prediction=mp,
+                       num_players=players, device_verify=True, tick_backend="xla")
+    args = random_tick_args(players, mp, 4 * ROWS_PER_DISPATCH - 1, seed=players, mod=ARENA_MOD,
+                            input_size=input_size)
+    rows = {"port": rows_for(port, args, prime=True), "ref": rows_for(ref, args, prime=True)}
+    for b in range(0, len(rows["port"]), ROWS_PER_DISPATCH):
+        his, los = port.tick_multi(rows["port"][b : b + ROWS_PER_DISPATCH])
+        r_his, r_los = ref.tick_multi(rows["ref"][b : b + ROWS_PER_DISPATCH])
+        np.testing.assert_array_equal(his.numpy().view(np.uint32), np.asarray(r_his), err_msg=f"his {b}")
+        np.testing.assert_array_equal(los.numpy().view(np.uint32), np.asarray(r_los), err_msg=f"los {b}")
+    assert_tree_equal(resim_to_reference(port), ref_leaves(ref))
+    assert (port.carry["state"][4] > 0).any()
 
 
 def test_arena_carry_round_trip():
@@ -146,6 +166,39 @@ def drive(sess, backend, input_size=1, frames=FRAMES, seed=3):
     for _ in range(frames):
         tick(sess, backend, rng, saves, input_size)
     return [(f, g()) for f, g in saves]
+
+
+@pytest.mark.parametrize("players,lazy", [(17, 0), (32, 4)])
+def test_many_teams_request_path_matches_reference(players, lazy):
+    """The request path with 17 and 32 teams, eager and lazy, against the
+    reference's XLA backend: every save's checksum, the state and the core."""
+    n = 384 if players == 17 else 512
+
+    def stack(builder_cls, backend):
+        sess = (builder_cls(input_size=1).with_num_players(players).with_max_prediction_window(MP)
+                .with_check_distance(CD).with_device_checksum_verification(True).start_synctest_session())
+        return sess, backend
+
+    ps, pb = stack(SessionBuilder, DeviceRollbackBackend(Arena(players, n), MP, players, device_verify=True,
+                                                         lazy_ticks=lazy, device="cpu"))
+    rs, rb = stack(RefSessionBuilder, TpuRollbackBackend(RefArena(players, n), max_prediction=MP,
+                                                         num_players=players, device_verify=True,
+                                                         lazy_ticks=lazy, tick_backend="xla"))
+    saves = []
+    for sess, backend in ((ps, pb), (rs, rb)):
+        rng = np.random.default_rng(players)
+        got = []
+        for _ in range(16):
+            for h in range(players):
+                sess.add_local_input(h, bytes([int(rng.integers(0, ARENA_MOD))]))
+            reqs = sess.advance_frame()
+            backend.handle_requests(reqs)
+            got += [(r.frame, r.cell.checksum_getter()) for r in reqs if type(r).__name__ == "SaveGameState"]
+        saves.append([(f, g()) for f, g in got])
+    assert saves[0] == saves[1] and len(saves[0]) > 16
+    assert_tree_equal(resim_to_reference(pb.core), ref_leaves(rb.core))
+    pb.check()
+    rb.check()
 
 
 # the reference's Pallas tick kernel runs only multi-row (lazy) dispatches
@@ -250,9 +303,17 @@ def test_arena_kernel_refusal_raises_not_falls_back(monkeypatch, rc, error):
 
 
 def test_arena_kernels_refuse_more_teams_than_they_reduce(monkeypatch):
-    monkeypatch.setattr(build, "load", lambda name: RefusingLib(0))
+    """The arena kernels reduce any number of teams (16 a pass through
+    their shared scratch), so no player count the reference allows is
+    refused: at P = 17 the K3 and K4 wrappers reach their arena launch."""
+    lib = RefusingLib(0)
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(launch, "stream_of", lambda device: 0)
     core = ResimCore(Arena(17, 17 * 16), 4, 17, device="cpu")
     core.carry = {k: v.to("meta") for k, v in core.carry.items()}
     rows = torch.from_numpy(core.pad_tick_row()[None]).to("meta")
-    with pytest.raises(ConfigError, match="16 players"):
-        core.tick_core.tick_multi(core.carry, rows)
+    core.tick_core.tick_multi(core.carry, rows)
+    script = torch.zeros((2, 3, 17, 2), dtype=torch.int32, device="meta")
+    core.beam_rollout.rollout(core.carry["ring"], core.carry["r_frame"], 0, script)
+    assert lib.resim_tick_arena_launch.calls == lib.beam_rollout_arena_launch.calls == 1
+    assert core.tick_core.launches == core.beam_rollout.launches == 1

@@ -58,8 +58,9 @@ def script(frames, players, input_size, seed):
 
 def run_pair(ref_backend, port_backend, players, n, input_size, t_ticks, clean, probe, mesh=None):
     """Drive both sessions over `clean` clean frames then `probe` frames after
-    the kill probe, T frames per batch, comparing full carries after every
-    batch; returns (reference carry, mismatch frame) after the run."""
+    the kill probe (none when `probe` is 0), T frames per batch, comparing
+    full carries after every batch; returns the reference carry after the
+    run, which latched the probe's frame on both sides."""
     sc = script(clean + probe, players, input_size, seed=players * 10 + t_ticks)
     ref = TpuSyncTestSession(RefArena(players, n, input_size), players, D, backend=ref_backend, mesh=mesh)
     port = DeviceSyncTestSession(Arena(players, n, input_size), players, D, backend=port_backend, device="cpu")
@@ -75,6 +76,10 @@ def run_pair(ref_backend, port_backend, players, n, input_size, t_ticks, clean, 
         ref.advance_frames(sc[start:start + t_ticks])
         port.advance_frames(sc[start:start + t_ticks])
         assert_tree_equal(carry_to_reference(port.carry), jax.device_get(ref.carry), f"frame {start}")
+    if not probe:
+        ref.check()
+        port.check()
+        return jax.device_get(ref.carry)
     with pytest.raises(RefMismatchedChecksum) as ref_err:
         ref.check()
     with pytest.raises(MismatchedChecksum) as port_err:
@@ -99,9 +104,27 @@ def xla_probe_carry():
     return run_pair("xla", "torch", 2, 256, 1, 10, clean=20, probe=20)
 
 
-@pytest.mark.parametrize("players,input_size", [(3, 2), (4, 1)])
+@pytest.mark.parametrize("players,input_size", [(3, 2), (4, 1), (17, 1), (32, 2)])
 def test_torch_backend_matches_reference_xla(players, input_size):
     run_pair("xla", "torch", players, 384, input_size, 10, clean=20, probe=10)
+
+
+@pytest.mark.parametrize("players,n,input_size", [(17, 384, 1), (32, 512, 2)])
+@pytest.mark.parametrize("port_backend,t_ticks", [("cuda-fused", 10), ("cuda-fused", 1), ("cuda-tiled", 10)])
+def test_many_teams_routes_match_reference_xla(port_backend, t_ticks, players, n, input_size):
+    """Past 16 teams (the kernels sum teams 16 a pass), every route's plain
+    version — K1 with the cache (T = 10) and inline (T = 1), the injection
+    route — equals the reference's XLA scan on a clean run across frame d,
+    where all routes give the same bits."""
+    run_pair("xla", port_backend, players, n, input_size, t_ticks, clean=20 if t_ticks > 1 else 8, probe=0)
+
+
+def test_many_teams_fused_twin_matches_reference_kernel():
+    """17 teams, T = 10: K1's plain version with the reduction cache equals
+    the reference's whole-batch kernel across the kill probe. (The
+    reference's interpret-mode kernels take 40-120 s a batch at 17-32
+    teams, so this is the one kernel-route probe past 16 teams.)"""
+    run_pair("pallas-interpret", "cuda-fused", 17, 384, 1, 10, clean=10, probe=10)
 
 
 def test_fused_twin_matches_reference_kernel_cached(xla_probe_carry):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (ggrs_tpu_torch/csrc/): a build that cannot run
 raises a typed error, and, on a card only, each kernel equals its plain
-PyTorch version bit for bit after every batch (K1, K2, and both for
-arena), dispatch (K3), speculation (K4) or table (K5).
+PyTorch version bit for bit after every batch (K1, K2), dispatch (K3),
+speculation (K4) or table (K5), for ex_game, arena (past 16 teams too)
+and swarm.
 
 This file imports no jax, so on a machine with a card and no jax it runs
 without the suite's conftest:
@@ -15,7 +16,8 @@ import torch
 
 from chip_smoke import prime_row, random_tick_rows
 from ggrs_tpu_torch import (
-    Arena, DeviceRollbackBackend, ExGame, KernelError, SaveGameState, SessionBuilder,
+    Arena, DeviceRollbackBackend, DeviceSyncTestSession, ExGame, KernelError, SaveGameState, SessionBuilder,
+    Swarm,
 )
 from ggrs_tpu_torch.convert import CARRY_KEYS, copy_carry
 from ggrs_tpu_torch.device import sync_test
@@ -171,7 +173,8 @@ def arena_script(rng, t_ticks, players, input_size):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("players,input_size,t_ticks", [(2, 1, 24), (4, 2, 24), (2, 1, 1)])
+@pytest.mark.parametrize("players,input_size,t_ticks", [(2, 1, 24), (4, 2, 24), (2, 1, 1), (17, 1, 24), (32, 2, 1),
+                                                       (64, 1, 24), (64, 1, 1)])
 def test_arena_fused_kernel_matches_plain_on_card(cuda_card, players, input_size, t_ticks):
     """K1 for arena (cached reductions when T > 1, inline when T == 1;
     grid barriers, cooperative launch) equals plain_batch after every
@@ -252,7 +255,8 @@ def test_arena_injected_route_matches_plain_on_card(cuda_card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("players,n,input_size,mp,rows_per_dispatch",
-                         [(2, 4096, 1, 9, 1), (4, 4096, 2, 12, 8), (2, 65536, 1, 9, 8), (4, 153600, 1, 9, 4)])
+                         [(2, 4096, 1, 9, 1), (4, 4096, 2, 12, 8), (2, 65536, 1, 9, 8), (4, 153600, 1, 9, 4),
+                          (17, 4352, 1, 9, 8), (32, 4096, 2, 12, 4), (64, 4096, 1, 9, 8)])
 def test_arena_tick_kernel_matches_plain_on_card(cuda_card, players, n, input_size, mp, rows_per_dispatch):
     """K3's arena body (a whole-world reduction and a grid barrier before
     every advance, a persistent grid looping over entity tiles) on a stream
@@ -277,7 +281,8 @@ def test_arena_tick_kernel_matches_plain_on_card(cuda_card, players, n, input_si
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("players,n,input_size,B,L", [(2, 4096, 1, 16, 11), (2, 65536, 1, 16, 11),
-                                                      (4, 4096, 2, 16, 14)])
+                                                      (4, 4096, 2, 16, 14), (17, 4352, 1, 16, 11),
+                                                      (32, 4096, 2, 8, 14), (64, 4096, 1, 16, 11)])
 def test_arena_beam_kernel_matches_plain_on_card(cuda_card, players, n, input_size, B, L):
     """K4's arena body (each member reduces its own world before every
     step; a persistent grid over (member, tile) items, so 65536 x 16 runs
@@ -326,4 +331,141 @@ def test_arena_beam_request_path_matches_cpu_on_card(cuda_card):
     assert runs[0][:4] == runs[1][:4]
     assert runs[0][1] + runs[0][2] > 0
     for k in ("frame", "pos", "vel", "hp", "energy"):
+        assert np.array_equal(runs[0][4][k], runs[1][4][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("players", [17, 32, 64])
+def test_arena_many_teams_reduce_and_injected_route_match_plain_on_card(cuda_card, players):
+    """Past 16 teams (summed 16 a pass): K5 over d+1 sources with dead
+    entities equals plain_reduce_table, and the injection route (K5 tables,
+    K2 one tick per launch, the verdict) equals its plain twin on a CPU
+    copy after every batch, across frame d."""
+    n = 4096 + (256 if players == 17 else 0)
+    ctx = PlaneContext(Arena(players, n), players, 8, torch.device("cuda"))
+    cpu_ctx = PlaneContext(Arena(players, n), players, 8, "cpu")
+    core, twin = InjectedReduceCore(ctx), InjectedReduceCore(cpu_ctx)
+    kernel = sync_test.initial_carry(ctx)
+    plain = {k: v.cpu() for k, v in kernel.items()}
+    rng = np.random.default_rng(players)
+    for b in range(3):
+        inputs = arena_script(rng, 7, players, 1)
+        core.batch(kernel, inputs, frame=7 * b)
+        twin.batch(plain, inputs.cpu())
+        torch.cuda.synchronize()
+        for k in CARRY_KEYS:
+            assert torch.equal(kernel[k].cpu(), plain[k]), (b, k)
+    kernel["ring"][:, 4, 1::3] = 0
+    slots = source_slots(21, ctx.d, ctx.ring_len)
+    want = plain_reduce_table(torch.stack([kernel["state"] if s < 0 else kernel["ring"][s] for s in slots]), ctx)
+    assert torch.equal(core.reduce.reduce_sources(kernel, 21), want)
+
+
+def swarm_script(rng, t_ticks, players):
+    return torch.from_numpy(rng.integers(0, 128, size=(t_ticks, players, 1)).astype(np.int32)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("core_cls,n,t_ticks", [(FusedSyncTestCore, 4096, 24), (FusedSyncTestCore, 4096, 1),
+                                                (TiledSyncTestCore, 65536, 24)])
+def test_swarm_synctest_kernels_match_plain_on_card(cuda_card, core_cls, n, t_ticks):
+    """K1's and K2's swarm bodies equal plain_batch after every batch
+    (inputs below 128: all axis bits and BOOST), across frame d and after a
+    corrupted position in the slot the next rollback loads."""
+    ctx = PlaneContext(Swarm(3, n), 3, 8, torch.device("cuda"))
+    core = core_cls(ctx)
+    kernel = sync_test.initial_carry(ctx)
+    plain = copy_carry(kernel)
+    rng = np.random.default_rng(n + t_ticks)
+    batches = 3 if t_ticks > 1 else 14
+    for b in range(batches):
+        if b == batches - 1:
+            slot = (int(kernel["meta"][0]) - ctx.d) % ctx.ring_len
+            for carry in (kernel, plain):
+                carry["ring"][slot, 0, 5] += 7
+        inputs = swarm_script(rng, t_ticks, 3)
+        core.batch(kernel, inputs)
+        plain_batch(plain, inputs, ctx)
+        torch.cuda.synchronize()
+        for k in CARRY_KEYS:
+            assert torch.equal(kernel[k], plain[k]), (b, k)
+    assert core.launches == batches
+    assert int(kernel["meta"][1]) == 1  # the probe latched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_dispatch", [1, 8])
+def test_swarm_tick_kernel_matches_plain_on_card(cuda_card, rows_per_dispatch):
+    """K3's swarm body on a 4-player stream with rollbacks, skipped and
+    trailing saves and DISCONNECTED slots: his/los and the whole core equal
+    plain_tick_multi's after every dispatch."""
+    core = ResimCore(Swarm(4, 4096), 12, 4, device_verify=True, device="cuda")
+    plain = {k: v.clone() for k, v in core.carry.items()}
+    rows = random_tick_rows(core, 4 * 8 + 14, seed=6, mod=128)
+    for b in range(0, len(rows), rows_per_dispatch):
+        batch = rows[b : b + rows_per_dispatch]
+        his, los = core.tick_multi(batch)
+        p_his, p_los = plain_tick_multi(plain, core.upload(batch), core)
+        torch.cuda.synchronize()
+        assert torch.equal(his, p_his) and torch.equal(los, p_los), b
+        for k in RESIM_KEYS:
+            assert torch.equal(core.carry[k], plain[k]), (k, b)
+    assert core.tick_core.launches == -(-len(rows) // rows_per_dispatch)
+
+
+@pytest.mark.cuda
+def test_swarm_beam_kernel_matches_plain_on_card(cuda_card):
+    """K4's swarm body from every ring slot of a 4-player core, 30%
+    DISCONNECTED cells: trajectory, checksums, anchor equal plain_rollout's."""
+    core = ResimCore(Swarm(4, 4096), 12, 4, device="cuda")
+    core.tick_multi(random_tick_rows(core, 20, seed=3, mod=128))
+    rng = np.random.default_rng(7)
+    for slot in range(core.ring_len):
+        B, L = 16, 1 + slot % core.window
+        inputs = rng.integers(0, 128, size=(B, L, 4, 1), dtype=np.uint8)
+        statuses = np.where(rng.random((B, L, 4)) < 0.3, 2, 0).astype(np.int32)
+        spec = core.speculate(slot, inputs, statuses)
+        plain = plain_rollout(core.carry["ring"][slot], core.carry["r_frame"][slot],
+                              torch.from_numpy(inputs).cuda(), torch.from_numpy(statuses).cuda(), core.ctx)
+        torch.cuda.synchronize()
+        for k, a, b in zip(spec._fields, spec, plain):
+            assert torch.equal(a, b), (slot, k)
+    assert core.beam_rollout.launches == core.ring_len
+
+
+@pytest.mark.cuda
+def test_swarm_paths_match_cpu_on_card(cuda_card):
+    """Swarm's fused session (auto -> K1) and its beam request path (K4,
+    adoptions, K3 suffixes) on the card equal the same runs on the CPU."""
+    rng = np.random.default_rng(8)
+    raw = rng.integers(0, 128, size=(30, 2, 1), dtype=np.uint8)
+    carries = []
+    for device in ("cuda", "cpu"):
+        sess = DeviceSyncTestSession(Swarm(2, 4096), 2, 8, device=device)
+        for b in range(3):
+            sess.advance_frames(raw[10 * b : 10 * b + 10])
+        sess.check()
+        carries.append({k: v.cpu() for k, v in sess.carry.items()})
+    for k in CARRY_KEYS:
+        assert torch.equal(carries[0][k], carries[1][k]), k
+    runs = []
+    for device in ("cuda", "cpu"):
+        sess = (SessionBuilder().with_num_players(2).with_max_prediction_window(9)
+                .with_check_distance(8).with_device_checksum_verification(True).start_synctest_session())
+        backend = DeviceRollbackBackend(Swarm(2, 4096), 9, 2, beam_width=16, device_verify=True, device=device)
+        saves = []
+        for t in range(40):
+            for h in range(2):
+                sess.add_local_input(h, bytes([(65 if (t // 6) % 2 == 0 else 22) + h]))
+            reqs = sess.advance_frame()
+            backend.handle_requests(reqs)
+            saves += [(r.frame, r.cell.checksum_getter()) for r in reqs if isinstance(r, SaveGameState)]
+        backend.check()
+        runs.append(([(f, g()) for f, g in saves], backend.beam_hits, backend.beam_partial_hits,
+                     backend.beam_misses, backend.state_numpy()))
+        if device == "cuda":
+            assert backend.core.beam_rollout.launches > 0 and backend.core.tick_core.launches > 0
+    assert runs[0][:4] == runs[1][:4]
+    assert runs[0][1] + runs[0][2] > 0
+    for k in ("frame", "pos", "vel", "charge"):
         assert np.array_equal(runs[0][4][k], runs[1][4][k]), k

@@ -213,7 +213,7 @@ def test_no_cuda_and_no_explicit_cpu_raises_config_error(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    # every module of the package, the request path's, the beam's and arena's included
+    # every module of the package, the request path's, the beam's, arena's and swarm's included
     code = (
         "import importlib, pkgutil, sys, ggrs_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(ggrs_tpu_torch.__path__, 'ggrs_tpu_torch.')]\n"
@@ -224,7 +224,8 @@ def test_port_imports_neither_jax_nor_reference():
         "        'ggrs_tpu_torch.sessions.builder', 'ggrs_tpu_torch.input_queue',\n"
         "        'ggrs_tpu_torch.beam', 'ggrs_tpu_torch.input_model',\n"
         "        'ggrs_tpu_torch.device.beam_core', 'ggrs_tpu_torch.models.arena',\n"
-        "        'ggrs_tpu_torch.device.reduce_core', 'ggrs_tpu_torch.device.injected_core'} <= set(names)\n"
+        "        'ggrs_tpu_torch.device.reduce_core', 'ggrs_tpu_torch.device.injected_core',\n"
+        "        'ggrs_tpu_torch.models.swarm'} <= set(names)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'ggrs_tpu' or m.startswith('ggrs_tpu.')]\n"
         "assert not bad, bad\n"
