@@ -74,8 +74,8 @@ NVIDIA card (written for an H100). Run from the repository root:
    verdict) against its plain twin on the card: ai_4096 (60 ticks) and
    ai_65536 (30 ticks), both across frame d, with a divergence probe.
 9. Drives arena's main path: `DeviceSyncTestSession(Arena(2, N), 2, 8,
-   backend="auto")` must pick K1 at 4096 and 65536, and backend="cuda-tiled"
-   runs the injection route at both; the launch counts of K1, or of K2, K5
+   backend="auto")` must pick K1 at 4096 and 65536, and
+   backend="cuda-tiled-injected" runs the injection route at both; the launch counts of K1, or of K2, K5
    and the verdict, are set to 0 just before each run and must be above 0
    after; the final carry must equal the plain version's and `check()` must
    pass. Prints ms per batch (K1) or per tick (injection route) p50/p90
@@ -129,7 +129,25 @@ NVIDIA card (written for an H100). Run from the repository root:
    the cache and inline, the injection route and K5 alone, K3 rows and K4
    speculations against their plain versions, kill probes on K1 and the
    injection route, then the main path (auto -> K1) with its launch count.
-17. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
+17. K2's inline whole-world arena route (every step reduces from the world
+   entering it: a grid barrier per step, a persistent cooperative grid)
+   against plain_parts and plain_verdict, parts and full carry after every
+   batch, with a kill probe that both latch at the same frame with the same
+   world after it: ati_4096 (Arena(2, 4096), d=8, T=60, explicit
+   backend="cuda-tiled") and ati_512k (Arena(16, 524288), d=8, T=60, 138 MB
+   of state and ring, through backend="auto", which must pick it: past the
+   reference's whole-batch estimate its auto answers the XLA scan). Then
+   each through the session, launch counts 0 before and above 0 after,
+   carry == plain, `check()` passing; ms a batch and a tick, beside the
+   injection route's ms a tick at 4096 from phase 9.
+18. Checkpoints on the card for ex_game, arena and swarm at 4096 entities:
+   a session saved mid-run on K1, K2 (inline for arena) and the injection
+   route, restored under the same backend and under another, run on, and
+   equal to the run that never stopped; a DeviceRollbackBackend on K3
+   (device verification, lazy_ticks=8) saved mid-run, restored, driven on
+   by the same host session and equal to its uninterrupted twin. Prints
+   each file's size and the save and restore ms.
+19. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
    as the last line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the result lines. Without a CUDA device,
@@ -285,6 +303,23 @@ SWARM_BEAM_SCRIPTS = {
 ARENA_TEAM_SHAPES = [("a1_p17", 17, 4352), ("a1_p32", 32, 4096)]
 ARENA_TEAM_BATCHES = 3  # K1 batches of 20 ticks, the main path's too
 
+# K2's inline whole-world arena route: key, players, entities, check
+# distance, ticks per batch, batches, the backend the session is given
+# (and, for "auto", must resolve to "cuda-tiled"), kernel timing reps
+ARENA_INLINE_SHAPES = [
+    ("ati_4096", 2, 4096, 8, 60, 3, "cuda-tiled", 20),  # the reference's headline arena world on "pallas-tiled"
+    # past the reference's estimate (528 B an entity, 277 MB > 96 MB): its
+    # auto answers "xla"; 138 MB of state and ring, 4096 tiles
+    ("ati_512k", 16, 1 << 19, 8, 60, 2, "auto", 5),
+]
+ARENA_INLINE_MAIN_BATCHES = {"ati_4096": 100, "ati_512k": 10}
+# the checkpoint phase: worlds per family, ticks per batch, batches before
+# the save, batches after it
+CHECKPOINT_N = 4096
+CHECKPOINT_DISTANCE = 8
+CHECKPOINT_T, CHECKPOINT_BEFORE, CHECKPOINT_AFTER = 20, 2, 1
+CHECKPOINT_FRAMES, CHECKPOINT_SAVE_AT = 60, 30  # the request path's ticks, and its save
+
 # int32 ops arena's step always executes per entity (ggrs_tpu_torch/csrc/
 # arena_step.cuh): alive test 1, thrust axes 10, overdrive test 4, accel 5,
 # energy 5, velocity update 4, rally test 2, friction 4, |v|^2 test 4, dead
@@ -293,6 +328,11 @@ ARENA_TEAM_BATCHES = 3  # K1 batches of 20 ticks, the main path's too
 # divisions run only for some entities and are not counted (a least time).
 OPS_PER_ARENA_STEP = 64
 OPS_PER_ARENA_SAVE = 18  # 6 weighted products and 12 adds
+# int32 ops of one entity's share of a reduction, whatever the team count:
+# the alive test, two shifts (px >> 6, py >> 6) and three adds into its own
+# team's sums. How a kernel finds that team's sums (block_team_sums walks
+# every team) is its cost, not the function's.
+OPS_PER_ARENA_REDUCE = 6
 
 
 # int32 ops swarm's step always executes per entity (ggrs_tpu_torch/csrc/
@@ -315,12 +355,6 @@ COUNTERPART_NOTE = {"": "", "_arena": " with ArenaPlanes (whole-world reductions
 def body_suffix(game_cls) -> str:
     """The suffix of a model's kernel bodies: "" (ex_game), "_arena", "_swarm"."""
     return {"Arena": "_arena", "Swarm": "_swarm"}.get(game_cls.__name__, "")
-
-
-def team_ops(players):
-    """int32 ops per entity of one reduction: the alive test, two shifts,
-    and a compare and two selects per team (about 3 + 3P)."""
-    return 3 + 3 * players
 
 
 def fail(msg: str) -> None:
@@ -406,7 +440,18 @@ def arena_bound(n, players, d, t_ticks, c0, reduces=True):
         nbytes = col * (1 + saves + 1)
         reductions = steps if reduces else 0
     nbytes += 4 * t_ticks * players * 2
-    ops = n * (steps * OPS_PER_ARENA_STEP + saves * OPS_PER_ARENA_SAVE + reductions * team_ops(players))
+    ops = n * (steps * OPS_PER_ARENA_STEP + saves * OPS_PER_ARENA_SAVE + reductions * OPS_PER_ARENA_REDUCE)
+    return least(nbytes, ops)
+
+
+def inline_bound(n, players, d, t_ticks, c0):
+    """Least ms of one batch of K2's inline arena route: state and ring read
+    once and written once; 64 int32 ops an entity-step, 18 an entity-save,
+    and 6 an entity-reduction, one reduction before every step (T (d+1)
+    a batch once past frame d)."""
+    steps, saves = batch_work(n, d, t_ticks, c0)
+    nbytes = 2 * 4 * 6 * n * (1 + d + 2) + 4 * t_ticks * players * 2
+    ops = n * (steps * (OPS_PER_ARENA_STEP + OPS_PER_ARENA_REDUCE) + saves * OPS_PER_ARENA_SAVE)
     return least(nbytes, ops)
 
 
@@ -416,7 +461,7 @@ def carry_err(torch, a, b, keys) -> int:
 
 def tick_bound(rows, n, core):
     """Least ms of one K3 dispatch of these rows, vs 69 int32 ops per
-    entity-advance and 15 per entity-save for ex_game, 64 + (3 + 3P) per
+    entity-advance and 15 per entity-save for ex_game, 64 + 6 per
     entity-advance (the step and its reduction) and 18 per entity-save for
     arena (over the int32 peak). Bytes (over the HBM rate) count only what
     the dispatch must move, one entity column each (20 B for ex_game, 24 B
@@ -441,7 +486,7 @@ def tick_bound(rows, n, core):
     columns = len(read) + state_read + len(saved) + 1
     nbytes = 4 * core.ctx.n_planes * n * columns + rows.nbytes + 2 * 4 * rows.shape[0] * W
     if core.ctx.reduce_len:  # arena
-        ops = n * (advances * (OPS_PER_ARENA_STEP + team_ops(core.num_players)) + saves * OPS_PER_ARENA_SAVE)
+        ops = n * (advances * (OPS_PER_ARENA_STEP + OPS_PER_ARENA_REDUCE) + saves * OPS_PER_ARENA_SAVE)
     else:
         _, step_ops, save_ops = MODEL_COST[body_suffix(type(core.game))]
         ops = n * (advances * getattr(core.game, "substeps", 1) * step_ops + saves * save_ops)
@@ -799,7 +844,7 @@ def beam_bound(n, beam, steps, players, input_size, substeps=1, suffix=""):
     written once (one entity column each: 20 B for ex_game, 24 B for arena,
     28 B for swarm), plus the script and the checksums, over the HBM rate;
     vs the int32 ops of B*L entity-steps and checksums and the anchor's
-    checksum (`MODEL_COST`), for arena also 3 + 3P per entity-reduction:
+    checksum (`MODEL_COST`), for arena also 6 per entity-reduction:
     the anchor's, then one of each member's state entering steps 1..L-1 —
     over the int32 peak."""
     col, step_ops, save_ops = MODEL_COST[suffix]
@@ -807,7 +852,7 @@ def beam_bound(n, beam, steps, players, input_size, substeps=1, suffix=""):
         + 4 * (2 * beam * steps + 3)
     ops = n * (beam * steps * (substeps * step_ops + save_ops) + save_ops)
     if suffix == "_arena":
-        ops += n * (1 + beam * (steps - 1)) * team_ops(players)
+        ops += n * (1 + beam * (steps - 1)) * OPS_PER_ARENA_REDUCE
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
@@ -1291,7 +1336,7 @@ def reduce_and_injected_phase(torch, np, dev, tag):
             plain_ms = events_ms(torch, lambda: plain_reduce_table(
                 torch.stack([dead["state"] if s == STATE else dead["ring"][s] for s in slots]), ctx), 1)
             lib_ms = library_reduce_ms(torch, dead, slots, players, TIMED_LAUNCHES)
-            b_ms, b_by = least(12 * n * S + 4 * S * 3 * players, n * S * team_ops(players))
+            b_ms, b_by = least(12 * n * S + 4 * S * 3 * players, n * S * OPS_PER_ARENA_REDUCE)
             print(f"{key}: reduce_table == plain over S={S} source(s); {ms:.4f} ms per launch on the card vs "
                   f"plain {plain_ms:.2f} ms, masked index_add_ {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}) {tag}")
             entries[("reduce_table", key, S)] = {
@@ -1367,7 +1412,7 @@ def reduce_and_injected_phase(torch, np, dev, tag):
 def arena_main_path_phase(torch, np, dev, tag, fused_scripts, fused_final, injected_scripts, injected_final,
                           fused_entries, injected_entries):
     """Arena's main path through the session: auto -> K1 at 4096 and 65536,
-    and backend="cuda-tiled" (the injection route) at 4096 and 65536."""
+    and backend="cuda-tiled-injected" (the injection route) at 4096 and 65536."""
     from ggrs_tpu_torch import Arena, DeviceSyncTestSession
     from ggrs_tpu_torch.convert import CARRY_KEYS
 
@@ -1424,7 +1469,7 @@ def arena_main_path_phase(torch, np, dev, tag, fused_scripts, fused_final, injec
     del sess
 
     for key, players, n, d, ticks in INJECTED_SHAPES:
-        sess = DeviceSyncTestSession(Arena(players, n), players, d, backend="cuda-tiled", device=dev)
+        sess = DeviceSyncTestSession(Arena(players, n), players, d, backend="cuda-tiled-injected", device=dev)
         core = sess.core
         core.tiled.launches = core.tiled.verdict_launches = core.reduce.launches = 0
         for start in range(0, ticks, INJECTED_BATCH):
@@ -1448,10 +1493,10 @@ def arena_main_path_phase(torch, np, dev, tag, fused_scripts, fused_final, injec
         for (name, k, *_), e in injected_entries.items():
             if k == key:
                 e["launches"] = counts[name]
-        print(f"arena main path {key}: cuda-tiled (injection route), launches {counts} over {ticks} ticks, "
+        print(f"arena main path {key}: cuda-tiled-injected (injection route), launches {counts} over {ticks} ticks, "
               f"then median {ms:.4f} ms/tick (p90 {p90:.4f}, {reps} batches of {INJECTED_BATCH}), "
               f"{rate:.1f} rollback-frames/s {tag}")
-        runs.append({"key": key, "backend": "cuda-tiled", "ms_per_tick_p50": ms, "ms_per_tick_p90": p90,
+        runs.append({"key": key, "backend": "cuda-tiled-injected", "ms_per_tick_p50": ms, "ms_per_tick_p90": p90,
                      "samples": reps, "rollback_frames_per_s_p50": rate, "launches": counts})
         del sess
     return runs
@@ -1967,6 +2012,227 @@ def arena_teams_phase(torch, np, dev, tag):
     return entries
 
 
+def arena_inline_phase(torch, np, dev, tag, arena_path):
+    """K2's inline whole-world arena route: the kernel against plain_parts
+    and plain_verdict (parts and full carry after every batch), a kill
+    probe, the kernel's time, then the main path through the session
+    (explicit "cuda-tiled" at 4096, "auto" past the reference's estimate)
+    with its launch counts, carry == plain and check(); at 4096 its ms a
+    tick beside the injection route's from `arena_path` (this run).
+    Returns (runs, entries for the kernels line)."""
+    from ggrs_tpu_torch import Arena, DeviceSyncTestSession
+    from ggrs_tpu_torch.convert import CARRY_KEYS, copy_carry
+    from ggrs_tpu_torch.device import sync_test
+    from ggrs_tpu_torch.device.planes import PlaneContext
+    from ggrs_tpu_torch.device.tiled_core import TiledSyncTestCore, plain_parts, plain_verdict
+
+    runs, entries = [], []
+    for key, players, n, d, t_ticks, batches, backend, reps in ARENA_INLINE_SHAPES:
+        ctx = PlaneContext(Arena(players, n), players, d, dev)
+        core = TiledSyncTestCore(ctx)
+        rng = np.random.default_rng(n + players)
+        scripts = [rng.integers(0, 64, size=(t_ticks, players, 1), dtype=np.uint8) for _ in range(batches)]
+        kc = sync_test.initial_carry(ctx)
+        pc = copy_carry(kc)
+        err = 0
+
+        def both(raw):
+            inputs = torch.from_numpy(raw.astype(np.int32)).to(dev)
+            k_hi, k_lo = core.run_kernel(kc, inputs)
+            p_hi, p_lo = plain_parts(pc, inputs, ctx)
+            e = carry_err(torch, {"h": k_hi, "l": k_lo}, {"h": p_hi, "l": p_lo}, "hl")
+            core.verdict(kc, k_hi, k_lo)
+            plain_verdict(pc, p_hi, p_lo, ctx)
+            torch.cuda.synchronize()
+            return max(e, carry_err(torch, kc, pc, CARRY_KEYS))
+
+        t0 = time.perf_counter()
+        for raw in scripts:
+            err = max(err, both(raw))
+            if err:
+                fail(f"{key}: synctest_tiled_arena_inline and its plain version differ (max abs err {err})")
+        print(f"{key}: synctest_tiled_arena_inline == plain (parts and full carry) after each of {batches} "
+              f"batch(es) ({players} players, {n} entities, d={d}, T={t_ticks}, plain version at T={t_ticks}, "
+              f"{time.perf_counter() - t0:.1f} s) {tag}")
+        final = copy_carry(pc)
+
+        c = int(kc["meta"][0])
+        timed_k, timed_p = copy_carry(kc), copy_carry(pc)
+        for carry in (kc, pc):
+            kill(carry, d, ctx.ring_len)
+        if both(scripts[0]):
+            fail(f"{key}: the inline route and its plain version differ after the kill probe")
+        latched = [kc["meta"].tolist(), pc["meta"].tolist()]
+        if latched[0] != latched[1] or latched[0][1:] != [1, c - d + 1]:
+            fail(f"{key}: kill probe latched {latched}, expected frame {c - d + 1} on both")
+        print(f"{key}: kill probe (hp = 0 for {KILLED} entities): both latched frame {c - d + 1}, same world after")
+
+        inputs = torch.from_numpy(scripts[-1].astype(np.int32)).to(dev)
+        c0 = int(timed_k["meta"][0])
+        b_ms, b_by = inline_bound(n, players, d, t_ticks, c0)
+        ms = events_ms(torch, lambda: core.run_kernel(timed_k, inputs), reps)
+        plain_ms = events_ms(torch, lambda: plain_parts(timed_p, inputs, ctx), 1)
+        barriers = t_ticks * (d + 1)
+        print(f"{key}: synctest_tiled_arena_inline {ms:.4f} ms/batch ({barriers} grid barriers, "
+              f"{ms / barriers * 1e3:.2f} us a step) vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}) {tag}")
+        entry = {
+            "name": "synctest_tiled_arena_inline", "route": "cuda",
+            "source": "ggrs_tpu_torch/csrc/synctest_tiled.cu",
+            "replaces": "ggrs_tpu/tpu/pallas_tiled.py:428",
+            "tpu_counterpart": "PallasTiledSyncTestCore._build, whole-world tile reducing inline (:94-130)",
+            "shape": f"Arena({players}, {n}), d={d}, T={t_ticks}",
+            "max_abs_err": err, "bit_equal": err == 0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "launches": 0,
+        }
+        del kc, pc, timed_k, timed_p
+
+        sess = DeviceSyncTestSession(Arena(players, n), players, d, backend=backend, device=dev)
+        if sess.backend != "cuda-tiled" or type(sess.core) is not TiledSyncTestCore:
+            fail(f"{key}: backend={backend!r} chose {sess.backend} for arena, expected cuda-tiled (inline)")
+        sess.core.launches = sess.core.verdict_launches = 0
+        for raw in scripts:
+            sess.advance_frames(raw)
+        sess.block_until_ready()
+        counts = {"synctest_tiled_arena_inline": sess.core.launches, "synctest_verdict": sess.core.verdict_launches}
+        if min(counts.values()) < 1:
+            fail(f"{key}: the inline route launched no kernel of one kind: {counts}")
+        if carry_err(torch, sess.carry, final, CARRY_KEYS):
+            fail(f"{key}: the inline route's carry differs from the plain version's")
+        sess.check()
+        state = sess.state_numpy()
+        if state["hp"].shape != (n,) or int(state["frame"]) != t_ticks * batches:
+            fail(f"{key}: arena state has the wrong shape or frame")
+        main_reps = ARENA_INLINE_MAIN_BATCHES[key]
+        samples = sorted(events_ms(torch, lambda: sess.advance_frames(scripts[-1]), 1) for _ in range(main_reps))
+        sess.check()
+        p50, p90 = samples[main_reps // 2], samples[(main_reps * 9) // 10]
+        entry["launches"] = counts["synctest_tiled_arena_inline"]
+        entries.append(entry)
+        run = {"key": key, "backend": f"{backend} -> {sess.backend}", "ms_per_batch_p50": p50,
+               "ms_per_batch_p90": p90, "ms_per_tick_p50": p50 / t_ticks, "samples": main_reps,
+               "rollback_frames_per_s_p50": t_ticks * d / (p50 / 1e3), "launches": counts}
+        injected = [r for r in arena_path if r["key"] == key.replace("ati_", "ai_")]
+        beside = ""
+        if injected:
+            run["injected_ms_per_tick_p50"] = injected[0]["ms_per_tick_p50"]
+            beside = f", the injection route {injected[0]['ms_per_tick_p50']:.4f} ms/tick in this run"
+        print(f"arena main path {key}: backend={backend} -> {sess.backend} (inline), launches {counts}, carry == "
+              f"plain; then median {p50:.4f} ms/batch (p90 {p90:.4f}, n={main_reps}), {p50 / t_ticks:.4f} ms/tick"
+              f"{beside} {tag}")
+        runs.append(run)
+        del sess
+    return runs, entries
+
+
+def checkpoint_phase(torch, np, dev, tag):
+    """Checkpoints on the card, for ex_game, arena and swarm at 4096
+    entities: a fused session saved mid-run on K1, on K2 (inline for arena)
+    and on the injection route, restored under the same backend and under
+    another, run on, and held against the run that never stopped (full
+    carry); then a request-path backend on K3 (device verification,
+    lazy_ticks=8) saved mid-run, restored and driven on by the same host
+    session, held against its uninterrupted twin (core carry, check()).
+    Prints each file's size and the save and restore ms (host clock around
+    work that ends on the host)."""
+    import os
+    import tempfile
+
+    from ggrs_tpu_torch import Arena, DeviceRollbackBackend, DeviceSyncTestSession, ExGame, SessionBuilder, Swarm
+    from ggrs_tpu_torch.convert import CARRY_KEYS
+
+    families = [("ex_game", ExGame, 16), ("arena", Arena, 64), ("swarm", Swarm, SWARM_MOD)]
+    results = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ck") as folder:
+        for family, game_cls, mod in families:
+            rng = np.random.default_rng(len(family))
+            batches = [rng.integers(0, mod, size=(CHECKPOINT_T, PLAYERS, 1), dtype=np.uint8)
+                       for _ in range(CHECKPOINT_BEFORE + CHECKPOINT_AFTER)]
+            routes = ["cuda-fused", "cuda-tiled"] + (["cuda-tiled-injected"] if family == "arena" else [])
+            for route in routes:
+                straight = DeviceSyncTestSession(game_cls(PLAYERS, CHECKPOINT_N), PLAYERS, CHECKPOINT_DISTANCE,
+                                                 backend=route, device=dev)
+                for raw in batches:
+                    straight.advance_frames(raw)
+                first = DeviceSyncTestSession(game_cls(PLAYERS, CHECKPOINT_N), PLAYERS, CHECKPOINT_DISTANCE,
+                                              backend=route, device=dev)
+                for raw in batches[:CHECKPOINT_BEFORE]:
+                    first.advance_frames(raw)
+                path = os.path.join(folder, f"{family}_{route}.npz")
+                t0 = time.perf_counter()
+                first.save(path)
+                save_ms = (time.perf_counter() - t0) * 1e3
+                other = "cuda-fused" if route != "cuda-fused" else "cuda-tiled"
+                for again in (route, other):
+                    t0 = time.perf_counter()
+                    back = DeviceSyncTestSession.restore(path, game_cls(PLAYERS, CHECKPOINT_N), backend=again,
+                                                         device=dev)
+                    back.block_until_ready()
+                    restore_ms = (time.perf_counter() - t0) * 1e3
+                    if back.backend != again or back.current_frame != CHECKPOINT_T * CHECKPOINT_BEFORE:
+                        fail(f"checkpoint {family}: restored {back.backend} at {back.current_frame}")
+                    for raw in batches[CHECKPOINT_BEFORE:]:
+                        back.advance_frames(raw)
+                    torch.cuda.synchronize()
+                    if carry_err(torch, back.carry, straight.carry, CARRY_KEYS):
+                        fail(f"checkpoint {family}: saved on {route}, resumed on {again}: carry differs from "
+                             "the uninterrupted run's")
+                    back.check()
+                    results.append({"family": family, "saved_on": route, "resumed_on": again,
+                                    "bytes": os.path.getsize(path), "save_ms": save_ms, "restore_ms": restore_ms})
+                    print(f"checkpoint {family}: saved on {route}, resumed on {again}: carry == uninterrupted run; "
+                          f"{os.path.getsize(path)} B, save {save_ms:.1f} ms, restore {restore_ms:.1f} ms {tag}")
+                del straight, first, back
+
+            inputs = rng.integers(0, mod, size=(CHECKPOINT_FRAMES, PLAYERS), dtype=np.uint8)
+
+            def stack():
+                backend = DeviceRollbackBackend(game_cls(PLAYERS, CHECKPOINT_N), 9, PLAYERS, device_verify=True,
+                                                lazy_ticks=LAZY_TICKS, device=dev)
+                sess = (SessionBuilder(input_size=1).with_num_players(PLAYERS).with_max_prediction_window(9)
+                        .with_check_distance(CHECK_DISTANCE).with_device_checksum_verification()
+                        .start_synctest_session())
+                return backend, sess
+
+            def drive(backend, sess, lo, hi):
+                for f in range(lo, hi):
+                    add_inputs(sess, inputs[f])
+                    backend.handle_requests(sess.advance_frame())
+
+            straight, s_sess = stack()
+            drive(straight, s_sess, 0, CHECKPOINT_FRAMES)
+            first, sess = stack()
+            first.core.tick_core.launches = 0
+            drive(first, sess, 0, CHECKPOINT_SAVE_AT)
+            path = os.path.join(folder, f"{family}_backend.npz")
+            t0 = time.perf_counter()
+            first.save(path)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            back = DeviceRollbackBackend.restore(path, game_cls(PLAYERS, CHECKPOINT_N), device=dev)
+            back.block_until_ready()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            back.core.tick_core.launches = 0
+            drive(back, sess, CHECKPOINT_SAVE_AT, CHECKPOINT_FRAMES)
+            back.flush()
+            straight.flush()
+            torch.cuda.synchronize()
+            if back.core.tick_core.launches < 1 or first.core.tick_core.launches < 1:
+                fail(f"checkpoint {family}: the request path launched no K3 kernel around the checkpoint")
+            if not back.core.device_verify or back.lazy_ticks != LAZY_TICKS:
+                fail(f"checkpoint {family}: the restored backend lost its knobs")
+            if carry_err(torch, back.core.carry, straight.core.carry, list(straight.core.carry)):
+                fail(f"checkpoint {family}: the resumed backend's core differs from the uninterrupted one's")
+            back.check()
+            results.append({"family": family, "saved_on": "resim_tick", "resumed_on": "resim_tick",
+                            "bytes": os.path.getsize(path), "save_ms": save_ms, "restore_ms": restore_ms})
+            print(f"checkpoint {family}: DeviceRollbackBackend (K3, device_verify, lazy_ticks={LAZY_TICKS}) saved at "
+                  f"frame {CHECKPOINT_SAVE_AT}, resumed: core == uninterrupted run; {os.path.getsize(path)} B, "
+                  f"save {save_ms:.1f} ms, restore {restore_ms:.1f} ms {tag}")
+            del straight, first, back
+    return results
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1984,6 +2250,7 @@ def main() -> None:
     except ImportError as exc:
         fail(f"the ggrs_tpu_torch package is not beside this script: {exc}")
 
+    started = time.perf_counter()
     card = card_line()
     print(card)
     tag = f"[{card}]"
@@ -1993,9 +2260,8 @@ def main() -> None:
     build.build(kinds)
     print(f"kernel build: {time.perf_counter() - t0:.3f} s for {', '.join(k + '.cu' for k in kinds)} (parallel nvcc)")
     for kind in kinds:
-        for line in build.build_report(kind).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {kind}: {line.strip()}")
+        for line in build.ptxas_summary(build.build_report(kind)):
+            print(f"  {kind}: {line}")
 
     rng = np.random.default_rng(2024)
     scripts = {
@@ -2180,15 +2446,24 @@ def main() -> None:
     # -- phase 16: arena past 16 teams on K1-K5
     team_entries = arena_teams_phase(torch, np, dev, tag)
 
+    # -- phase 17: K2's inline whole-world arena route, then its main path
+    arena_inline_path, inline_entries = arena_inline_phase(torch, np, dev, tag, arena_path)
+
+    # -- phase 18: checkpoints on the card (K1, K2, the injection route, K3)
+    checkpoints = checkpoint_phase(torch, np, dev, tag)
+
     for e in entries:
         e.pop("key")
     entries += tick_entries + beam_entries + arena_entries + arena_tick_entries + arena_beam_entries
     entries += list(swarm_fused.values()) + swarm_tick_entries + swarm_beam_entries + team_entries
+    entries += inline_entries
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"card": card, "main_path": main_path, "request_path": request_path,
                       "beam_path": beam_path, "arena_path": arena_path,
                       "arena_request_path": arena_request_path, "arena_beam_path": arena_beam_path,
                       "swarm_path": swarm_path, "swarm_request_path": swarm_request_path,
-                      "swarm_beam_path": swarm_beam_path}))
+                      "swarm_beam_path": swarm_beam_path, "arena_inline_path": arena_inline_path,
+                      "checkpoints": checkpoints}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -12,8 +12,12 @@ K1 with grid barriers, and the injected-reduction route of K5 (the
 reduction table) and K2; slice 5 puts arena on the request path and in the
 beam (K3, K4). Slice 6 adds the third family, `Swarm` (3-D drones with a
 battery, seven planes), in K1-K4 on every path, and lifts the arena
-kernels' 16-player cap. The
-package imports torch and numpy, never jax and nothing of `ggrs_tpu`; its
+kernels' 16-player cap. Slice 7 adds K2's inline whole-world arena route
+(`backend="cuda-tiled"` on arena, and "auto" past the reference's
+estimate) and durable checkpoints: `DeviceSyncTestSession.save`/`restore`
+and `DeviceRollbackBackend.save`/`restore` write and read the reference's
+.npz format (`utils/checkpoint.py`), so either stack resumes the other's
+files. The package imports torch and numpy, never jax and nothing of `ggrs_tpu`; its
 entry points run on CUDA unless the caller passes device="cpu".
 """
 
@@ -21,6 +25,7 @@ from .device.backend import DeviceRollbackBackend, SnapshotRef
 from .device.resim import ResimCore
 from .device.sync_test import DeviceSyncTestSession
 from .errors import (
+    CheckpointIncompatible,
     ConfigError,
     ContractViolation,
     GGRSError,
@@ -41,6 +46,7 @@ from .types import AdvanceFrame, InputStatus, LoadGameState, SaveGameState
 __all__ = [
     "AdvanceFrame",
     "Arena",
+    "CheckpointIncompatible",
     "ConfigError",
     "ContractViolation",
     "DeviceRollbackBackend",

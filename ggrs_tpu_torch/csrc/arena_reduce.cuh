@@ -86,19 +86,35 @@ struct ArenaReduce {
 
 // T == 1: the reference reduces inline from the state entering every step.
 // Three raw rows rotate: while step k adds to row k % 3, block 0 zeroes row
-// (k+1) % 3 and slower blocks may still read row (k-1) % 3.
+// (k+1) % 3 and slower blocks may still read row (k-1) % 3. A step is three
+// phases — gather (this block's sums of the state entering it), reduce (the
+// grid barrier and the finalize), apply (the step on the finalized row) —
+// which a block that owns several entity tiles runs once per tile, once,
+// and once per tile again (synctest_tiled.cu's persistent inline body).
 struct ArenaInlineStepper : ArenaReduce {
   int k;
 
+  // this entity's team and its enemy, for a block that walks several tiles
+  __device__ __forceinline__ void at(int e) {
+    team = e % num_players;
+    enemy = (team + 1) % num_players;
+  }
+  __device__ __forceinline__ void gather(const arena::State& s, bool active) {
+    zero((k + 1) % 3);
+    add(s, active, k % 3);
+  }
+  __device__ __forceinline__ void reduce() {
+    grid_sync(bar);
+    finalize(k % 3);
+    __syncthreads();
+  }
+  __device__ __forceinline__ void apply(arena::State& s, const int* in) { ArenaReduce::step(s, in, k % 3); }
+
   __device__ __forceinline__ void seed(const arena::State&, bool) {}
   __device__ void step(arena::State& s, bool active, const int* in, int, int) {
-    const int slot = k % 3;
-    zero((k + 1) % 3);
-    add(s, active, slot);
-    grid_sync(bar);
-    finalize(slot);
-    __syncthreads();
-    ArenaReduce::step(s, in, slot);
+    gather(s, active);
+    reduce();
+    apply(s, in);
     ++k;
   }
   __device__ __forceinline__ void frontier_done(const arena::State&, bool, int, int) {}

@@ -33,13 +33,33 @@
 // finalizes the table into shared memory (scalar work for (d+1) x P teams)
 // before its entities step, so blocks stay independent.
 //
+// Arena also runs here as the reference's unsharded whole-world tile
+// (pallas_tiled.py:94-130: external_reduce off, `red_for` None at :285-293,
+// so the adapter reduces from the tile, which is the whole world): any T
+// in one launch, and every step — the d resim steps and the frontier step
+// alike — reduces inline from the whole world entering it. Here that is
+// block team sums, a grid barrier and a finalize in every block
+// (arena_reduce.cuh's ArenaInlineStepper), so the grid is launched
+// cooperatively. The grid is persistent: a block owns tiles b, b + grid,
+// b + 2 grid, ... and the live world sits in `state` in global memory
+// between barriers, so any world arena admits runs, however many tiles it
+// has. A batch pays T * (d+1) grid barriers once past frame d. The
+// reference's 96 MB single-tile budget is a VMEM limit and is not copied.
+// What bounds it on an H100: at 4096 entities its 32 blocks wait on those
+// barriers (~4 us each, a few L2 round trips), far above the int32 work;
+// at 512k entities (16 teams) the kernel's own int32 work sets it — 64 ops
+// a step plus 3 + 3P of block team sums an entity-step, where the function
+// needs 6 for an entity's share of a reduction — and the state, read twice
+// and written once a step, stays in the 50 MB L2.
+//
 // Left for later: holding each block's ring tile in shared memory for the
 // whole batch (10 slots x 5 planes x 128 entities x 4 B = 25.6 KB), so HBM
 // sees each byte exactly once, as the reference's VMEM tile does; a CUDA
-// graph around the two launches.
+// graph around the two launches; keeping the inline route's states in
+// registers when every tile fits the card at once.
 #include <cuda_runtime.h>
 
-#include "arena_step.cuh"
+#include "arena_reduce.cuh"
 #include "swarm_step.cuh"
 #include "synctest_body.cuh"
 
@@ -85,6 +105,91 @@ __global__ void __launch_bounds__(kBlock) synctest_tiled_arena_kernel(
   const int e = blockIdx.x * kBlock + threadIdx.x;
   ArenaTableStepper st{fin, P, a.input_size, e % P, (e % P + 1) % P};
   synctest_entity_batch<arena::Model>(a, smem, st);
+}
+
+// The inline route's batch over the block's tiles, in the event layout of
+// synctest_entity_batch (synctest_body.cuh), with the state in global
+// memory: every step is one pass over the block's tiles reading the state
+// entering it (a save first, when the step has one, then the block's team
+// sums), the grid barrier and the finalize, and a second pass that steps
+// each tile and stores it. `src` is the ring slot a rollback loads for its
+// first step and the live state after it; a pass touches only its own
+// entities' columns, so stepping in place is safe.
+__device__ void arena_inline_tiles_batch(const SyncTestArgs<arena::Weights>& a, uint32_t* red,
+                                         ArenaInlineStepper& st) {
+  const int d = a.d, ring_len = d + 2, P = a.num_players, I = a.input_size, row = P * I;
+  const int tiles = (a.n + kBlock - 1) / kBlock;
+  const int c0 = a.meta[0];
+  const size_t n = (size_t)a.n, slot_stride = (size_t)arena::kPlanes * n;
+
+  // the input row of frame f: this batch's inputs for f >= c0, else the input ring
+  auto input_of = [&](int f) -> const int* {
+    return f >= c0 ? a.inputs + (size_t)(f - c0) * row : a.iring + (size_t)(f % (d + 2)) * row;
+  };
+  // the step of frame f from `src` into the live state; j >= 0: first save
+  // the state entering it as event (t, j)
+  auto step = [&](const int* src, int f, int t, int j) {
+    const int* in = input_of(f);
+    int* dst = a.ring + (size_t)(f % ring_len) * slot_stride;
+    uint32_t hi = 0, lo = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int e = tile * kBlock + threadIdx.x;
+      const bool active = e < a.n;
+      const arena::State s = active ? arena::load(src, n, e) : arena::State{};
+      if (j >= 0 && active) {
+        uint32_t ew[arena::kPlanes], h, l;
+        arena::Model::entity_weights(a.cw, (uint32_t)e, ew);
+        save_entity<arena::Model>(dst, n, e, s, ew, h, l);
+        hi += h;
+        lo += l;
+      }
+      st.at(e);
+      st.gather(s, active);
+    }
+    if (j >= 0) block_event_terms(red, d, t, j, hi, lo);
+    st.reduce();
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int e = tile * kBlock + threadIdx.x;
+      if (e < a.n) {
+        arena::State s = arena::load(src, n, e);
+        st.at(e);
+        st.apply(s, in + (e % P) * I);
+        arena::store(a.state, n, e, s);
+      }
+    }
+    ++st.k;
+  };
+
+  for (int t = 0; t < a.t_ticks; ++t) {
+    const int c = c0 + t;
+    if (c > d) {  // forced rollback (uniform across the grid: c is shared)
+      const int base = c - d;
+      step(a.ring + (size_t)(base % ring_len) * slot_stride, base, t, -1);
+      for (int i = 1; i < d; ++i) step(a.state, base + i, t, i - 1);
+    }
+    step(a.state, c, t, d - 1);
+    add_tick_events(a.parts_hi, a.parts_lo, red, d, t, c);
+  }
+}
+
+// dynamic shared memory of the inline route, in words: the body's event
+// sums, the three rotating finalized rows and the block-sum scratch
+__host__ __device__ inline size_t arena_inline_smem_words(int d, int num_players) {
+  return body_smem_words(d) + 3 * 3 * (size_t)num_players + 3 * (size_t)arena::kTeamChunk * kWarps;
+}
+
+__global__ void __launch_bounds__(kBlock, kArenaMinBlocksPerSm) synctest_tiled_arena_inline_kernel(
+    SyncTestArgs<arena::Weights> a, int* r_frame, int* iring_out, uint32_t* raw, unsigned int* bar) {
+  extern __shared__ uint32_t smem[];
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    synctest_bookkeeping(r_frame, a.iring, iring_out, a.inputs, a.meta[0], a.t_ticks, a.d,
+                         a.num_players * a.input_size);
+  const int P = a.num_players;
+  uint32_t* fin_words = smem + body_smem_words(a.d);
+  ArenaInlineStepper st{{reinterpret_cast<arena::Team*>(fin_words), fin_words + 3 * 3 * (size_t)P, raw, bar,
+                         P, a.input_size, 0, 1 % P},
+                        0};
+  arena_inline_tiles_batch(a, smem, st);
 }
 
 __global__ void synctest_verdict_kernel(const uint32_t* parts_hi, const uint32_t* parts_lo,
@@ -159,6 +264,44 @@ extern "C" int synctest_tiled_arena_launch(int* state, int* ring, int* r_frame, 
     if (err != cudaSuccess) return (int)err;
   }
   synctest_tiled_arena_kernel<<<blocks, kBlock, smem, st>>>(a, r_frame, iring_out, red_raw);
+  return (int)cudaGetLastError();
+}
+
+// Arena inline, T ticks, launched cooperatively on min(tiles, resident)
+// blocks. scratch: barrier [2], then three raw rows [3 * 3P]; both zeroed
+// here. Returns the CUDA error of a reset, the shared-memory attribute, the
+// occupancy query or the launch, or kNotCoResident when not one block fits.
+// cs: 13 int32 — checksum w[6], base[6], frame weight.
+extern "C" int synctest_tiled_inline_arena_launch(int* state, int* ring, int* r_frame, const int* iring,
+                                                  int* iring_out, const int* meta, const int* inputs,
+                                                  uint32_t* parts, uint32_t* scratch, int n,
+                                                  int num_players, int input_size, int d, int t_ticks,
+                                                  const int* cs, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t events = (size_t)t_ticks * d;
+  cudaError_t err = cudaMemsetAsync(parts, 0, 2 * events * sizeof(uint32_t), st);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(scratch, 0, (2 + 9 * (size_t)num_players) * sizeof(uint32_t), st);
+  if (err != cudaSuccess) return (int)err;
+  SyncTestArgs<arena::Weights> a{state, ring, iring, inputs, meta, parts, parts + events,
+                                 n, num_players, input_size, d, t_ticks, 1,
+                                 weights_from<arena::Weights, arena::kPlanes>(cs)};
+  unsigned int* bar = scratch;
+  uint32_t* raw = scratch + 2;
+  const void* fn = (const void*)synctest_tiled_arena_inline_kernel;
+  const size_t smem = arena_inline_smem_words(d, num_players) * sizeof(uint32_t);
+  if (smem > 48 * 1024) {  // many teams: the finalized rows outgrow the default
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  long long resident = 0;
+  if ((err = resident_blocks(fn, smem, &resident)) != cudaSuccess) return (int)err;
+  if (resident < 1) return kNotCoResident;
+  const long long tiles = ((long long)n + kBlock - 1) / kBlock;
+  const int blocks = (int)(tiles < resident ? tiles : resident);
+  void* args[] = {&a, &r_frame, &iring_out, &raw, &bar};
+  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kBlock), args, smem, st);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

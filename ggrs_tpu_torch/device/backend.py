@@ -50,10 +50,11 @@ import numpy as np
 import torch
 
 from ..beam import branching_beam, match_beam_longest
-from ..errors import ConfigError, MismatchedChecksum, TypeContractError
+from ..errors import CheckpointIncompatible, ConfigError, MismatchedChecksum, TypeContractError
 from ..input_model import InputHistoryModel
 from ..ops.fixed_point import combine_checksum
 from ..types import AdvanceFrame, Frame, InputStatus, LoadGameState, Request, SaveGameState
+from ..utils.checkpoint import load_device_checkpoint, save_device_checkpoint
 from .resim import ResimCore
 
 
@@ -855,3 +856,63 @@ class DeviceRollbackBackend:
         self.flush()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    # durable checkpoint/resume, in the reference's file format
+    # ------------------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Write the backend to `path` (".npz" appended when missing) as the
+        reference's `TpuRollbackBackend.save` writes it (backend.py:
+        1675-1712): buffered lazy ticks flushed first, then the core's ring,
+        state and, with device verification, its history, and the
+        reference's meta. The knobs the port does not have are written as a
+        reference backend built with its defaults writes them (its
+        constructor's async_inflight is 4; 2 is only its restore's value
+        for files without the key), its kernel choices as "auto"."""
+        self.flush()
+        save_device_checkpoint(
+            path,
+            self.core.checkpoint_tree(),
+            {
+                "kind": "TpuRollbackBackend",
+                "current_frame": self.current_frame,
+                "max_prediction": self.core.max_prediction,
+                "num_players": self.num_players,
+                "beam_width": self.beam_width,
+                "device_verify": self.core.device_verify,
+                "lazy_ticks": self.lazy_ticks,
+                "async_dispatch": False,
+                "async_inflight": 4,
+                "depth_routing": True,
+                "speculation_gate": self.speculation_gate,
+                "defer_speculation": self.defer_speculation,
+                "spec_backend": "auto",
+                "tick_backend": "auto",
+            },
+        )
+
+    @classmethod
+    def restore(cls, path: str, game, device="cuda") -> "DeviceRollbackBackend":
+        """A backend resumed from a checkpoint of either stack, with the
+        saved knobs (the reference's defaults where a file predates them).
+        The port's kernels serve whatever backend names the file holds: a
+        file that says "xla" still runs K3 on a card."""
+        tree, meta = load_device_checkpoint(path)
+        if meta.get("kind") != "TpuRollbackBackend":
+            raise CheckpointIncompatible(f"checkpoint {path!r} is not a rollback backend's",
+                                         found=meta.get("kind"), expected="TpuRollbackBackend")
+        backend = cls(
+            game,
+            max_prediction=meta["max_prediction"],
+            num_players=meta["num_players"],
+            device_verify=meta.get("device_verify", False),
+            lazy_ticks=meta.get("lazy_ticks", 0),
+            beam_width=meta.get("beam_width", 0),
+            speculation_gate=meta.get("speculation_gate", "always"),
+            defer_speculation=meta.get("defer_speculation", False),
+            device=device,
+        )
+        backend.core.load_checkpoint_tree(tree, f"checkpoint {path!r}")
+        backend.current_frame = meta["current_frame"]
+        return backend

@@ -4,7 +4,12 @@ on it, the verdict kernel folds its checksums.
 
 The one-device counterpart of `ggrs_tpu/tpu/pallas_tiled.py`
 `ShardedPallasTiledCore` in `reduce_mode` (:704-905), with no mesh: a psum
-over one shard is the identity. Per batch:
+over one shard is the identity (`DeviceSyncTestSession(...,
+backend="cuda-tiled-injected")`; "auto" takes it where arena's K1 cannot
+hold its grid resident, since its rolled table keeps the sums K1's cache
+keeps). It holds no state of its own between batches: the table is built
+from the carry and the frame the caller passes, so a restored checkpoint
+resumes on it with nothing to re-arm. Per batch:
 
 - the table of the first tick is built in full by K5 from the carry
   (`reduce_sources`: the ring slots of its resim frames and the live

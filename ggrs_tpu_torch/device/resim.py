@@ -45,8 +45,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..convert import planes_to_reference
-from ..errors import ConfigError, ContractViolation
+from ..convert import planes_to_reference, resim_from_reference, resim_to_reference
+from ..errors import CheckpointIncompatible, ConfigError, ContractViolation
 from ..kernels import launch
 from .beam_core import BeamRollout, Speculation
 from .planes import PlaneContext, pack_planes
@@ -352,6 +352,27 @@ class ResimCore:
                 h_lo=torch.zeros(self.ring_len, **i32),
                 flag=torch.tensor([0, -1], **i32),
             )
+        self.carry = carry
+
+    def checkpoint_tree(self) -> dict:
+        """The carry as the reference's `TpuRollbackBackend.save` writes its
+        core: {"ring", "state"} in the reference's layout and dtypes, and
+        "verify" with device verification."""
+        tree = resim_to_reference(self)
+        if not self.device_verify:
+            del tree["verify"]
+        return tree
+
+    def load_checkpoint_tree(self, tree: dict, source: str = "checkpoint") -> None:
+        """Replace the carry with a checkpoint_tree of either stack; a tree
+        of another world or ring raises CheckpointIncompatible."""
+        carry = resim_from_reference(tree["ring"], tree["state"], tree.get("verify", {}) if self.device_verify else {},
+                                     self.device)
+        for k, v in self.carry.items():
+            got = carry.get(k)
+            if got is None or got.shape != v.shape:
+                raise CheckpointIncompatible(f"{source} holds {k} of another shape than this core's",
+                                             found=None if got is None else list(got.shape), expected=list(v.shape))
         self.carry = carry
 
     def fetch_state(self) -> dict:

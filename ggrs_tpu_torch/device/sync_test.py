@@ -13,19 +13,20 @@ carry (`ggrs_tpu_torch.convert` documents its layout) is updated in place.
 Backends:
   "cuda-fused"  K1, the whole-batch kernel (`fused_core`);
   "cuda-tiled"  K2, the entity-tiled kernel plus its verdict post-pass
-                (`tiled_core`); for a game with a cross-entity reduction
-                (arena), the injected-reduction route, K5 + K2 one tick
-                per launch + the verdict (`injected_core`);
+                (`tiled_core`), as the reference's "pallas-tiled" with no
+                mesh; for a game with a cross-entity reduction (arena),
+                K2's inline whole-world route: every step reduces from the
+                world entering it, giving the reference XLA scan's bits;
+  "cuda-tiled-injected"
+                arena's injected-reduction route, K5 + K2 one tick per
+                launch + the verdict (`injected_core`): the single-device
+                stand-in for the reference's "pallas-tiled" on a mesh
+                (reduce injection) until `parallel/` is ported;
   "torch"       the plain PyTorch version of the reference's XLA scan
                 (`plain_scan`: every step reduces inline);
-  "auto"        on CUDA, K1 while the reference's VMEM estimate of the
-                configuration stays within 96 MB (and, for arena, while
-                K1's grid can be resident on the card for its grid
-                barriers), K2 beyond, as the reference chooses on a TPU.
-                Beyond the envelope the reference answers arena with its
-                XLA scan; the port keeps its plain version off the card,
-                so it takes the injected-reduction kernel route there.
-                On the CPU, "torch".
+  "auto"        on CUDA, the port's route for what the reference's
+                `_pick_backend` answers on a TPU with no mesh
+                (`pick_backend`); on the CPU, "torch".
 A kernel backend given a CPU carry runs its plain version; on a CUDA
 carry it launches its kernel or raises — it never falls back.
 """
@@ -35,14 +36,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..convert import carry_to_reference
-from ..errors import ConfigError, MismatchedChecksum
+from ..convert import CARRY_KEYS, carry_from_reference, carry_to_reference
+from ..errors import CheckpointIncompatible, ConfigError, MismatchedChecksum
+from ..utils.checkpoint import load_device_checkpoint, save_device_checkpoint
 from .fused_core import FusedSyncTestCore
 from .injected_core import InjectedReduceCore
 from .planes import VMEM_BUDGET_BYTES, PlaneContext, get_adapter, pack_planes, vmem_estimate
 from .tiled_core import TiledSyncTestCore, plain_parts, plain_verdict
 
-BACKENDS = ("auto", "torch", "cuda-fused", "cuda-tiled")
+BACKENDS = ("auto", "torch", "cuda-fused", "cuda-tiled", "cuda-tiled-injected")
 
 
 def resolve_device(device) -> torch.device:
@@ -66,18 +68,32 @@ ARENA_FUSED_BLOCKS_PER_SM = 8
 
 
 def pick_backend(game, check_distance: int, device: torch.device) -> str:
-    """Resolve backend="auto": K1 inside the reference's whole-batch VMEM
-    envelope, K2 beyond it (ex_game and swarm are per-entity independent,
-    so K2 takes any world size; arena takes it with injected reductions).
-    Arena's K1 also needs its whole grid resident at once."""
+    """Resolve backend="auto" as the reference's `_pick_backend`
+    (ggrs_tpu/tpu/sync_test.py:33-66) answers on a TPU with no mesh,
+    mapped to the port's route that gives the same bits:
+
+    - reference "pallas" (K1: inside the whole-batch estimate of 96 MB,
+      128-aligned) -> "cuda-fused"; for arena, whose K1 needs its whole
+      grid resident for its barriers, "cuda-tiled-injected" where it is
+      not (its rolled table keeps the sums K1's cache keeps);
+    - reference "pallas-tiled" (beyond the estimate, a tileable model:
+      ex_game, swarm) -> "cuda-tiled";
+    - reference "xla" (arena beyond the estimate, arena is not tileable;
+      or a world that is not 128-aligned) -> for arena "cuda-tiled", the
+      inline route, which reduces at every step as the XLA scan does; a
+      per-entity model gives the same bits on every route and keeps K1
+      inside the estimate and K2 beyond it.
+    """
     if device.type != "cuda":
         return "torch"
-    if vmem_estimate(game, check_distance) > VMEM_BUDGET_BYTES:
+    inside = vmem_estimate(game, check_distance) <= VMEM_BUDGET_BYTES
+    if not get_adapter(game).reduce_len:
+        return "cuda-fused" if inside else "cuda-tiled"
+    if not inside or game.num_entities % 128:
         return "cuda-tiled"
-    if get_adapter(game).reduce_len:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        if -(-game.num_entities // 128) > ARENA_FUSED_BLOCKS_PER_SM * sms:
-            return "cuda-tiled"
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if -(-game.num_entities // 128) > ARENA_FUSED_BLOCKS_PER_SM * sms:
+        return "cuda-tiled-injected"
     return "cuda-fused"
 
 
@@ -134,11 +150,14 @@ class DeviceSyncTestSession:
         self.ring_len = self.ctx.ring_len
         self.hist_len = self.ctx.hist_len
         self.carry = initial_carry(self.ctx)
+        if backend == "cuda-tiled-injected" and not self.ctx.reduce_len:
+            raise ConfigError(f"{type(game).__name__} has no cross-entity reduction to inject")
         # the kernel wrapper (None for the plain backend)
-        tiled = InjectedReduceCore if self.ctx.reduce_len else TiledSyncTestCore
-        self.core = {"cuda-fused": FusedSyncTestCore, "cuda-tiled": tiled}.get(
-            backend, lambda ctx: None
-        )(self.ctx)
+        self.core = {
+            "cuda-fused": FusedSyncTestCore,
+            "cuda-tiled": TiledSyncTestCore,
+            "cuda-tiled-injected": InjectedReduceCore,
+        }.get(backend, lambda ctx: None)(self.ctx)
         self._raw_inputs: list = []  # host-side delay shift buffer
         self.current_frame = 0
 
@@ -181,3 +200,45 @@ class DeviceSyncTestSession:
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    # durable checkpoint/resume, in the reference's file format
+    # ------------------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Write the session to `path` (".npz" appended when missing) as
+        the reference's `TpuSyncTestSession.save` writes it: the carry in
+        the reference's layout and dtypes, and its meta, so the reference
+        restores this file and this class restores the reference's."""
+        meta = {
+            "kind": "TpuSyncTestSession",
+            "num_players": self.num_players,
+            "check_distance": self.check_distance,
+            "input_delay": self.input_delay,
+            "current_frame": self.current_frame,
+            "raw_inputs": [r.tolist() for r in self._raw_inputs],
+        }
+        save_device_checkpoint(path, carry_to_reference(self.carry), meta)
+
+    @classmethod
+    def restore(cls, path: str, game, backend: str = "auto", device="cuda") -> "DeviceSyncTestSession":
+        """A session resumed from a checkpoint of either stack. The carry is
+        the same on every route, so any backend may resume it. The
+        injection route needs no re-arming, as the reference's core does
+        on restore (ggrs_tpu/tpu/sync_test.py:408-412): `advance_frames`
+        hands it the restored frame, from which it builds its table."""
+        tree, meta = load_device_checkpoint(path)
+        if meta.get("kind") != "TpuSyncTestSession":
+            raise CheckpointIncompatible(f"checkpoint {path!r} is not a SyncTest session's",
+                                         found=meta.get("kind"), expected="TpuSyncTestSession")
+        sess = cls(game, meta["num_players"], meta["check_distance"], input_delay=meta["input_delay"],
+                   backend=backend, device=device)
+        carry = carry_from_reference(tree, sess.device)
+        for k in CARRY_KEYS:
+            if carry[k].shape != sess.carry[k].shape:
+                raise CheckpointIncompatible(f"checkpoint {path!r} holds {k} of another shape than this game's",
+                                             found=list(carry[k].shape), expected=list(sess.carry[k].shape))
+        sess.carry = carry
+        sess.current_frame = meta["current_frame"]
+        sess._raw_inputs = [np.asarray(r, dtype=np.uint8) for r in meta["raw_inputs"]]
+        return sess

@@ -19,12 +19,19 @@ on a CPU carry it runs the plain version beside it (`plain_parts`,
 `plain_verdict`). The plain versions are also what the tests hold against
 the reference and what `chip_smoke.py` holds the kernels against.
 
-A game with a cross-entity reduction (arena) runs here only in the
-reference's `external_reduce` mode: one tick per launch, with the complete
-raw reduction table `red_raw [d+1, R]` handed in (row i for the resim step
-of frame base+i, row d for the frontier step), which the caller builds
-with K5 (`injected_core`). Each block finalizes the table itself, so the
-entity tiles stay independent.
+A game with a cross-entity reduction (arena) runs here in one of the
+reference's two modes:
+
+- inline, the reference's unsharded whole-world tile (pallas_tiled.py:
+  94-130, `red_raw` None): any T per launch, and every step reduces from
+  the whole world entering it, as the XLA scan does. The kernel runs a
+  persistent cooperative grid with a grid barrier per step; its plain
+  version is `plain_parts` with `red_of` None, what `plain_scan` runs;
+- `external_reduce`: one tick per launch, with the complete raw reduction
+  table `red_raw [d+1, R]` handed in (row i for the resim step of frame
+  base+i, row d for the frontier step), which the caller builds with K5
+  (`injected_core`). Each block finalizes the table itself, so the entity
+  tiles stay independent.
 """
 
 from __future__ import annotations
@@ -127,8 +134,8 @@ def check_injected(ctx: PlaneContext, inputs: torch.Tensor, red_raw) -> None:
     """A reduction game runs K2 one tick at a time on an injected table (the
     reference asserts the same, pallas_tiled.py:204-209): tick t+1's
     frontier reduction does not exist when tick t launches."""
-    if red_raw is None:
-        raise ConfigError("a game with a cross-entity reduction needs its red_raw table (injected_core)")
+    if not ctx.reduce_len:
+        raise ConfigError(f"{type(ctx.game).__name__} has no cross-entity reduction to inject")
     if inputs.shape[0] != 1:
         raise ConfigError(f"an injected-reduction launch runs one tick, got {inputs.shape[0]}")
     if tuple(red_raw.shape) != (ctx.d + 1, ctx.reduce_len):
@@ -148,17 +155,18 @@ class TiledSyncTestCore:
 
     def run_kernel(self, carry, inputs: torch.Tensor, red_raw=None):
         """T ticks in place; returns (parts_hi, parts_lo) [T, d] int32. A
-        game with a reduction takes one tick and its injected table
-        `red_raw` int32 [d+1, R]."""
+        game with a reduction reduces inline at every step, or takes one
+        tick on its injected table `red_raw` int32 [d+1, R]."""
         ctx = self.ctx
-        if ctx.reduce_len:
+        if red_raw is not None:
             check_injected(ctx, inputs, red_raw)
         if carry["state"].device.type == "cpu":
             if red_raw is None:
                 return plain_parts(carry, inputs, ctx)
             rows = [ctx.adapter.reduce_finalize(r) for r in red_raw]
             return plain_parts(carry, inputs, ctx, red_of=lambda f, i: rows[i])
-        entry = launch.require_adapter(ctx, self.kernel)
+        inline = ctx.reduce_len and red_raw is None
+        entry = launch.require_adapter(ctx, "synctest_tiled_inline" if inline else self.kernel)
         launch.check_carry(carry, ctx, inputs)
         lib = build.load(self.kernel)
         P, I = launch.P, launch.I
@@ -169,7 +177,14 @@ class TiledSyncTestCore:
         ptrs = (carry["state"].data_ptr(), carry["ring"].data_ptr(), carry["r_frame"].data_ptr(),
                 carry["iring"].data_ptr(), iring_out.data_ptr(), carry["meta"].data_ptr(),
                 inputs.data_ptr())
-        if entry.reduces:
+        if inline:
+            # the grid barrier [2] and three rotating raw rows [3, R]
+            scratch = torch.empty(2 + 3 * ctx.reduce_len, dtype=torch.int32, device=device)
+            fn = launch.declare(lib, entry.symbol, [P] * 9 + [I] * 5 + [P, P])
+            rc = fn(*ptrs, parts.data_ptr(), scratch.data_ptr(), ctx.n, ctx.num_players, ctx.input_size,
+                    ctx.d, t_ticks, launch.weights_arg(ctx), launch.stream_of(device))
+            launch.raise_cooperative(rc, entry.symbol)
+        elif entry.reduces:
             launch.check_tensors(device, red_raw=(red_raw, (ctx.d + 1, ctx.reduce_len)))
             fn = launch.declare(lib, entry.symbol, [P] * 9 + [I] * 5 + [P, P])
             rc = fn(*ptrs, red_raw.data_ptr(), parts.data_ptr(), ctx.n, ctx.num_players, ctx.input_size,

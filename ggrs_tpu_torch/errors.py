@@ -1,9 +1,9 @@
 """The typed errors of the port. `GGRSError`, `PredictionThreshold`,
 `InvalidRequest`, `MismatchedChecksum`, `ConfigError`, `TypeContractError`,
-`ContractViolation`, `RegistryMiss` and `ModelIncompatible` mirror the
-reference's classes, each with its stdlib base kept; `KernelError` is the
-port's own, for a CUDA kernel that does not build or whose launch is
-refused."""
+`ContractViolation`, `RegistryMiss`, `CheckpointIncompatible` and
+`ModelIncompatible` mirror the reference's classes, each with its stdlib
+base kept; `KernelError` is the port's own, for a CUDA kernel that does not
+build or whose launch is refused."""
 
 from __future__ import annotations
 
@@ -66,10 +66,13 @@ class KernelError(GGRSError, RuntimeError):
     no fallback to the plain version on a card."""
 
 
-class ModelIncompatible(GGRSError):
-    """An input-model state cannot be loaded here: its kind or its game
-    identity (players, input size) differs from the target's. Carries both
-    values so the message says which side is which."""
+class CheckpointIncompatible(GGRSError):
+    """A durable checkpoint cannot be restored here: its format version
+    is newer than this build understands, its payload manifest does not
+    match the file's contents (truncation/corruption), or its meta names
+    a different core/game than the restore target. Carries both versions
+    so the operator-facing message says which side to upgrade, instead of
+    a shape error deep inside the restore."""
 
     def __init__(self, info: str, *, found=None, expected=None):
         detail = ""
@@ -79,3 +82,9 @@ class ModelIncompatible(GGRSError):
         self.info = info
         self.found = found
         self.expected = expected
+
+
+class ModelIncompatible(CheckpointIncompatible):
+    """An input-model state cannot be loaded here: its kind or its game
+    identity (players, input size) differs from the target's. Carries both
+    values so the message says which side is which."""

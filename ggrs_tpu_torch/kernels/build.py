@@ -15,10 +15,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 from ..errors import KernelError
 
@@ -94,6 +95,23 @@ def build_report(name: str) -> str:
     """What ptxas said about a built library (registers, shared memory)."""
     log = library_path(name).with_suffix(".so.log")
     return log.read_text() if log.exists() else ""
+
+
+def ptxas_summary(report: str) -> List[str]:
+    """One line per kernel of a ptxas report: its (mangled) name, registers
+    and spill bytes."""
+    lines, name, spills = [], "?", ""
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name, spills = entry.group(1), ""
+        elif "spill stores" in line:
+            spills = line.strip()
+        else:
+            used = re.search(r"Used (\d+) registers", line)
+            if used:
+                lines.append(f"{name}: {used.group(1)} registers; {spills}")
+    return lines
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -82,6 +82,8 @@ ENTRIES: Dict[str, Dict[type, Entry]] = {
         SwarmPlanes: Entry("synctest_tiled_swarm_launch", False, False),
         ArenaPlanes: Entry("synctest_tiled_arena_launch", False, True),
     },
+    # K2's inline whole-world route, in the synctest_tiled library: arena only
+    "synctest_tiled_inline": {ArenaPlanes: Entry("synctest_tiled_inline_arena_launch", False, True)},
     "resim_tick": {
         ExGamePlanes: Entry("resim_tick_launch", True, False),
         SwarmPlanes: Entry("resim_tick_swarm_launch", False, False),

@@ -6,8 +6,12 @@ clean runs and after a divergence probe:
     port backend (CPU plain twin)   reference backend
     "torch"                         "xla" (inline reductions)
     "cuda-fused", T = 10 and T = 1  "pallas-interpret" (cached / inline)
-    "cuda-tiled"                    "pallas-tiled-interpret" on a
+    "cuda-tiled-injected"           "pallas-tiled-interpret" on a
                                     one-device mesh (reduce injection)
+
+("cuda-tiled", K2's inline whole-world route, is held against the
+reference's "pallas-tiled-interpret" with no mesh and "xla" in
+tests/test_torch_arena_tiled_inline.py.)
 
 The probe kills entities (hp = 0) in the ring slot the next rollback
 loads: the routes then disagree with each other (the cache and the
@@ -25,7 +29,7 @@ from ggrs_tpu.errors import MismatchedChecksum as RefMismatchedChecksum
 from ggrs_tpu.models.arena import Arena as RefArena
 from ggrs_tpu.parallel.mesh import make_mesh
 from ggrs_tpu.tpu import TpuSyncTestSession
-from ggrs_tpu_torch import Arena, DeviceSyncTestSession, MismatchedChecksum
+from ggrs_tpu_torch import Arena, ConfigError, DeviceSyncTestSession, MismatchedChecksum
 from ggrs_tpu_torch.convert import CARRY_KEYS, carry_from_reference, carry_to_reference
 from ggrs_tpu_torch.device import sync_test
 from ggrs_tpu_torch.device.fused_core import FusedSyncTestCore, plain_batch
@@ -110,12 +114,13 @@ def test_torch_backend_matches_reference_xla(players, input_size):
 
 
 @pytest.mark.parametrize("players,n,input_size", [(17, 384, 1), (32, 512, 2)])
-@pytest.mark.parametrize("port_backend,t_ticks", [("cuda-fused", 10), ("cuda-fused", 1), ("cuda-tiled", 10)])
+@pytest.mark.parametrize("port_backend,t_ticks", [("cuda-fused", 10), ("cuda-fused", 1), ("cuda-tiled", 10),
+                                                   ("cuda-tiled-injected", 10)])
 def test_many_teams_routes_match_reference_xla(port_backend, t_ticks, players, n, input_size):
     """Past 16 teams (the kernels sum teams 16 a pass), every route's plain
-    version — K1 with the cache (T = 10) and inline (T = 1), the injection
-    route — equals the reference's XLA scan on a clean run across frame d,
-    where all routes give the same bits."""
+    version — K1 with the cache (T = 10) and inline (T = 1), K2's inline
+    route, the injection route — equals the reference's XLA scan on a clean
+    run across frame d, where all routes give the same bits."""
     run_pair("xla", port_backend, players, n, input_size, t_ticks, clean=20 if t_ticks > 1 else 8, probe=0)
 
 
@@ -144,15 +149,16 @@ def test_injected_twin_matches_reference_one_device_mesh(xla_probe_carry):
     """The injection route (K5 tables rolled tick by tick from frame d on,
     K2 one tick per launch, the verdict) equals the reference's sharded
     tiled core on a one-device mesh over 40 frames crossing frame d."""
-    carry = run_pair("pallas-tiled-interpret", "cuda-tiled", 2, 256, 1, 10, clean=20, probe=20,
+    carry = run_pair("pallas-tiled-interpret", "cuda-tiled-injected", 2, 256, 1, 10, clean=20, probe=20,
                      mesh=make_mesh(1))
     assert differs(carry, xla_probe_carry)
 
 
 def test_wrappers_take_cpu_carries():
-    """K1's and the injection route's wrappers on a CPU carry run their
-    plain twins and count no launch; K2 alone refuses an arena batch
-    without its table or of more than one tick."""
+    """K1's, K2's and the injection route's wrappers on a CPU carry run
+    their plain twins and count no launch: K2 without a table is the inline
+    route, the plain scan's bits; K2 refuses an injected table for more
+    than one tick."""
     ctx = PlaneContext(Arena(2, 256), 2, D, "cpu")
     inputs = torch.from_numpy(script(12, 2, 1, seed=3).astype(np.int32))
     want = sync_test.initial_carry(ctx)
@@ -166,32 +172,70 @@ def test_wrappers_take_cpu_carries():
     carry = sync_test.initial_carry(ctx)
     injected.batch(carry, inputs)
     assert torch.equal(carry["state"], want["state"])
-    assert fused.launches == injected.tiled.launches == injected.reduce.launches == 0
-    with pytest.raises(ValueError, match="red_raw"):
-        TiledSyncTestCore(ctx).batch(carry, inputs[:1])
+    inline = TiledSyncTestCore(ctx)
+    carry, scanned = sync_test.initial_carry(ctx), sync_test.initial_carry(ctx)
+    inline.batch(carry, inputs)
+    sync_test.plain_scan(scanned, inputs, ctx)
+    for k in CARRY_KEYS:
+        assert torch.equal(carry[k], scanned[k]), k
+    assert fused.launches == injected.tiled.launches == injected.reduce.launches == inline.launches == 0
     with pytest.raises(ValueError, match="one tick"):
         TiledSyncTestCore(ctx).run_kernel(carry, inputs[:2], red_raw=torch.zeros((D + 1, 6), dtype=torch.int32))
 
 
+# (game, check distance, the reference's `_pick_backend` on a TPU with no
+# mesh, the port's route for it); an H100 has 132 SMs, arena's K1 keeps 8
+# blocks of 128 entities resident on each (1056 blocks)
+AUTO_CASES = [
+    (RefArena(2, 4096), Arena(2, 4096), 8, "pallas", "cuda-fused"),
+    (RefArena(2, 65536), Arena(2, 65536), 8, "pallas", "cuda-fused"),  # 34.6 MB estimate
+    # inside the 96 MB estimate, but 1562 blocks: K1 cannot be resident;
+    # the injection route keeps the sums K1's cache keeps
+    (RefArena(8, 199936), Arena(8, 199936), 1, "pallas", "cuda-tiled-injected"),
+    # not 128-aligned: the reference's XLA scan, reducing inline
+    (RefArena(8, 200000), Arena(8, 200000), 1, "xla", "cuda-tiled"),
+    (RefArena(2, 4000), Arena(2, 4000), 8, "xla", "cuda-tiled"),
+    # past the estimate (277 MB): arena is not tileable, so the XLA scan
+    (RefArena(16, 1 << 19), Arena(16, 1 << 19), 8, "xla", "cuda-tiled"),
+    (RefArena(8, 1 << 18), Arena(8, 1 << 18), 16, "xla", "cuda-tiled"),
+]
+
+
 def test_auto_picks_as_the_reference_does(monkeypatch):
-    """auto: K1 inside the VMEM envelope while K1's grid fits the card for
-    its barriers (8 blocks of 128 entities per SM, 132 SMs on an H100),
-    the injection route beyond; the plain version on the CPU."""
+    """auto answers every arena case with the port's route for the
+    reference's decision: K1 for "pallas" (the injection route where K1's
+    grid cannot be resident), K2's inline route for "xla", whose bits it
+    gives (tests/test_torch_arena_tiled_inline.py); the plain version on
+    the CPU. The reference's decision is taken from its `_pick_backend` as
+    on a TPU and checked against the one written beside each case. A team
+    of 2^16 entities is past arena's exact-division envelope: the
+    reference's adapter refuses it (so its auto answers "xla"), and so does
+    the port's, everywhere."""
+    import ggrs_tpu.tpu.sync_test as ref_sync_test
 
     class Props:
         multi_processor_count = 132
 
+    class Tpu:
+        platform = "tpu"
+
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: Props())
+    monkeypatch.setattr(ref_sync_test.jax, "devices", lambda *a: [Tpu()])
     cuda = torch.device("cuda")
-    assert sync_test.pick_backend(Arena(2, 4096), 8, cuda) == "cuda-fused"
-    assert sync_test.pick_backend(Arena(2, 65536), 8, cuda) == "cuda-fused"
-    assert sync_test.pick_backend(Arena(8, 200000), 1, cuda) == "cuda-tiled"  # 1563 blocks
-    assert sync_test.pick_backend(Arena(16, 1 << 19), 8, cuda) == "cuda-tiled"  # VMEM
+    for ref_game, game, d, ref_pick, port_pick in AUTO_CASES:
+        assert ref_sync_test._pick_backend(ref_game, d, None) == ref_pick, (game.num_entities, d)
+        assert sync_test.pick_backend(game, d, cuda) == port_pick, (game.num_entities, d)
+    assert ref_sync_test._pick_backend(RefArena(2, 1 << 17), 8, None) == "xla"
+    with pytest.raises(ConfigError, match="envelope"):
+        sync_test.pick_backend(Arena(2, 1 << 17), 8, cuda)
+    monkeypatch.undo()
     assert sync_test.pick_backend(Arena(2, 4096), 8, torch.device("cpu")) == "torch"
     session = DeviceSyncTestSession(Arena(2, 256), 2, D, device="cpu")
     assert session.backend == "torch" and session.core is None
-    assert isinstance(DeviceSyncTestSession(Arena(2, 256), 2, D, backend="cuda-tiled", device="cpu").core,
-                      InjectedReduceCore)
+    cores = {b: type(DeviceSyncTestSession(Arena(2, 256), 2, D, backend=b, device="cpu").core)
+             for b in ("cuda-fused", "cuda-tiled", "cuda-tiled-injected")}
+    assert cores == {"cuda-fused": FusedSyncTestCore, "cuda-tiled": TiledSyncTestCore,
+                     "cuda-tiled-injected": InjectedReduceCore}
 
 
 @pytest.mark.parametrize("input_size", [1, 2])

@@ -28,7 +28,7 @@ from ggrs_tpu_torch.device.reduce_core import ReduceTableCore, plain_reduce_tabl
 from ggrs_tpu_torch.device.planes import PlaneContext
 from ggrs_tpu_torch.device.resim import RESIM_KEYS, ResimCore
 from ggrs_tpu_torch.device.tick_core import plain_tick_multi
-from ggrs_tpu_torch.device.tiled_core import TiledSyncTestCore
+from ggrs_tpu_torch.device.tiled_core import TiledSyncTestCore, plain_parts, plain_verdict
 from ggrs_tpu_torch.kernels import build
 
 
@@ -359,6 +359,40 @@ def test_arena_many_teams_reduce_and_injected_route_match_plain_on_card(cuda_car
     slots = source_slots(21, ctx.d, ctx.ring_len)
     want = plain_reduce_table(torch.stack([kernel["state"] if s < 0 else kernel["ring"][s] for s in slots]), ctx)
     assert torch.equal(core.reduce.reduce_sources(kernel, 21), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("players,n,input_size,t_ticks", [(2, 4096, 1, 24), (3, 4096, 2, 1), (17, 4352, 1, 12),
+                                                         (16, 1 << 19, 1, 12)])
+def test_arena_tiled_inline_kernel_matches_plain_on_card(cuda_card, players, n, input_size, t_ticks):
+    """K2's inline whole-world arena route (any T per launch, a grid barrier
+    before every step, a persistent cooperative grid over the entity tiles:
+    Arena(16, 2^19) has 4096 tiles, more than the card holds at once)
+    equals plain_parts and plain_verdict — parts and full carry after every
+    batch, across frame d, and after hp = 0 in the slot the next rollback
+    loads, where both latch the same frame."""
+    ctx = PlaneContext(Arena(players, n, input_size), players, 8, torch.device("cuda"))
+    core = TiledSyncTestCore(ctx)
+    kernel = sync_test.initial_carry(ctx)
+    plain = copy_carry(kernel)
+    rng = np.random.default_rng(players + t_ticks)
+    batches = 3 if t_ticks > 1 else 12
+    for b in range(batches):
+        if b == batches - 1:
+            slot = (int(kernel["meta"][0]) - ctx.d) % ctx.ring_len
+            for carry in (kernel, plain):
+                carry["ring"][slot, 4, :64] = 0
+        inputs = arena_script(rng, t_ticks, players, input_size)
+        k_hi, k_lo = core.run_kernel(kernel, inputs)
+        p_hi, p_lo = plain_parts(plain, inputs, ctx)
+        torch.cuda.synchronize()
+        assert torch.equal(k_hi, p_hi) and torch.equal(k_lo, p_lo), b
+        core.verdict(kernel, k_hi, k_lo)
+        plain_verdict(plain, p_hi, p_lo, ctx)
+        for k in CARRY_KEYS:
+            assert torch.equal(kernel[k], plain[k]), (b, k)
+    assert core.launches == core.verdict_launches == batches
+    assert kernel["meta"][1] == 1  # the probe latched
 
 
 def swarm_script(rng, t_ticks, players):
