@@ -10,9 +10,9 @@ NVIDIA card (written for an H100). Run from the repository root:
 2. Holds each kernel against its plain PyTorch version on the card, full
    carry compared bit for bit after every batch (tolerance zero: the
    determinism contract is exact): K1 (whole-batch) on ExGame(2, 4096),
-   d=8, T=60, 5 batches and ExGame(2, 65536), d=16, T=60; K2 (entity-tiled,
-   plus its verdict post-pass) on ExGame(2, 1048576), d=8, T=240, 2
-   batches. Then a divergence probe per kernel: corrupt the ring slot the
+   d=8, T=60, 3 batches and ExGame(2, 65536), d=16, T=60; K2 (entity-tiled,
+   plus its verdict post-pass) on ExGame(2, 1048576), d=8, T=240, 1
+   batch. Then a divergence probe per kernel: corrupt the ring slot the
    next rollback loads, and kernel and plain version must latch the same
    mismatch frame.
 3. Drives the main path, `DeviceSyncTestSession(backend="auto")`, at the
@@ -63,7 +63,7 @@ NVIDIA card (written for an H100). Run from the repository root:
    a mismatch with the beam on.
 8. Holds arena's K1 (per-frame reduction cache and grid barriers) against
    its plain version, full carry after every batch, tolerance zero:
-   a1_4096 (Arena(2, 4096), d=8, T=60, 5 batches), a1_65536 (Arena(2,
+   a1_4096 (Arena(2, 4096), d=8, T=60, 3 batches), a1_65536 (Arena(2,
    65536), 2 batches), a1_4p_w (Arena(4, 4096, input_size=2), 2 batches),
    and 12 single-tick batches at 4096 (inline reductions, across frame d).
    A divergence probe per mode kills entities (hp = 0) in the ring slot the
@@ -108,7 +108,8 @@ NVIDIA card (written for an H100). Run from the repository root:
 12. Holds swarm's K1 and K2 bodies against their plain versions, full
    carry after every batch (K2's parts too), inputs below 128 (every axis
    bit and BOOST): s1_4096 (Swarm(2, 4096), d=8, T=60, bench.py:891) and
-   s2_1m (Swarm(2, 1048576), d=8, T=240, 308 MB of state and ring), each
+   s2_1m (Swarm(2, 1048576), d=8, T=240, one batch, 308 MB of state and
+   ring), each
    with a position probe (px of the slot the next rollback loads) that
    kernel and plain version latch at the same frame.
 13. Drives swarm's fused main path, `DeviceSyncTestSession(Swarm(2, N),
@@ -130,16 +131,23 @@ NVIDIA card (written for an H100). Run from the repository root:
    speculations against their plain versions, kill probes on K1 and the
    injection route, then the main path (auto -> K1) with its launch count.
 17. K2's inline whole-world arena route (every step reduces from the world
-   entering it: a grid barrier per step, a persistent cooperative grid)
+   entering it, a grid barrier a step) in each regime `inline_plan` picks,
    against plain_parts and plain_verdict, parts and full carry after every
    batch, with a kill probe that both latch at the same frame with the same
    world after it: ati_4096 (Arena(2, 4096), d=8, T=60, explicit
-   backend="cuda-tiled") and ati_512k (Arena(16, 524288), d=8, T=60, 138 MB
-   of state and ring, through backend="auto", which must pick it: past the
-   reference's whole-batch estimate its auto answers the XLA scan). Then
-   each through the session, launch counts 0 before and above 0 after,
-   carry == plain, `check()` passing; ms a batch and a tick, beside the
-   injection route's ms a tick at 4096 from phase 9.
+   backend="cuda-tiled": the states on chip), ati_512k (Arena(16, 524288),
+   T=60, 138 MB of state and ring, through backend="auto", which must pick
+   it: past the reference's whole-batch estimate its auto answers the XLA
+   scan; the states on chip), ati_p5 (Arena(5, 20000), T=30: blocks of 160
+   threads, so a thread's team is fixed with five teams) and ati_2m
+   (Arena(32, 2000000), T=2, "auto": past what the card holds on chip, the
+   states in global memory). Each prints its regime and must take the
+   expected one. Then each through the session, launch counts 0 before and
+   above 0 after, carry == plain, `check()` passing; ms a batch and a tick,
+   beside the injection route's ms a tick at 4096 from phase 9. Then what
+   the on-chip states buy: kernel-only ms a batch of ati_4096's and
+   ati_512k's worlds with the states on chip and in global memory (both
+   must end with the same carry).
 18. Checkpoints on the card for ex_game, arena and swarm at 4096 entities:
    a session saved mid-run on K1, K2 (inline for arena) and the injection
    route, restored under the same backend and under another, run on, and
@@ -177,9 +185,9 @@ PLAYERS = 2
 
 SHAPES = [
     # key, kernel "auto" must choose, entities, check distance, ticks per batch, batches
-    ("k1_4096", "cuda-fused", 4096, 8, 60, 5),
+    ("k1_4096", "cuda-fused", 4096, 8, 60, 3),
     ("k1_65536", "cuda-fused", 65536, 16, 60, 1),
-    ("k2_1m", "cuda-tiled", 1 << 20, 8, 240, 2),
+    ("k2_1m", "cuda-tiled", 1 << 20, 8, 240, 1),
 ]
 # kernel timing reps (back to back), and main-path batches timed one by one:
 # 100 samples give a p90 with ten samples beyond it
@@ -222,7 +230,7 @@ BEAM_SCRIPTS = {
 # arena (K1 with reductions, K5, K2 with an injected table)
 ARENA_SHAPES = [
     # key, players, entities, input_size, check distance, ticks per batch, batches
-    ("a1_4096", 2, 4096, 1, 8, 60, 5),  # bench.py:891-893, the headline arena cell
+    ("a1_4096", 2, 4096, 1, 8, 60, 3),  # bench.py:891-893, the headline arena cell
     ("a1_65536", 2, 65536, 1, 8, 60, 2),  # top of arena's envelope (32768 per team)
     ("a1_4p_w", 4, 4096, 2, 8, 60, 2),  # R = 12 and the throttle byte; parity only
 ]
@@ -278,8 +286,8 @@ ARENA_BEAM_SCRIPTS = {
 SWARM_MOD = 128
 SWARM_SHAPES = [
     # key, kernel "auto" must choose, entities, check distance, ticks per batch, batches
-    ("s1_4096", "cuda-fused", 4096, 8, 60, 5),  # bench.py:891, the reference's headline swarm cell
-    ("s2_1m", "cuda-tiled", 1 << 20, 8, 240, 2),  # bench.py:242's 1M world on swarm: 308 MB of state and ring
+    ("s1_4096", "cuda-fused", 4096, 8, 60, 3),  # bench.py:891, the reference's headline swarm cell
+    ("s2_1m", "cuda-tiled", 1 << 20, 8, 240, 1),  # bench.py:242's 1M world on swarm: 308 MB of state and ring
 ]
 SWARM_TIMED = {"s1_4096": 20, "s2_1m": 3}
 SWARM_MAIN_BATCHES = {"s1_4096": 100, "s2_1m": 8}
@@ -305,14 +313,27 @@ ARENA_TEAM_BATCHES = 3  # K1 batches of 20 ticks, the main path's too
 
 # K2's inline whole-world arena route: key, players, entities, check
 # distance, ticks per batch, batches, the backend the session is given
-# (and, for "auto", must resolve to "cuda-tiled"), kernel timing reps
+# (and, for "auto", must resolve to "cuda-tiled"), kernel timing reps, and
+# the regime inline_plan must pick for it on an H100
 ARENA_INLINE_SHAPES = [
-    ("ati_4096", 2, 4096, 8, 60, 3, "cuda-tiled", 20),  # the reference's headline arena world on "pallas-tiled"
+    # the reference's headline arena world on "pallas-tiled": the on-chip grid
+    ("ati_4096", 2, 4096, 8, 60, 2, "cuda-tiled", 20, "grid-shared"),
     # past the reference's estimate (528 B an entity, 277 MB > 96 MB): its
-    # auto answers "xla"; 138 MB of state and ring, 4096 tiles
-    ("ati_512k", 16, 1 << 19, 8, 60, 2, "auto", 5),
+    # auto answers "xla"; 138 MB of state and ring, its states on chip
+    ("ati_512k", 16, 1 << 19, 8, 60, 2, "auto", 5, "grid-shared"),
+    # five teams on blocks of 160 threads: each thread's team is fixed, and
+    # P is no power of two
+    ("ati_p5", 5, 20000, 8, 30, 1, "cuda-tiled", 10, "grid-shared"),
+    # past what the card holds on chip (1.27M at 32 teams): states in global
+    # memory; 24 B an entity, 480 MB of ring
+    ("ati_2m", 32, 2_000_000, 8, 2, 5, "auto", 5, "grid-global"),
 ]
-ARENA_INLINE_MAIN_BATCHES = {"ati_4096": 100, "ati_512k": 10}
+ARENA_INLINE_MAIN_BATCHES = {"ati_4096": 100, "ati_512k": 10, "ati_p5": 20, "ati_2m": 10}
+# what the on-chip states buy: kernel-only batches (d=8, T=60) of these
+# worlds (players, entities) with the states on chip and in global memory,
+# warm-up batches then timed ones
+LAYOUT_WORLDS = ((2, 4096), (16, 1 << 19))
+LAYOUT_WARM, LAYOUT_TIMED = 2, 10
 # the checkpoint phase: worlds per family, ticks per batch, batches before
 # the save, batches after it
 CHECKPOINT_N = 4096
@@ -445,12 +466,23 @@ def arena_bound(n, players, d, t_ticks, c0, reduces=True):
 
 
 def inline_bound(n, players, d, t_ticks, c0):
-    """Least ms of one batch of K2's inline arena route: state and ring read
-    once and written once; 64 int32 ops an entity-step, 18 an entity-save,
-    and 6 an entity-reduction, one reduction before every step (T (d+1)
-    a batch once past frame d)."""
+    """Least ms of one batch of K2's inline arena route: 64 int32 ops an
+    entity-step, 18 an entity-save, and 6 an entity-reduction, one
+    reduction before every step (T (d+1) a batch once past frame d). Bytes
+    count only what the launch must move, a 24 B column each, as
+    `tick_bound` does: a ring slot that a rollback loads before the batch
+    saved it, the state when the first step uses it (no rollback at the
+    batch's first tick), each distinct slot saved (its final value) and the
+    state written; plus the inputs."""
     steps, saves = batch_work(n, d, t_ticks, c0)
-    nbytes = 2 * 4 * 6 * n * (1 + d + 2) + 4 * t_ticks * players * 2
+    ring_len, saved, read = d + 2, set(), set()
+    for c in range(c0, c0 + t_ticks):
+        frames = range(c - d + 1, c + 1) if c > d else (c,)
+        if c > d and (c - d) % ring_len not in saved:
+            read.add((c - d) % ring_len)
+        saved |= {f % ring_len for f in frames}
+    columns = len(read) + (c0 <= d) + len(saved) + 1
+    nbytes = 4 * 6 * n * columns + 4 * t_ticks * players * 2
     ops = n * (steps * (OPS_PER_ARENA_STEP + OPS_PER_ARENA_REDUCE) + saves * OPS_PER_ARENA_SAVE)
     return least(nbytes, ops)
 
@@ -2027,7 +2059,7 @@ def arena_inline_phase(torch, np, dev, tag, arena_path):
     from ggrs_tpu_torch.device.tiled_core import TiledSyncTestCore, plain_parts, plain_verdict
 
     runs, entries = [], []
-    for key, players, n, d, t_ticks, batches, backend, reps in ARENA_INLINE_SHAPES:
+    for key, players, n, d, t_ticks, batches, backend, reps, regime in ARENA_INLINE_SHAPES:
         ctx = PlaneContext(Arena(players, n), players, d, dev)
         core = TiledSyncTestCore(ctx)
         rng = np.random.default_rng(n + players)
@@ -2051,9 +2083,13 @@ def arena_inline_phase(torch, np, dev, tag, arena_path):
             err = max(err, both(raw))
             if err:
                 fail(f"{key}: synctest_tiled_arena_inline and its plain version differ (max abs err {err})")
+        plan = core.plan
+        if plan.regime != regime:
+            fail(f"{key}: the inline route took the {plan.regime} regime, expected {regime}")
         print(f"{key}: synctest_tiled_arena_inline == plain (parts and full carry) after each of {batches} "
               f"batch(es) ({players} players, {n} entities, d={d}, T={t_ticks}, plain version at T={t_ticks}, "
-              f"{time.perf_counter() - t0:.1f} s) {tag}")
+              f"{time.perf_counter() - t0:.1f} s); regime {plan.regime}: {plan.blocks} blocks of {plan.per_block} "
+              f"entities, {plan.smem_bytes} B of shared memory a block {tag}")
         final = copy_carry(pc)
 
         c = int(kc["meta"][0])
@@ -2073,14 +2109,14 @@ def arena_inline_phase(torch, np, dev, tag, arena_path):
         ms = events_ms(torch, lambda: core.run_kernel(timed_k, inputs), reps)
         plain_ms = events_ms(torch, lambda: plain_parts(timed_p, inputs, ctx), 1)
         barriers = t_ticks * (d + 1)
-        print(f"{key}: synctest_tiled_arena_inline {ms:.4f} ms/batch ({barriers} grid barriers, "
+        print(f"{key}: synctest_tiled_arena_inline ({plan.regime}) {ms:.4f} ms/batch ({barriers} barriers, "
               f"{ms / barriers * 1e3:.2f} us a step) vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}) {tag}")
         entry = {
             "name": "synctest_tiled_arena_inline", "route": "cuda",
             "source": "ggrs_tpu_torch/csrc/synctest_tiled.cu",
             "replaces": "ggrs_tpu/tpu/pallas_tiled.py:428",
             "tpu_counterpart": "PallasTiledSyncTestCore._build, whole-world tile reducing inline (:94-130)",
-            "shape": f"Arena({players}, {n}), d={d}, T={t_ticks}",
+            "shape": f"Arena({players}, {n}), d={d}, T={t_ticks}", "regime": plan.regime,
             "max_abs_err": err, "bit_equal": err == 0,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "launches": 0,
@@ -2109,7 +2145,9 @@ def arena_inline_phase(torch, np, dev, tag, arena_path):
         p50, p90 = samples[main_reps // 2], samples[(main_reps * 9) // 10]
         entry["launches"] = counts["synctest_tiled_arena_inline"]
         entries.append(entry)
-        run = {"key": key, "backend": f"{backend} -> {sess.backend}", "ms_per_batch_p50": p50,
+        if sess.core.plan.regime != regime:
+            fail(f"{key}: the session's inline route took the {sess.core.plan.regime} regime, expected {regime}")
+        run = {"key": key, "backend": f"{backend} -> {sess.backend}", "regime": regime, "ms_per_batch_p50": p50,
                "ms_per_batch_p90": p90, "ms_per_tick_p50": p50 / t_ticks, "samples": main_reps,
                "rollback_frames_per_s_p50": t_ticks * d / (p50 / 1e3), "launches": counts}
         injected = [r for r in arena_path if r["key"] == key.replace("ati_", "ai_")]
@@ -2117,12 +2155,50 @@ def arena_inline_phase(torch, np, dev, tag, arena_path):
         if injected:
             run["injected_ms_per_tick_p50"] = injected[0]["ms_per_tick_p50"]
             beside = f", the injection route {injected[0]['ms_per_tick_p50']:.4f} ms/tick in this run"
-        print(f"arena main path {key}: backend={backend} -> {sess.backend} (inline), launches {counts}, carry == "
+        print(f"arena main path {key}: backend={backend} -> {sess.backend} (inline, {regime}), launches {counts}, carry == "
               f"plain; then median {p50:.4f} ms/batch (p90 {p90:.4f}, n={main_reps}), {p50 / t_ticks:.4f} ms/tick"
               f"{beside} {tag}")
         runs.append(run)
         del sess
     return runs, entries
+
+
+def inline_layout_phase(torch, np, dev, tag):
+    """What keeping the states on chip buys the inline route: kernel-only
+    ms a batch (d=8, T=60) of each world of LAYOUT_WORLDS with the states
+    in shared memory and in global memory (no plain version; both layouts
+    must end a batch with the same carry). Returns {world: {regime: ms}}."""
+    from ggrs_tpu_torch import Arena
+    from ggrs_tpu_torch.convert import CARRY_KEYS
+    from ggrs_tpu_torch.device import sync_test
+    from ggrs_tpu_torch.device.planes import PlaneContext
+    from ggrs_tpu_torch.device.tiled_core import TiledSyncTestCore, grid_plan
+    from ggrs_tpu_torch.kernels import build
+
+    lib = build.load("synctest_tiled")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    times = {}
+    for players, n in LAYOUT_WORLDS:
+        rng = np.random.default_rng(n)
+        inputs = torch.from_numpy(rng.integers(0, 64, size=(60, players, 1)).astype(np.int32)).to(dev)
+        world, carries = f"Arena({players}, {n})", []
+        times[world] = {}
+        for on_chip in (True, False):
+            plan = grid_plan(n, players, sms, on_chip)
+            ctx = PlaneContext(Arena(players, n), players, 8, dev)
+            core = TiledSyncTestCore(ctx)
+            core._prepare_inline(lib, dev, plan)
+            carry = sync_test.initial_carry(ctx)
+            for _ in range(LAYOUT_WARM):
+                core.batch(carry, inputs)
+            carries.append(carry)
+            times[world][plan.regime] = events_ms(torch, lambda: core.run_kernel(carry, inputs), LAYOUT_TIMED)
+        torch.cuda.synchronize()
+        if carry_err(torch, carries[0], carries[1], CARRY_KEYS):
+            fail(f"inline layouts of {world}: the states on chip and in global memory end with different carries")
+        print(f"inline layouts {world}, d=8, T=60: states on chip {times[world]['grid-shared']:.4f} ms/batch, in "
+              f"global memory {times[world]['grid-global']:.4f} ms/batch {tag}")
+    return times
 
 
 def checkpoint_phase(torch, np, dev, tag):
@@ -2251,6 +2327,11 @@ def main() -> None:
         fail(f"the ggrs_tpu_torch package is not beside this script: {exc}")
 
     started = time.perf_counter()
+    marks = [("start", started)]
+
+    def mark(name):  # the seconds each phase took, printed at the end
+        marks.append((name, time.perf_counter()))
+
     card = card_line()
     print(card)
     tag = f"[{card}]"
@@ -2270,6 +2351,8 @@ def main() -> None:
     }
     plain_final = {}
     entries = []
+
+    mark("1")
 
     # -- phase 2: each kernel against its plain version ---------------------
     for key, backend, n, d, t_ticks, batches in SHAPES:
@@ -2365,6 +2448,8 @@ def main() -> None:
               f"bound {b_ms:.4f} ms ({b_by}) {tag}")
         del kc, pc
 
+    mark("2")
+
     # -- phase 3: the main path through backend="auto" -----------------------
     main_path = []
     for key, backend, n, d, t_ticks, batches in SHAPES:
@@ -2407,13 +2492,18 @@ def main() -> None:
                           "rollback_frames_per_s_p50": rate, "batches": total})
         del sess
 
+    mark("3")
+
     # -- phases 4 and 5: K3 against its plain version, then the request path
     tick_errs = tick_phase(torch, np, dev, tag)
+    mark("4")
     request_path, tick_entries = request_path_phase(torch, np, dev, tag, tick_errs)
+    mark("5")
 
     # -- phases 6 and 7: K4 against its plain version, then the beam path
     beam_errs = beam_phase(torch, np, dev, tag)
     beam_path, beam_entries = beam_path_phase(torch, np, dev, tag, beam_errs)
+    mark("6-7")
 
     # -- phases 8 and 9: arena on K1, K5 and the injection route, then its main path
     fused_scripts, fused_final, fused_entries = arena_fused_phase(torch, np, dev, tag)
@@ -2421,18 +2511,24 @@ def main() -> None:
     arena_path = arena_main_path_phase(torch, np, dev, tag, fused_scripts, fused_final, injected_scripts,
                                        injected_final, fused_entries, injected_entries)
     arena_entries = list(fused_entries.values()) + list(injected_entries.values())
+    mark("8-9")
 
     # -- phases 10 and 11: arena on K3 and K4, then its request and beam paths
     arena_tick_errs, arena_tick_timed = arena_tick_phase(torch, np, dev, tag)
+    mark("10 K3")
     arena_beam_errs = arena_beam_phase(torch, np, dev, tag)
+    mark("10 K4")
     arena_request_path, arena_tick_entries = arena_request_path_phase(torch, np, dev, tag, arena_tick_errs,
                                                                       arena_tick_timed)
+    mark("11 request path")
     arena_beam_path, arena_beam_entries = beam_path_phase(torch, np, dev, tag, arena_beam_errs, ARENA_BEAM_SHAPES,
                                                           ARENA_BEAM_PATH_TICKS, ARENA_BEAM_SCRIPTS, Arena)
+    mark("11 beam path")
 
     # -- phases 12 and 13: swarm on K1 and K2 (position probes), then its fused main path
     swarm_scripts, swarm_final, swarm_fused = swarm_synctest_phase(torch, np, dev, tag)
     swarm_path = swarm_main_path_phase(torch, np, dev, tag, swarm_scripts, swarm_final, swarm_fused)
+    mark("12-13")
 
     # -- phases 14 and 15: swarm on K3 and K4, then its request and beam paths
     swarm_tick_errs = tick_phase(torch, np, dev, tag, SWARM_TICK_SHAPES, Swarm, SWARM_MOD, probe_plane=0)
@@ -2442,28 +2538,36 @@ def main() -> None:
     swarm_beam_path, swarm_beam_entries = beam_path_phase(torch, np, dev, tag, swarm_beam_errs, SWARM_BEAM_SHAPES,
                                                           SWARM_BEAM_PATH_TICKS, SWARM_BEAM_SCRIPTS, Swarm,
                                                           probe_plane=0)
+    mark("14-15")
 
     # -- phase 16: arena past 16 teams on K1-K5
     team_entries = arena_teams_phase(torch, np, dev, tag)
+    mark("16")
 
-    # -- phase 17: K2's inline whole-world arena route, then its main path
+    # -- phase 17: K2's inline whole-world arena route in each regime, then
+    # its main path, and what the on-chip states buy
     arena_inline_path, inline_entries = arena_inline_phase(torch, np, dev, tag, arena_path)
+    layouts = inline_layout_phase(torch, np, dev, tag)
+    mark("17")
 
     # -- phase 18: checkpoints on the card (K1, K2, the injection route, K3)
     checkpoints = checkpoint_phase(torch, np, dev, tag)
+    mark("18")
 
     for e in entries:
         e.pop("key")
     entries += tick_entries + beam_entries + arena_entries + arena_tick_entries + arena_beam_entries
     entries += list(swarm_fused.values()) + swarm_tick_entries + swarm_beam_entries + team_entries
     entries += inline_entries
+    print("chip_smoke: seconds a phase: " + ", ".join(f"{name} {t - marks[i][1]:.1f}"
+                                                       for i, (name, t) in enumerate(marks[1:])))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"card": card, "main_path": main_path, "request_path": request_path,
                       "beam_path": beam_path, "arena_path": arena_path,
                       "arena_request_path": arena_request_path, "arena_beam_path": arena_beam_path,
                       "swarm_path": swarm_path, "swarm_request_path": swarm_request_path,
                       "swarm_beam_path": swarm_beam_path, "arena_inline_path": arena_inline_path,
-                      "checkpoints": checkpoints}))
+                      "inline_layout_ms": layouts, "checkpoints": checkpoints}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

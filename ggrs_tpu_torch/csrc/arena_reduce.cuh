@@ -1,7 +1,8 @@
 // What the arena kernels that reduce the whole world before a step share:
 // the whole-batch SyncTest kernel (synctest_fused.cu, K1), the request
 // path's tick (resim_tick.cu, K3) and the beam rollout (beam_rollout.cu,
-// K4). An arena step needs, per team, the living count and centroid of the
+// K4); and, below, the team sums at O(1) an entity that K2's inline route
+// (synctest_tiled.cu) and the reduction table (reduce_table.cu, K5) use. An arena step needs, per team, the living count and centroid of the
 // state entering it; the world is spread over blocks that cannot see each
 // other, so a reduction is: block sums (warp shuffles,
 // arena::block_team_sums) -> uint32 atomics into a raw row in global
@@ -119,6 +120,104 @@ struct ArenaInlineStepper : ArenaReduce {
   }
   __device__ __forceinline__ void frontier_done(const arena::State&, bool, int, int) {}
 };
+
+// The team sums at O(1) an entity, whatever P is (K5, reduce_table.cu, and
+// K2's inline route, synctest_tiled.cu). Each warp sums its lanes' raw
+// terms — the living count and the sums of px >> 6 and py >> 6 of the
+// entities a lane holds for `team` (zeros for a lane with none) — into a
+// row of 3P words in shared memory: its own row, with plain adds (no other
+// warp writes it, and each team has one writer a call), or, past kRowTeams
+// teams, a row the block's warps share, with shared atomics. A block then
+// sums its warps' rows (warp_rows_sum).
+namespace arena {
+
+constexpr int kRowTeams = 64;  // teams up to which each warp has its own row (32 x 3P words)
+
+template <bool kShared>
+__device__ __forceinline__ void row_add(uint32_t* row, int team, uint32_t one, uint32_t sx, uint32_t sy) {
+  if (kShared) {
+    atomicAdd(&row[3 * team], one);
+    atomicAdd(&row[3 * team + 1], sx);
+    atomicAdd(&row[3 * team + 2], sy);
+  } else {
+    row[3 * team] += one;
+    row[3 * team + 1] += sx;
+    row[3 * team + 2] += sy;
+  }
+}
+
+// Every lane of the warp calls it. The lanes are grouped by team
+// (`__match_any_sync`), each group sums its three words with one
+// `redux.sync` each (`__reduce_add_sync`, sm_80 and later), and the group's
+// leader adds them to `row`.
+template <bool kShared>
+__device__ __forceinline__ void team_accumulate(uint32_t one, uint32_t sx, uint32_t sy, int team, uint32_t* row) {
+  const unsigned peers = __match_any_sync(0xFFFFFFFFu, team);
+  one = __reduce_add_sync(peers, one);
+  sx = __reduce_add_sync(peers, sx);
+  sy = __reduce_add_sync(peers, sy);
+  if ((int)(threadIdx.x & 31) == __ffs(peers) - 1 && one) row_add<kShared>(row, team, one, sx, sy);  // the dead add nothing
+}
+
+// The same where lanes l and l ^ off hold the same team for every off of
+// P up to 16 (P a power of two up to 32, the lanes consecutive entities):
+// xor shuffles sum over those lanes, and lane l < P adds its team. For any
+// other P they would merge lanes of different teams.
+template <bool kShared>
+__device__ __forceinline__ void team_accumulate_periodic(uint32_t one, uint32_t sx, uint32_t sy, int team, int P,
+                                                         uint32_t* row) {
+  for (int off = 16; off >= P; off >>= 1) {
+    one += __shfl_xor_sync(0xFFFFFFFFu, one, off);
+    sx += __shfl_xor_sync(0xFFFFFFFFu, sx, off);
+    sy += __shfl_xor_sync(0xFFFFFFFFu, sy, off);
+  }
+  if ((int)(threadIdx.x & 31) < P && one) row_add<kShared>(row, team, one, sx, sy);
+}
+
+// A warp's terms into the block's rows [32 or 1][3P]: its own row when
+// `own_row`, else the shared one. `consecutive`: the warp's lanes hold
+// consecutive entities, lane l the team (team of lane 0 + l) % P; then,
+// where P is a power of two up to 32, team_accumulate_periodic sums them.
+__device__ __forceinline__ void warp_team_add(uint32_t one, uint32_t sx, uint32_t sy, int team, int P,
+                                              bool consecutive, uint32_t* rows, bool own_row) {
+  const bool periodic = consecutive && P <= 32 && (P & (P - 1)) == 0;
+  if (own_row) {
+    uint32_t* row = rows + (threadIdx.x >> 5) * 3 * P;
+    if (periodic) team_accumulate_periodic<false>(one, sx, sy, team, P, row);
+    else team_accumulate<false>(one, sx, sy, team, row);
+  } else if (periodic) {
+    team_accumulate_periodic<true>(one, sx, sy, team, P, rows);
+  } else {
+    team_accumulate<true>(one, sx, sy, team, rows);
+  }
+}
+
+// Word j of the block's sums: the rows' word j, which it leaves zero for
+// the next accumulation (after a barrier that follows every add).
+__device__ __forceinline__ uint32_t warp_rows_sum(uint32_t* rows, int nrows, int words, int j) {
+  uint32_t v = 0;
+  for (int w0 = 0; w0 < nrows; w0 += 8) {  // eight rows' loads in flight, then their zeroing
+    uint32_t x[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) x[w] = w0 + w < nrows ? rows[(w0 + w) * words + j] : 0u;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      v += x[w];
+      if (w0 + w < nrows) rows[(w0 + w) * words + j] = 0;
+    }
+  }
+  return v;
+}
+
+// One entity's raw terms: 1, px >> 6, py >> 6 if it lives.
+__device__ __forceinline__ void team_terms(const State& s, uint32_t& one, uint32_t& sx, uint32_t& sy) {
+  const bool live = s.hp > 0;
+  one = live ? 1u : 0u;
+  sx = live ? (uint32_t)(s.px >> kCentroidShift) : 0u;
+  sy = live ? (uint32_t)(s.py >> kCentroidShift) : 0u;
+}
+
+}  // namespace arena
 
 // Blocks of `fn` (kBlock threads, `smem` bytes of dynamic shared memory)
 // that can be resident at once on the current device: what a cooperative

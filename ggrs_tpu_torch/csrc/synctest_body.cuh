@@ -57,55 +57,16 @@ struct EntityStepper {
 // dynamic shared memory the body needs: red[2 ticks][hi, lo][d][warps]
 __host__ __device__ inline size_t body_smem_words(int d) { return (size_t)4 * d * kWarps; }
 
-// The save and the tick's event sums of synctest_entity_batch below, as
-// helpers for the entity-tiled inline arena body (synctest_tiled.cu), which
-// walks several tiles a block. They are the same event layout:
-// synctest_entity_batch keeps its own copy of this code, because calling
-// these helpers there (same registers, no spills) made K1's cached arena
-// batch about 3% slower on an H100 (chip_smoke.py, parent against change).
-// A change to one copy belongs in both.
-//
-// One entity's save: its state into a ring slot, and its (hi, lo) checksum terms.
+// One entity's save: its state into a ring slot, and its (hi, lo) checksum
+// terms, for the inline arena body (synctest_tiled.cu). synctest_entity_batch
+// below keeps its own copy: calling the shared helpers there made K1's
+// cached arena batch about 3% slower on an H100 (chip_smoke.py, parent
+// against change). A change to one copy belongs in both.
 template <class M>
 __device__ __forceinline__ void save_entity(int* slot, size_t n, int e, const typename M::State& s,
                                             const uint32_t (&ew)[M::kPlanes], uint32_t& hi, uint32_t& lo) {
   M::store(slot, n, e, s);
   M::checksum_terms(s, ew, hi, lo);
-}
-
-// A block's share of save event (t, j): each warp's sums of its threads'
-// terms, written by its lane 0 into tick t's half of `red`.
-__device__ __forceinline__ void block_event_terms(uint32_t* red, int d, int t, int j, uint32_t hi,
-                                                  uint32_t lo) {
-  hi = warp_sum(hi);
-  lo = warp_sum(lo);
-  if ((threadIdx.x & 31) == 0) {
-    const int warp = threadIdx.x >> 5;
-    uint32_t* buf = red + (size_t)(t & 1) * 2 * d * kWarps;
-    buf[j * kWarps + warp] = hi;
-    buf[(d + j) * kWarps + warp] = lo;
-  }
-}
-
-// After tick t's last save (frame c): one barrier, then the block's sum of
-// each event that happened, added to parts with uint32 atomics. The double
-// buffer (t & 1) keeps the next tick's writers off the buffer this tick's
-// readers still sum.
-__device__ __forceinline__ void add_tick_events(uint32_t* parts_hi, uint32_t* parts_lo, const uint32_t* red,
-                                                int d, int t, int c) {
-  __syncthreads();
-  const uint32_t* buf = red + (size_t)(t & 1) * 2 * d * kWarps;
-  for (int j = threadIdx.x; j < d; j += kBlock) {
-    if (j == d - 1 || c > d) {
-      uint32_t hi = 0, lo = 0;
-      for (int w = 0; w < kWarps; ++w) {
-        hi += buf[j * kWarps + w];
-        lo += buf[(d + j) * kWarps + w];
-      }
-      atomicAdd(&parts_hi[(size_t)t * d + j], hi);
-      atomicAdd(&parts_lo[(size_t)t * d + j], lo);
-    }
-  }
 }
 
 template <class M, class Stepper>

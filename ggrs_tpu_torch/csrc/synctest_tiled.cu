@@ -37,26 +37,20 @@
 // (pallas_tiled.py:94-130: external_reduce off, `red_for` None at :285-293,
 // so the adapter reduces from the tile, which is the whole world): any T
 // in one launch, and every step — the d resim steps and the frontier step
-// alike — reduces inline from the whole world entering it. Here that is
-// block team sums, a grid barrier and a finalize in every block
-// (arena_reduce.cuh's ArenaInlineStepper), so the grid is launched
-// cooperatively. The grid is persistent: a block owns tiles b, b + grid,
-// b + 2 grid, ... and the live world sits in `state` in global memory
-// between barriers, so any world arena admits runs, however many tiles it
-// has. A batch pays T * (d+1) grid barriers once past frame d. The
+// alike — reduces inline from the whole world entering it: T * (d+1)
+// reductions a batch once past frame d, each a barrier across every block
+// that holds a part of the world (the inline route below). The
 // reference's 96 MB single-tile budget is a VMEM limit and is not copied.
-// What bounds it on an H100: at 4096 entities its 32 blocks wait on those
-// barriers (~4 us each, a few L2 round trips), far above the int32 work;
-// at 512k entities (16 teams) the kernel's own int32 work sets it — 64 ops
-// a step plus 3 + 3P of block team sums an entity-step, where the function
-// needs 6 for an entity's share of a reduction — and the state, read twice
-// and written once a step, stays in the 50 MB L2.
+// What bounds it on an H100: the function is int32 work (64 ops an
+// entity-step, 18 a save, 6 an entity's share of a reduction); the kernel
+// adds a barrier a step. Each SM's block keeps its run of states in its
+// shared memory (kOnChip) while the world fits there, and pays a grid
+// barrier of one arrival an SM a step. A save reaches the ring only when
+// no later tick of the batch saves that frame again (one save a tick past
+// frame d, and the last tick's), which keeps the ring traffic near the
+// bytes bound: at 524,288 entities a save is 12.6 MB of HBM writes.
 //
-// Left for later: holding each block's ring tile in shared memory for the
-// whole batch (10 slots x 5 planes x 128 entities x 4 B = 25.6 KB), so HBM
-// sees each byte exactly once, as the reference's VMEM tile does; a CUDA
-// graph around the two launches; keeping the inline route's states in
-// registers when every tile fits the card at once.
+// Left for later: a CUDA graph around the two launches.
 #include <cuda_runtime.h>
 
 #include "arena_reduce.cuh"
@@ -107,89 +101,329 @@ __global__ void __launch_bounds__(kBlock) synctest_tiled_arena_kernel(
   synctest_entity_batch<arena::Model>(a, smem, st);
 }
 
-// The inline route's batch over the block's tiles, in the event layout of
-// synctest_entity_batch (synctest_body.cuh), with the state in global
-// memory: every step is one pass over the block's tiles reading the state
-// entering it (a save first, when the step has one, then the block's team
-// sums), the grid barrier and the finalize, and a second pass that steps
-// each tile and stores it. `src` is the ring slot a rollback loads for its
-// first step and the live state after it; a pass touches only its own
-// entities' columns, so stepping in place is safe.
-__device__ void arena_inline_tiles_batch(const SyncTestArgs<arena::Weights>& a, uint32_t* red,
-                                         ArenaInlineStepper& st) {
+// ---------------------------------------------------------------------------
+// K2's inline whole-world arena route: one body on a persistent cooperative
+// grid of one block an SM, each block owning a contiguous run of entities.
+// The layout is chosen on the host (device/tiled_core.py `inline_plan`)
+// from the world's size and team count and the card's SM count and shared
+// memory:
+//
+//  - kOnChip: each block holds its run's states in shared memory for the
+//    whole batch, while the world fits the card's shared memory;
+//  - otherwise the states stay in `state` in global memory, for worlds past
+//    that.
+// Block sums go to rotating raw rows in global memory (one atomic per
+// non-zero team word and block), then a grid barrier (grid_arrive /
+// grid_wait) and a finalize in every block. A block has a thread an
+// entity, in whole warps, up to kThreads, so a small world's step waits on
+// the warps it needs and not on 32.
+//
+// One thread-block cluster holding a small world was tried as a third
+// layout (team sums through distributed shared memory, a cluster barrier a
+// step) and dropped: on an H100 it led this grid only at 1024 entities and
+// fewer, where the repo runs no configuration, and fell behind from 2048
+// on, the more so the larger the world, since its ranks each do more of
+// the step's work and its barrier and DSMEM traffic grow with its ranks.
+//
+// A step is: pass A over the block's entities (apply the pending step, its
+// reduction finalized after the last barrier — or, for a rollback's first
+// step, load the ring slot this same thread saved in an earlier tick or
+// launch — keep the state, add its team terms to the warp's row in shared
+// memory: arena_reduce.cuh, O(1) an entity); the block's sums and the
+// barrier's ARRIVAL; pass B, the step's save if it has one (its checksum
+// terms summed per warp, and the state stored to its ring slot unless the
+// batch saves that frame again before anything reads it), which so runs
+// while the other blocks arrive and adds nothing to what the arrival
+// releases; the barrier's WAIT and the finalize; then the save's event
+// sums, one atomic per block into parts. parts is zeroed in the kernel by
+// block 0 before its first barrier. The state is written back once, by the
+// last pass.
+namespace inline_arena {
+
+constexpr int kThreads = 1024;  // at most, a block (64 registers a thread: one such block an SM)
+constexpr int kMaxWarps = kThreads / 32;
+
+// The block's dynamic shared memory, in this order (device/tiled_core.py
+// `inline_smem_bytes` sizes it): the pending step's finalized teams [3P],
+// each warp's save sums [kMaxWarps][2], the team rows [nrows][3P] (a row a
+// warp up to arena::kRowTeams teams, else one shared row), then, kOnChip,
+// the block's states [6][per_block].
+struct Shared {
+  arena::Team* fin;
+  uint32_t* ev;
+  uint32_t* rows;
+  int* st;
+  int warps;     // the block's warps that hold an entity: the rows and save sums to add up
+  bool own_row;  // a row a warp (else the warps share rows[0])
+};
+
+// arena::finalize for the sums this kernel makes. In the model's envelope
+// they are non-negative as int32 (18-bit positions, a team under 2^16), so
+// an unsigned division floors as exg::floor_div_pos does, at less cost;
+// any other value takes arena::finalize itself.
+__device__ __forceinline__ arena::Team finalize_sums(uint32_t count, uint32_t sx, uint32_t sy) {
+  if ((int)(count | sx | sy) < 0) return arena::finalize((int)count, (int)sx, (int)sy);
+  const uint32_t safe = count > 1 ? count : 1;
+  return arena::Team{(int)((sx / safe) << arena::kCentroidShift), (int)((sy / safe) << arena::kCentroidShift),
+                     (int)count};
+}
+
+// Word j of the block's team sums: its warps' rows, left zero
+__device__ __forceinline__ uint32_t block_sum(const Shared& sh, int words, int j) {
+  return arena::warp_rows_sum(sh.rows, sh.own_row ? sh.warps : 1, words, j);
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The grid barrier, split so that a block works between its
+// arrival and its wait. `arrived` counts every arrival ever made (it only
+// grows, so it needs no reset between barriers or launches); the g-th
+// barrier of the core's life completes when it reaches (g + 1) * gridDim.x.
+// Thread 0 arrives with a release atomic, after a block barrier, so the
+// block's writes before it are released; it waits with acquire loads, with
+// no sleep for the first spins; a block that waits ~10 s traps, so the
+// launch fails instead of hanging the card.
+__device__ __forceinline__ void grid_arrive(unsigned long long* arrived) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long old;
+    asm volatile("atom.release.gpu.global.add.u64 %0, [%1], 1;" : "=l"(old) : "l"(arrived) : "memory");
+  }
+}
+
+__device__ __forceinline__ void grid_wait(const unsigned long long* arrived, unsigned long long target) {
+  if (threadIdx.x == 0) {
+    unsigned long long since = 0;
+    for (unsigned spins = 0; ld_acquire(arrived) < target; ++spins) {
+      if (spins < 2048) continue;
+      __nanosleep(64);
+      if ((spins & 1023) == 0) {
+        const unsigned long long now = globaltimer();
+        if (since == 0) since = now;
+        else if (now - since > 10000000000ull) __trap();
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The reduction: block sums -> three rotating raw rows in
+// global memory -> the grid barrier -> every block finalizes the row. `g0`,
+// the barriers completed before this launch, numbers the steps across
+// launches: step g adds to row g % 3 while block 0 zeroes row (g + 1) % 3
+// (last read before barrier g - 1), so the rows need no reset between
+// launches.
+struct GridReduce {
+  uint32_t* raw;                // global [3][3P]
+  unsigned long long* arrived;  // global, the barrier's counter
+  unsigned long long g0;
+
+  __device__ __forceinline__ void arrive(const Shared& sh, int P, int k) const {
+    __syncthreads();  // every warp's row adds are in
+    const unsigned long long g = g0 + k;
+    uint32_t* row = raw + (size_t)(g % 3) * 3 * P;
+    for (int j = threadIdx.x; j < 3 * P; j += blockDim.x) {
+      const uint32_t v = block_sum(sh, 3 * P, j);
+      if (v) atomicAdd(&row[j], v);
+    }
+    if (blockIdx.x == 0) {
+      uint32_t* next = raw + (size_t)((g + 1) % 3) * 3 * P;
+      for (int j = threadIdx.x; j < 3 * P; j += blockDim.x) next[j] = 0;
+    }
+    grid_arrive(arrived);
+  }
+  __device__ __forceinline__ void wait(const Shared& sh, int P, int k) const {
+    const unsigned long long g = g0 + k;
+    grid_wait(arrived, (g + 1) * gridDim.x);
+    const uint32_t* row = raw + (size_t)(g % 3) * 3 * P;
+    for (int t = threadIdx.x; t < P; t += blockDim.x) {
+      const uint32_t* r = row + 3 * t;  // atomics live in L2: read there
+      sh.fin[t] = finalize_sums(__ldcg(r), __ldcg(r + 1), __ldcg(r + 2));
+    }
+  }
+};
+
+// The batch, in the event layout of synctest_entity_batch
+// (synctest_body.cuh). The block owns entities [lo, lo + count); thread
+// tid walks lo + tid, lo + tid + blockDim, ... with its team stepped
+// along. kOnChip: the state entering the pending step lives in sh.st,
+// else in `state`.
+template <bool kOnChip>
+__device__ void inline_batch(const SyncTestArgs<arena::Weights>& a, const Shared& sh, const GridReduce& rd,
+                             int per_block) {
   const int d = a.d, ring_len = d + 2, P = a.num_players, I = a.input_size, row = P * I;
-  const int tiles = (a.n + kBlock - 1) / kBlock;
   const int c0 = a.meta[0];
   const size_t n = (size_t)a.n, slot_stride = (size_t)arena::kPlanes * n;
+  const int bd = blockDim.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lo = blockIdx.x * per_block;
+  const int count = max(0, min(per_block, a.n - lo));
+  const int rounds = (count + bd - 1) / bd;
+  const int team0 = (lo + (int)threadIdx.x) % P, team_stride = bd % P;
+  const bool fixed = team_stride == 0;  // every round of this thread is the same team: sum in registers
+  const int warp0 = threadIdx.x & ~31;
+  int k = 0;  // steps reduced in this launch
 
-  // the input row of frame f: this batch's inputs for f >= c0, else the input ring
   auto input_of = [&](int f) -> const int* {
     return f >= c0 ? a.inputs + (size_t)(f - c0) * row : a.iring + (size_t)(f % (d + 2)) * row;
   };
-  // the step of frame f from `src` into the live state; j >= 0: first save
-  // the state entering it as event (t, j)
-  auto step = [&](const int* src, int f, int t, int j) {
-    const int* in = input_of(f);
-    int* dst = a.ring + (size_t)(f % ring_len) * slot_stride;
-    uint32_t hi = 0, lo = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int e = tile * kBlock + threadIdx.x;
-      const bool active = e < a.n;
-      const arena::State s = active ? arena::load(src, n, e) : arena::State{};
-      if (j >= 0 && active) {
-        uint32_t ew[arena::kPlanes], h, l;
-        arena::Model::entity_weights(a.cw, (uint32_t)e, ew);
-        save_entity<arena::Model>(dst, n, e, s, ew, h, l);
-        hi += h;
-        lo += l;
-      }
-      st.at(e);
-      st.gather(s, active);
-    }
-    if (j >= 0) block_event_terms(red, d, t, j, hi, lo);
-    st.reduce();
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int e = tile * kBlock + threadIdx.x;
-      if (e < a.n) {
-        arena::State s = arena::load(src, n, e);
-        st.at(e);
-        st.apply(s, in + (e % P) * I);
-        arena::store(a.state, n, e, s);
-      }
-    }
-    ++st.k;
+  auto slot = [&](int f) { return a.ring + (size_t)(f % ring_len) * slot_stride; };
+  auto keep = [&](int i, int e, const arena::State& s) {
+    if (kOnChip) arena::store(sh.st, (size_t)per_block, i, s);
+    else arena::store(a.state, n, e, s);
+  };
+  auto kept = [&](int i, int e) {
+    return kOnChip ? arena::load(sh.st, (size_t)per_block, i) : arena::load(a.state, n, e);
+  };
+  auto accumulate = [&](uint32_t one, uint32_t sx, uint32_t sy, int team, bool consecutive) {
+    arena::warp_team_add(one, sx, sy, team, P, consecutive, sh.rows, sh.own_row);
   };
 
+  // Pass A: apply the pending step of frame pf (pf < 0: none) unless `src`
+  // replaces the state (a rollback's first step loads ring slot `src`);
+  // then keep the state and add its team terms, or, when `last`, store it
+  // as the batch's final state.
+  auto pass_a = [&](int pf, const int* src, bool last) {
+    const int* in = pf >= 0 ? input_of(pf) : nullptr;
+    uint32_t one = 0, sx = 0, sy = 0;
+    int team = team0;
+    for (int r = 0; r < rounds; ++r, team = team + team_stride >= P ? team + team_stride - P : team + team_stride) {
+      const int i = r * bd + threadIdx.x;
+      uint32_t o = 0, x = 0, y = 0;
+      if (i < count) {
+        const int e = lo + i;
+        arena::State s;
+        if (src != nullptr) {
+          s = arena::load(src, n, e);
+        } else {
+          s = pf >= 0 ? kept(i, e) : arena::load(a.state, n, e);
+          if (pf >= 0) {
+            const int* own = in + team * I;
+            arena::step(s, own[0], arena::throttle_of(own, I), sh.fin[team], sh.fin[team + 1 == P ? 0 : team + 1]);
+          }
+        }
+        if (last) {
+          arena::store(a.state, n, e, s);
+        } else {
+          keep(i, e, s);
+          arena::team_terms(s, o, x, y);
+        }
+      }
+      if (last) continue;
+      if (fixed) {
+        one += o;
+        sx += x;
+        sy += y;
+      } else if (r * bd + warp0 < count) {  // warp-uniform: the warp holds an entity this round
+        accumulate(o, x, y, team, false);
+      }
+    }
+    if (!last && fixed && warp0 < count) accumulate(one, sx, sy, team0, true);
+  };
+
+  // Pass B: the save of the kept states: their checksum terms, each warp's
+  // sums to sh.ev, and the states into ring slot `dst` unless it is null
+  // (a save this batch saves again before anything reads it)
+  auto pass_b = [&](int* dst) {
+    uint32_t hi = 0, lo_sum = 0;
+    for (int r = 0; r < rounds; ++r) {
+      const int i = r * bd + threadIdx.x;
+      if (i < count) {
+        const int e = lo + i;
+        uint32_t ew[arena::kPlanes], h, l;
+        arena::Model::entity_weights(a.cw, (uint32_t)e, ew);
+        const arena::State s = kept(i, e);
+        if (dst != nullptr) save_entity<arena::Model>(dst, n, e, s, ew, h, l);
+        else arena::checksum_terms(s, ew, h, l);
+        hi += h;
+        lo_sum += l;
+      }
+    }
+    hi = warp_sum(hi);
+    lo_sum = warp_sum(lo_sum);
+    if (lane == 0) {
+      sh.ev[2 * warp] = hi;
+      sh.ev[2 * warp + 1] = lo_sum;
+    }
+  };
+
+  // A save of frame f at tick frame c reaches the ring only if no later
+  // tick of this batch saves f again: a tick c' > c re-saves f when it rolls
+  // back (c' > d) over it (c' <= f + d - 1). Every ring read — a rollback's
+  // load of frame c - d, saved last at tick c - 1 — and the ring the batch
+  // leaves behind see only such last saves, so the others are dead stores;
+  // their checksum terms still count.
+  const int c_last = c0 + a.t_ticks - 1;
+  auto ring_of = [&](int f, int c) { return min(f + d - 1, c_last) <= max(c, d) ? slot(f) : nullptr; };
+
+  // One step: pass A, arrive, pass B when the step saves as event (t, j),
+  // wait and finalize; then the save's sums into parts.
+  auto step = [&](int pf, const int* src, int t, int j, int* dst) {
+    pass_a(pf, src, false);
+    rd.arrive(sh, P, k);
+    if (j >= 0) pass_b(dst);
+    rd.wait(sh, P, k);
+    __syncthreads();  // fin and ev are in
+    const int word = (int)threadIdx.x - (bd - 2);  // the last warp's last two lanes: idle in small worlds
+    if (j >= 0 && word >= 0) {
+      uint32_t v = 0;
+      for (int w = 0; w < sh.warps; ++w) v += sh.ev[2 * w + word];
+      if (v) atomicAdd((word == 0 ? a.parts_hi : a.parts_lo) + (size_t)t * d + j, v);
+    }
+    ++k;
+  };
+
+  int pf = -1;  // the pending step's frame
   for (int t = 0; t < a.t_ticks; ++t) {
     const int c = c0 + t;
     if (c > d) {  // forced rollback (uniform across the grid: c is shared)
       const int base = c - d;
-      step(a.ring + (size_t)(base % ring_len) * slot_stride, base, t, -1);
-      for (int i = 1; i < d; ++i) step(a.state, base + i, t, i - 1);
+      step(pf, slot(base), t, -1, nullptr);
+      for (int i = 1; i < d; ++i) step(base + i - 1, nullptr, t, i - 1, ring_of(base + i, c));
+      pf = c - 1;
     }
-    step(a.state, c, t, d - 1);
-    add_tick_events(a.parts_hi, a.parts_lo, red, d, t, c);
+    step(pf, nullptr, t, d - 1, ring_of(c, c));
+    pf = c;
   }
+  pass_a(pf, nullptr, true);
 }
 
-// dynamic shared memory of the inline route, in words: the body's event
-// sums, the three rotating finalized rows and the block-sum scratch
-__host__ __device__ inline size_t arena_inline_smem_words(int d, int num_players) {
-  return body_smem_words(d) + 3 * 3 * (size_t)num_players + 3 * (size_t)arena::kTeamChunk * kWarps;
-}
+}  // namespace inline_arena
 
-__global__ void __launch_bounds__(kBlock, kArenaMinBlocksPerSm) synctest_tiled_arena_inline_kernel(
-    SyncTestArgs<arena::Weights> a, int* r_frame, int* iring_out, uint32_t* raw, unsigned int* bar) {
+// scratch: the barrier counter (u64), then three raw rows [3, 3P]; zero
+// before the core's first launch, kept consistent by each
+template <bool kOnChip>
+__global__ void __launch_bounds__(inline_arena::kThreads, 1) synctest_tiled_arena_inline_kernel(
+    SyncTestArgs<arena::Weights> a, int* r_frame, int* iring_out, uint32_t* scratch, int per_block) {
+  using namespace inline_arena;
   extern __shared__ uint32_t smem[];
-  if (blockIdx.x == 0 && threadIdx.x == 0)
-    synctest_bookkeeping(r_frame, a.iring, iring_out, a.inputs, a.meta[0], a.t_ticks, a.d,
-                         a.num_players * a.input_size);
-  const int P = a.num_players;
-  uint32_t* fin_words = smem + body_smem_words(a.d);
-  ArenaInlineStepper st{{reinterpret_cast<arena::Team*>(fin_words), fin_words + 3 * 3 * (size_t)P, raw, bar,
-                         P, a.input_size, 0, 1 % P},
-                        0};
-  arena_inline_tiles_batch(a, smem, st);
+  const int d = a.d, P = a.num_players;
+  const bool own_row = P <= arena::kRowTeams;
+  uint32_t* rows = smem + 3 * P + 2 * kMaxWarps;
+  const int words = (int)(rows + (own_row ? kMaxWarps : 1) * 3 * P - smem);  // all but the states
+  const int count = max(0, min(per_block, a.n - (int)blockIdx.x * per_block));
+  const Shared sh{reinterpret_cast<arena::Team*>(smem), smem + 3 * P, rows, reinterpret_cast<int*>(smem + words),
+                  min(kMaxWarps, (count + 31) / 32), own_row};
+  for (int j = threadIdx.x; j < words; j += blockDim.x) smem[j] = 0;
+  if (blockIdx.x == 0) {  // parts (hi then lo) are zero before this block's first barrier
+    for (size_t j = threadIdx.x; j < 2 * (size_t)a.t_ticks * d; j += blockDim.x) a.parts_hi[j] = 0;
+    if (threadIdx.x == 0)
+      synctest_bookkeeping(r_frame, a.iring, iring_out, a.inputs, a.meta[0], a.t_ticks, d, P * a.input_size);
+  }
+  __syncthreads();
+  auto* arrived = reinterpret_cast<unsigned long long*>(scratch);
+  // no block of this launch can have passed its first barrier yet
+  const GridReduce rd{scratch + 2, arrived, ld_acquire(arrived) / gridDim.x};
+  inline_batch<kOnChip>(a, sh, rd, per_block);
 }
 
 __global__ void synctest_verdict_kernel(const uint32_t* parts_hi, const uint32_t* parts_lo,
@@ -267,40 +501,66 @@ extern "C" int synctest_tiled_arena_launch(int* state, int* ring, int* r_frame, 
   return (int)cudaGetLastError();
 }
 
-// Arena inline, T ticks, launched cooperatively on min(tiles, resident)
-// blocks. scratch: barrier [2], then three raw rows [3 * 3P]; both zeroed
-// here. Returns the CUDA error of a reset, the shared-memory attribute, the
-// occupancy query or the launch, or kNotCoResident when not one block fits.
+namespace {
+
+const void* inline_kernel(int on_chip) {
+  return on_chip ? (const void*)synctest_tiled_arena_inline_kernel<true>
+                 : (const void*)synctest_tiled_arena_inline_kernel<false>;
+}
+
+}  // namespace
+
+// The card's limits the inline route's plan is made from: out[0] the SM
+// count, out[1] the shared memory a block may opt in to (bytes).
+extern "C" int synctest_tiled_inline_arena_limits(int* out) {
+  int device = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return (int)err;
+  return (int)cudaDeviceGetAttribute(&out[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+}
+
+// Once per plan (the core's first inline launch): the shared-memory
+// attribute, then the occupancy query: kNotCoResident when the grid of
+// `blocks` blocks of `threads` threads cannot be resident at once; else 0
+// or a CUDA error. on_chip: the states in shared memory (else in `state`).
+extern "C" int synctest_tiled_inline_arena_prepare(int on_chip, int blocks, int threads, int smem_bytes) {
+  const void* fn = inline_kernel(on_chip);
+  if (blocks < 1 || threads < 32 || threads > inline_arena::kThreads || threads % 32) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (smem_bytes > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes)) != cudaSuccess)
+    return (int)err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem_bytes)) !=
+      cudaSuccess)
+    return (int)err;
+  return (long long)per_sm * sms >= blocks ? 0 : kNotCoResident;
+}
+
+// Arena inline, T ticks in one launch, on the plan `prepare` accepted:
+// `blocks` blocks of `threads` threads and `per_block` entities each,
+// `smem_bytes` of dynamic shared memory, a cooperative grid. parts [2, T,
+// d] is zeroed in the kernel. scratch: the barrier counter and three raw
+// rows, zero before the core's first launch. Returns the CUDA error of the
+// launch (0 on success).
 // cs: 13 int32 — checksum w[6], base[6], frame weight.
 extern "C" int synctest_tiled_inline_arena_launch(int* state, int* ring, int* r_frame, const int* iring,
                                                   int* iring_out, const int* meta, const int* inputs,
-                                                  uint32_t* parts, uint32_t* scratch, int n,
-                                                  int num_players, int input_size, int d, int t_ticks,
-                                                  const int* cs, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                                  uint32_t* parts, uint32_t* scratch, int n, int num_players,
+                                                  int input_size, int d, int t_ticks, int on_chip, int blocks,
+                                                  int threads, int per_block, int smem_bytes, const int* cs,
+                                                  void* stream) {
   const size_t events = (size_t)t_ticks * d;
-  cudaError_t err = cudaMemsetAsync(parts, 0, 2 * events * sizeof(uint32_t), st);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(scratch, 0, (2 + 9 * (size_t)num_players) * sizeof(uint32_t), st);
-  if (err != cudaSuccess) return (int)err;
   SyncTestArgs<arena::Weights> a{state, ring, iring, inputs, meta, parts, parts + events,
                                  n, num_players, input_size, d, t_ticks, 1,
                                  weights_from<arena::Weights, arena::kPlanes>(cs)};
-  unsigned int* bar = scratch;
-  uint32_t* raw = scratch + 2;
-  const void* fn = (const void*)synctest_tiled_arena_inline_kernel;
-  const size_t smem = arena_inline_smem_words(d, num_players) * sizeof(uint32_t);
-  if (smem > 48 * 1024) {  // many teams: the finalized rows outgrow the default
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  long long resident = 0;
-  if ((err = resident_blocks(fn, smem, &resident)) != cudaSuccess) return (int)err;
-  if (resident < 1) return kNotCoResident;
-  const long long tiles = ((long long)n + kBlock - 1) / kBlock;
-  const int blocks = (int)(tiles < resident ? tiles : resident);
-  void* args[] = {&a, &r_frame, &iring_out, &raw, &bar};
-  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kBlock), args, smem, st);
+  void* args[] = {&a, &r_frame, &iring_out, &scratch, &per_block};
+  const cudaError_t err = cudaLaunchCooperativeKernel(inline_kernel(on_chip), dim3(blocks), dim3(threads), args,
+                                                      smem_bytes, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

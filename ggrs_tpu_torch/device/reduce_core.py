@@ -5,8 +5,9 @@ The port's counterpart of `ggrs_tpu/tpu/pallas_tiled.py`
 `reduce_sources_kernel` (:642) and `frontier_partial_kernel` (:666): raw
 int32 `[S, R]` tables of the adapter's `reduce_partial` sums (arena: per
 team, the living count, Σ px>>6 and Σ py>>6) over S plane sources in one
-pass (`csrc/reduce_table.cu`). They feed K2's injected-reduction route
-(`injected_core`).
+launch (`csrc/reduce_table.cu`), which overwrites its output and leaves
+the core's scratch (partial rows and tickets, zeroed once) zero. They feed
+K2's injected-reduction route (`injected_core`).
 
 A source is a ring slot or the live state; the kernel takes their slot
 indices (-1 for the state) as a small device array, so a table over d
@@ -54,6 +55,9 @@ class ReduceTableCore:
         self.ctx = ctx
         self.launches = 0
         self._slots: Dict[Tuple[int, ...], torch.Tensor] = {}  # device copies, by slot tuple
+        # the kernel's partial rows and tickets for up to `_rows` sources:
+        # zero when made, and every launch leaves them zero
+        self._scratch, self._rows = None, 0
 
     def _slot_tensor(self, slots: Tuple[int, ...]) -> torch.Tensor:
         t = self._slots.get(slots)
@@ -86,11 +90,15 @@ class ReduceTableCore:
             out=(out, (S, ctx.reduce_len)),
         )
         lib = build.load(self.kernel)
+        if S > self._rows:
+            self._scratch = torch.zeros(S * (ctx.reduce_len + 1), dtype=torch.int32, device=state.device)
+            self._rows = S
         P, I = launch.P, launch.I
-        fn = launch.declare(lib, entry.symbol, [P, P, P, I, I, I, I, P, P])
+        fn = launch.declare(lib, entry.symbol, [P, P, P, I, I, I, I, P, P, P])
         rc = fn(
             ring.data_ptr(), state.data_ptr(), self._slot_tensor(tuple(slots)).data_ptr(), S,
-            ctx.n, ctx.n_planes, ctx.num_players, out.data_ptr(), launch.stream_of(state.device),
+            ctx.n, ctx.n_planes, ctx.num_players, out.data_ptr(), self._scratch.data_ptr(),
+            launch.stream_of(state.device),
         )
         launch.raise_on(rc, self.kernel)
         self.launches += 1

@@ -25,8 +25,10 @@ reference's two modes:
 - inline, the reference's unsharded whole-world tile (pallas_tiled.py:
   94-130, `red_raw` None): any T per launch, and every step reduces from
   the whole world entering it, as the XLA scan does. The kernel runs a
-  persistent cooperative grid with a grid barrier per step; its plain
-  version is `plain_parts` with `red_of` None, what `plain_scan` runs;
+  grid of one block an SM with the states on chip or in global memory, as
+  `inline_plan` picks from the world and the card, with a grid barrier
+  per step; nothing else selects it. Its plain version is
+  `plain_parts` with `red_of` None, what `plain_scan` runs;
 - `external_reduce`: one tick per launch, with the complete raw reduction
   table `red_raw [d+1, R]` handed in (row i for the resim step of frame
   base+i, row d for the frontier step), which the caller builds with K5
@@ -36,12 +38,75 @@ reference's two modes:
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from ..errors import ConfigError
 from ..kernels import build, launch
 from ..ops import fixed_point as fx
 from .planes import PlaneContext, partial_checksum_planes
+
+# K2's inline arena route (csrc/synctest_tiled.cu, namespace inline_arena)
+INLINE_THREADS = 1024  # kThreads: a block's most (one such block an SM)
+ROW_TEAMS = 64  # arena::kRowTeams: up to this many teams each warp sums into its own row
+ARENA_STATE_WORDS = 6  # int32 planes an entity's state holds
+
+
+class InlinePlan(NamedTuple):
+    """How the inline arena kernel lays a world on the card."""
+
+    regime: str  # "grid-shared" (states on chip) or "grid-global"
+    blocks: int  # one an SM
+    threads: int  # a block's: a thread an entity, in whole warps (`block_threads`)
+    per_block: int  # the contiguous run of entities a block owns
+    smem_bytes: int  # dynamic shared memory a block takes
+
+
+def inline_smem_bytes(players: int, state_cols: int) -> int:
+    """The inline kernel's dynamic shared memory (csrc/synctest_tiled.cu
+    `inline_arena::Shared`), in bytes: finalized teams [3P], each warp's
+    save sums [32][2], team rows [rows][3P] (a row a warp up to ROW_TEAMS
+    teams, else one), and `state_cols` entities' states when they stay on
+    chip."""
+    rows = INLINE_THREADS // 32 if players <= ROW_TEAMS else 1
+    words = 3 * players * (1 + rows) + 2 * (INLINE_THREADS // 32) + ARENA_STATE_WORDS * state_cols
+    return 4 * words
+
+
+def on_chip_capacity(players: int, sms: int, smem_per_block: int) -> int:
+    """The largest world whose states the grid holds in shared memory, one
+    block an SM."""
+    cols = (smem_per_block - inline_smem_bytes(players, 0)) // (4 * ARENA_STATE_WORDS)
+    return sms * max(cols, 0)
+
+
+def block_threads(per_block: int) -> int:
+    """A thread an entity, in whole warps, up to INLINE_THREADS: a small
+    world's step then waits on the warps it needs, not on 32."""
+    return min(INLINE_THREADS, 32 * -(-per_block // 32))
+
+
+def grid_plan(n: int, players: int, sms: int, on_chip: bool) -> InlinePlan:
+    """The world on a grid of one block an SM, each owning a contiguous run
+    of entities, with the states in shared memory (`on_chip`) or in global
+    memory."""
+    per_block = -(-n // sms)
+    return InlinePlan("grid-shared" if on_chip else "grid-global", -(-n // per_block), block_threads(per_block),
+                      per_block, inline_smem_bytes(players, per_block if on_chip else 0))
+
+
+def inline_plan(n: int, players: int, sms: int, smem_per_block: int) -> InlinePlan:
+    """The inline route's layout for a world of n entities and `players`
+    teams, on a card of `sms` SMs whose blocks may take `smem_per_block`
+    bytes of shared memory (the kernel library's `limits`): the states on
+    chip while they fit, else in global memory. The check distance takes
+    no shared memory of the kernel's, so it does not enter."""
+    plan = grid_plan(n, players, sms, on_chip=True)
+    if plan.smem_bytes <= smem_per_block:
+        return plan
+    return grid_plan(n, players, sms, on_chip=False)
 
 
 def plain_parts(carry, inputs: torch.Tensor, ctx: PlaneContext, red_of=None, on_frontier=None):
@@ -152,6 +217,31 @@ class TiledSyncTestCore:
         self.ctx = ctx
         self.launches = 0
         self.verdict_launches = 0
+        self.plan = None  # the inline route's InlinePlan, made at its first launch
+        self._scratch = None  # its grid barrier and raw rows: zero when made, kept so by the kernel
+
+    def _inline_plan(self, lib, device) -> InlinePlan:
+        """The inline route's plan, made at its first launch from the card's
+        limits (read from the kernel library) by `inline_plan`."""
+        if self.plan is None:
+            limits = (ctypes.c_int * 2)()
+            fn = launch.declare(lib, "synctest_tiled_inline_arena_limits", [launch.P])
+            launch.raise_on(fn(limits), "synctest_tiled_inline_arena_limits")
+            ctx = self.ctx
+            self._prepare_inline(lib, device, inline_plan(ctx.n, ctx.num_players, limits[0], limits[1]))
+        return self.plan
+
+    def _prepare_inline(self, lib, device, plan: InlinePlan) -> None:
+        """The plan's one-time set-up (the shared-memory attribute) and
+        residency check — `KernelError` when its grid cannot be resident —
+        and the zeroed scratch (the grid barrier's u64 counter and three raw
+        rows [3, R]); then `plan` is the core's. Measurement code may call
+        it before the first launch to time another plan."""
+        fn = launch.declare(lib, "synctest_tiled_inline_arena_prepare", [launch.I] * 4)
+        launch.raise_cooperative(fn(int(plan.regime == "grid-shared"), plan.blocks, plan.threads, plan.smem_bytes),
+                                 "synctest_tiled_inline_arena_prepare")
+        self._scratch = torch.zeros(2 + 3 * self.ctx.reduce_len, dtype=torch.int32, device=device)
+        self.plan = plan
 
     def run_kernel(self, carry, inputs: torch.Tensor, red_raw=None):
         """T ticks in place; returns (parts_hi, parts_lo) [T, d] int32. A
@@ -178,12 +268,11 @@ class TiledSyncTestCore:
                 carry["iring"].data_ptr(), iring_out.data_ptr(), carry["meta"].data_ptr(),
                 inputs.data_ptr())
         if inline:
-            # the grid barrier [2] and three rotating raw rows [3, R]
-            scratch = torch.empty(2 + 3 * ctx.reduce_len, dtype=torch.int32, device=device)
-            fn = launch.declare(lib, entry.symbol, [P] * 9 + [I] * 5 + [P, P])
-            rc = fn(*ptrs, parts.data_ptr(), scratch.data_ptr(), ctx.n, ctx.num_players, ctx.input_size,
-                    ctx.d, t_ticks, launch.weights_arg(ctx), launch.stream_of(device))
-            launch.raise_cooperative(rc, entry.symbol)
+            plan = self._inline_plan(lib, device)
+            fn = launch.declare(lib, entry.symbol, [P] * 9 + [I] * 10 + [P, P])
+            rc = fn(*ptrs, parts.data_ptr(), self._scratch.data_ptr(), ctx.n, ctx.num_players, ctx.input_size,
+                    ctx.d, t_ticks, int(plan.regime == "grid-shared"), plan.blocks, plan.threads, plan.per_block,
+                    plan.smem_bytes, launch.weights_arg(ctx), launch.stream_of(device))
         elif entry.reduces:
             launch.check_tensors(device, red_raw=(red_raw, (ctx.d + 1, ctx.reduce_len)))
             fn = launch.declare(lib, entry.symbol, [P] * 9 + [I] * 5 + [P, P])

@@ -60,19 +60,20 @@ def script(frames, players, input_size, seed):
     return raw
 
 
-def run_pair(ref_backend, port_backend, players, n, input_size, t_ticks, clean, probe, mesh=None):
-    """Drive both sessions over `clean` clean frames then `probe` frames after
-    the kill probe (none when `probe` is 0), T frames per batch, comparing
-    full carries after every batch; returns the reference carry after the
-    run, which latched the probe's frame on both sides."""
+def run_pair(ref_backend, port_backend, players, n, input_size, t_ticks, clean, probe, mesh=None, d=D):
+    """Drive both sessions (check distance d) over `clean` clean frames then
+    `probe` frames after the kill probe (none when `probe` is 0), T frames
+    per batch, comparing full carries after every batch; returns the
+    reference carry after the run, which latched the probe's frame on both
+    sides."""
     sc = script(clean + probe, players, input_size, seed=players * 10 + t_ticks)
-    ref = TpuSyncTestSession(RefArena(players, n, input_size), players, D, backend=ref_backend, mesh=mesh)
-    port = DeviceSyncTestSession(Arena(players, n, input_size), players, D, backend=port_backend, device="cpu")
+    ref = TpuSyncTestSession(RefArena(players, n, input_size), players, d, backend=ref_backend, mesh=mesh)
+    port = DeviceSyncTestSession(Arena(players, n, input_size), players, d, backend=port_backend, device="cpu")
     for start in range(0, clean + probe, t_ticks):
         if start == clean:
             ref.check()
             port.check()
-            slot = (start - D) % (D + 2)
+            slot = (start - d) % (d + 2)
             ring = dict(ref.carry["ring"])
             ring["hp"] = ring["hp"].at[slot, :KILLED].set(0)
             ref.carry = {**ref.carry, "ring": ring}
@@ -88,7 +89,7 @@ def run_pair(ref_backend, port_backend, players, n, input_size, t_ticks, clean, 
         ref.check()
     with pytest.raises(MismatchedChecksum) as port_err:
         port.check()
-    assert port_err.value.frame == ref_err.value.frame == clean - D + 1
+    assert port_err.value.frame == ref_err.value.frame == clean - d + 1
     return jax.device_get(ref.carry)
 
 

@@ -24,6 +24,7 @@ from ggrs_tpu_torch.device import sync_test
 from ggrs_tpu_torch.device.beam_core import plain_rollout
 from ggrs_tpu_torch.device.fused_core import FusedSyncTestCore, plain_batch
 from ggrs_tpu_torch.device.injected_core import InjectedReduceCore
+from ggrs_tpu_torch.device.reduce_core import STATE as STATE_SLOT
 from ggrs_tpu_torch.device.reduce_core import ReduceTableCore, plain_reduce_table, source_slots
 from ggrs_tpu_torch.device.planes import PlaneContext
 from ggrs_tpu_torch.device.resim import RESIM_KEYS, ResimCore
@@ -362,21 +363,28 @@ def test_arena_many_teams_reduce_and_injected_route_match_plain_on_card(cuda_car
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("players,n,input_size,t_ticks", [(2, 4096, 1, 24), (3, 4096, 2, 1), (17, 4352, 1, 12),
-                                                         (16, 1 << 19, 1, 12)])
-def test_arena_tiled_inline_kernel_matches_plain_on_card(cuda_card, players, n, input_size, t_ticks):
-    """K2's inline whole-world arena route (any T per launch, a grid barrier
-    before every step, a persistent cooperative grid over the entity tiles:
-    Arena(16, 2^19) has 4096 tiles, more than the card holds at once)
-    equals plain_parts and plain_verdict — parts and full carry after every
-    batch, across frame d, and after hp = 0 in the slot the next rollback
-    loads, where both latch the same frame."""
+@pytest.mark.parametrize("players,n,input_size,t_ticks,regime", [
+    (2, 4096, 1, 24, "grid-shared"), (3, 4096, 2, 1, "grid-shared"), (17, 4352, 1, 12, "grid-shared"),
+    (16, 1 << 19, 1, 12, "grid-shared"), (3, 96, 1, 12, "grid-shared"), (3, 9000, 2, 1, "grid-shared"),
+    (3, 9000, 1, 12, "grid-shared"), (5, 20000, 1, 12, "grid-shared"), (12, 12672, 1, 12, "grid-shared"),
+    (32, 2_000_000, 1, 2, "grid-global"), (65, 1024, 1, 12, "grid-shared")])
+def test_arena_tiled_inline_kernel_matches_plain_on_card(cuda_card, players, n, input_size, t_ticks, regime):
+    """K2's inline whole-world arena route (any T per launch, a grid
+    barrier before every step) in each regime `inline_plan` picks — the
+    states on chip (the headline world, Arena(16, 2^19), 96 entities one
+    a block) and in global memory (two million entities); blocks of 96,
+    160 and 96 threads that 3, 5 and 12 teams divide, so a thread's team
+    is fixed with P no power of two; past 64 teams the warps share one row
+    of team sums — equals plain_parts and
+    plain_verdict: parts and full carry after every batch, across frame d,
+    and after hp = 0 in the slot the next rollback loads, where both latch
+    the same frame."""
     ctx = PlaneContext(Arena(players, n, input_size), players, 8, torch.device("cuda"))
     core = TiledSyncTestCore(ctx)
     kernel = sync_test.initial_carry(ctx)
     plain = copy_carry(kernel)
     rng = np.random.default_rng(players + t_ticks)
-    batches = 3 if t_ticks > 1 else 12
+    batches = {1: 12, 2: 7}.get(t_ticks, 3)  # the probe's batch rolls back
     for b in range(batches):
         if b == batches - 1:
             slot = (int(kernel["meta"][0]) - ctx.d) % ctx.ring_len
@@ -393,6 +401,40 @@ def test_arena_tiled_inline_kernel_matches_plain_on_card(cuda_card, players, n, 
             assert torch.equal(kernel[k], plain[k]), (b, k)
     assert core.launches == core.verdict_launches == batches
     assert kernel["meta"][1] == 1  # the probe latched
+    assert core.plan.regime == regime
+
+
+@pytest.mark.cuda
+def test_reduce_table_back_to_back_into_dirty_out_on_card(cuda_card):
+    """50 K5 launches back to back, no synchronisation between them, of
+    mixed S (1, d+1, the whole ring) and worlds (one block a source at
+    4096; a scratch row and a ticket a source at 65536 and past it; teams
+    dividing the block and not; past 64 teams, one shared row of team
+    sums), each into an `out` full of garbage: each
+    equals plain_reduce_table, so the kernel overwrites `out` and leaves its
+    scratch and tickets zero for the next launch."""
+    rng = np.random.default_rng(50)
+    worlds = []
+    for players, n in ((2, 4096), (3, 65536), (17, 70000), (64, 4096), (80, 12000)):
+        ctx = PlaneContext(Arena(players, n), players, 8, torch.device("cuda"))
+        carry = sync_test.initial_carry(ctx)
+        carry["ring"].copy_(torch.from_numpy(rng.integers(0, 1 << 18, size=tuple(carry["ring"].shape),
+                                                          dtype=np.int32)))
+        carry["ring"][:, 4] -= 1 << 16  # hp: about a quarter dead
+        worlds.append((ctx, ReduceTableCore(ctx), carry))
+    results = []
+    for k in range(50):
+        ctx, core, carry = worlds[rng.integers(len(worlds))]
+        slots = [(STATE_SLOT,), source_slots(int(rng.integers(0, 40)), ctx.d, ctx.ring_len),
+                 tuple(range(ctx.ring_len))][k % 3]
+        out = torch.full((len(slots), ctx.reduce_len), -12345, dtype=torch.int32, device="cuda")
+        core.gather(carry["ring"], carry["state"], slots, out=out)
+        want = plain_reduce_table(torch.stack([carry["state"] if s < 0 else carry["ring"][s] for s in slots]), ctx)
+        results.append((out, want))
+    torch.cuda.synchronize()
+    for k, (out, want) in enumerate(results):
+        assert torch.equal(out, want), k
+    assert sum(core.launches for _, core, _ in worlds) == 50
 
 
 def swarm_script(rng, t_ticks, players):

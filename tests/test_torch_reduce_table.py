@@ -2,7 +2,8 @@
 reference's reduction table, `PallasTiledSyncTestCore(...,
 external_reduce=True)` `reduce_sources_kernel` and
 `frontier_partial_kernel` in interpret mode, on carries taken from a few
-reference ticks; and the wrapper's CPU path. Tolerance zero."""
+reference ticks, and against the reference adapter's `reduce_partial` on
+random planes; and the wrapper's CPU path. Tolerance zero."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ import jax
 
 from ggrs_tpu.models.arena import Arena as RefArena
 from ggrs_tpu.tpu import TpuSyncTestSession
+from ggrs_tpu.tpu.pallas_core import KernelCtx, get_adapter as get_ref_adapter
 from ggrs_tpu.tpu.pallas_tiled import PallasTiledSyncTestCore
 from ggrs_tpu_torch import Arena, ConfigError, ExGame
 from ggrs_tpu_torch.convert import carry_from_reference
@@ -51,6 +53,28 @@ def test_plain_table_matches_reference_kernels(players, frames):
     np.testing.assert_array_equal(plain_reduce_table(sources, ctx).numpy(), want)
     np.testing.assert_array_equal(plain_reduce_table(port["state"][None], ctx).numpy()[0], want_front)
     assert (want[:, 0] < n // players).all()  # the dead are not counted
+
+
+@pytest.mark.parametrize("players", [3, 17, 64])
+@pytest.mark.parametrize("num_sources", [1, 9])
+def test_plain_table_matches_reference_reduce_partial(players, num_sources):
+    """Each row of plain_reduce_table over S sources (1: the frontier row;
+    d + 1 = 9: a tick's table) equals the reference ArenaPlanes'
+    reduce_partial of that source, on random planes with a quarter of the
+    entities dead."""
+    n = 2048
+    rng = np.random.default_rng(players * 100 + num_sources)
+    planes = rng.integers(0, 1 << 18, size=(num_sources, 6, n), dtype=np.int32)
+    planes[:, 4] = rng.integers(-2, 6, size=(num_sources, n), dtype=np.int32)  # hp, some dead
+    ref = get_ref_adapter(RefArena(players, n))
+    gi = jax.numpy.arange(n, dtype=jax.numpy.int32)
+    kctx = KernelCtx(gi, gi % players)
+    want = np.stack([np.asarray(ref.reduce_partial({"px": p[0], "py": p[1], "hp": p[4]}, kctx), dtype=np.int32)
+                     for p in planes])
+    ctx = PlaneContext(Arena(players, n), players, 8, "cpu")
+    got = plain_reduce_table(torch.from_numpy(planes), ctx).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.shape == (num_sources, 3 * players) and (want[:, 0::3] < n // players + 1).all()
 
 
 def test_wrapper_takes_cpu_carries():
