@@ -14,7 +14,11 @@ NVIDIA card (written for an H100). Run from the repository root:
    plus its verdict post-pass) on ExGame(2, 1048576), d=8, T=240, 1
    batch. Then a divergence probe per kernel: corrupt the ring slot the
    next rollback loads, and kernel and plain version must latch the same
-   mismatch frame.
+   mismatch frame. K1's time stands beside its tail's verdict timed alone
+   on the same batch's parts; K2's verdict is timed queued back to back.
+   Then the verdict kernel against plain_verdict on every crafted stream
+   of VERDICT_STREAMS (carried history, planted differences, a latch on
+   entry).
 3. Drives the main path, `DeviceSyncTestSession(backend="auto")`, at the
    three shapes: "auto" must pick K1, K1, K2; each kernel's launch count is
    set to 0 just before and read just after, and must be above 0; the
@@ -445,6 +449,53 @@ def least(nbytes, ops):
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
+def verdict_bound(t_ticks, d, hist):
+    """Least ms of the verdict over T*d events: parts read once, history
+    and meta read and written once; 12 int32 ops an event."""
+    return least(4 * (2 * t_ticks * d + 6 * hist + 6), 12 * t_ticks * d)
+
+
+def tail_verdict_ms(torch, ctx, carry, inputs):
+    """The verdict alone on the parts of one batch of `inputs` from `carry`
+    (a copy; K2's kernel makes the same parts K1 sums): what K1's tail
+    runs, minus the bookkeeping, as its own launch queued back to back."""
+    from ggrs_tpu_torch.convert import copy_carry
+    from ggrs_tpu_torch.device.tiled_core import TiledSyncTestCore
+
+    tiled, work = TiledSyncTestCore(ctx), copy_carry(carry)
+    parts = tiled.run_kernel(work, inputs)
+    return queued_ms(torch, lambda: tiled.verdict(work, *parts), TIMED_LAUNCHES)
+
+
+def verdict_streams_phase(torch, np, dev, tag):
+    """synctest_verdict_launch against plain_verdict on every crafted stream
+    of VERDICT_STREAMS: history, latch and frame equal."""
+    from ggrs_tpu_torch import ExGame
+    from ggrs_tpu_torch.convert import copy_carry
+    from ggrs_tpu_torch.device import sync_test
+    from ggrs_tpu_torch.device.planes import PlaneContext
+    from ggrs_tpu_torch.device.tiled_core import TiledSyncTestCore, plain_verdict
+
+    latched = []
+    for name, d, t_ticks, c0, carried, plants, on_entry in VERDICT_STREAMS:
+        ctx = PlaneContext(ExGame(PLAYERS, 4096), PLAYERS, d, dev)
+        ph, pl, tg, hhi, hlo, meta = verdict_stream(np, d, t_ticks, c0, carried, plants, on_entry,
+                                                    ctx.cs_frame_weight, seed=d * 1000 + t_ticks)
+        kc = sync_test.initial_carry(ctx)
+        for k, v in (("h_tag", tg), ("h_hi", hhi), ("h_lo", hlo), ("meta", meta)):
+            kc[k].copy_(torch.from_numpy(v))
+        pc = copy_carry(kc)
+        parts = torch.from_numpy(ph).to(dev), torch.from_numpy(pl).to(dev)
+        TiledSyncTestCore(ctx).verdict(kc, *parts)
+        plain_verdict(pc, *parts, ctx)
+        torch.cuda.synchronize()
+        if carry_err(torch, kc, pc, ("h_tag", "h_hi", "h_lo", "meta")):
+            fail(f"verdict stream {name}: synctest_verdict and plain_verdict differ")
+        latched.append(f"{name} {kc['meta'].tolist()[1:]}")
+    print(f"synctest_verdict == plain_verdict on {len(VERDICT_STREAMS)} crafted streams (latch, frame): "
+          f"{', '.join(latched)} {tag}")
+
+
 def arena_bound(n, players, d, t_ticks, c0, reduces=True):
     """Least ms of one arena K1 batch (or, at T = 1, one K2 tick on an
     injected table, which does the same work bar the reductions). T > 1:
@@ -524,6 +575,88 @@ def tick_bound(rows, n, core):
         ops = n * (advances * getattr(core.game, "substeps", 1) * step_ops + saves * save_ops)
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+# crafted event streams for the first-seen verdict (K2's verdict kernel and
+# K1's tail): name, check distance d, ticks T, the batch's first frame c0,
+# whether the history holds the frames before c0 (else stale tags only), the
+# planted differences, and whether a mismatch is latched on entry. A plant
+# (kind, k) flips the checksum of the k-th frame the batch saves twice or
+# more: "first" at its first event, "later" at its last; "carried" flips the
+# history's value of the k-th frame whose history the batch compares with.
+VERDICT_STREAMS = [
+    ("d2_t1_fresh", 2, 1, 0, False, (), False),
+    ("d2_t60_crossing", 2, 60, 1, True, (("first", 3), ("later", 7)), False),
+    ("d2_t240_carried", 2, 240, 100, True, (("carried", 0),), False),
+    ("d8_t1_carried", 8, 1, 50, True, (("carried", 2),), False),
+    ("d8_t60_two", 8, 60, 0, False, (("later", 5), ("first", 2)), False),
+    ("d8_t60_crossing", 8, 60, 5, True, (("later", 4),), False),
+    ("d8_t60_first_later", 8, 60, 69, True, (("later", 10), ("first", 3)), False),
+    ("d8_t240_latched", 8, 240, 1000, True, (("later", 1),), True),
+    ("d16_t1_clean", 16, 1, 16, True, (), False),
+    ("d16_t60_crossing", 16, 60, 10, True, (("first", 0), ("later", 20)), False),
+    ("d16_t240_carried", 16, 240, 300, True, (("carried", 5), ("later", 40)), False),
+    ("d16_t60_stale", 16, 60, 17, False, (), False),
+]
+
+
+def verdict_stream(np, d, t_ticks, c0, carried, plants, latched, frame_weight, seed):
+    """One crafted batch for the verdict: (parts_hi, parts_lo) int32 [T, d],
+    the frame term not folded in, zero for events that did not happen; and
+    the history and meta it meets (h_tag, h_hi, h_lo [d+2], meta [3]), int32
+    bit patterns. Every event of a frame carries that frame's checksum,
+    bar the planted ones."""
+    rng = np.random.default_rng(seed)
+    hist, mask = d + 2, (1 << 32) - 1
+    truth = {}
+
+    def value(f):
+        if f not in truth:
+            truth[f] = [int(v) for v in rng.integers(0, 1 << 32, size=2, dtype=np.uint64)]
+        return truth[f]
+
+    events = []  # (t, j, frame) in (t, j) order
+    for t in range(t_ticks):
+        c = c0 + t
+        for j in range(d):
+            if j == d - 1 or c > d:
+                events.append((t, j, c - d + 1 + j if j < d - 1 else c))
+    by_frame = {}
+    for k, (_, _, f) in enumerate(events):
+        by_frame.setdefault(f, []).append(k)
+    tag, hhi, hlo = [-1] * hist, [0] * hist, [0] * hist
+    if carried:
+        for f in range(max(0, c0 - hist), c0):
+            tag[f % hist] = f
+            hhi[f % hist], hlo[f % hist] = value(f)
+    else:  # tags two turns of the history back: never compared with
+        for h in range(hist):
+            f = c0 - 2 * hist + h
+            if f >= 0:
+                tag[f % hist] = f
+                hhi[f % hist], hlo[f % hist] = value(f + 1)
+    ev = [list(value(f)) for _, _, f in events]
+    twice = [f for f in sorted(by_frame, key=lambda f: by_frame[f][0]) if len(by_frame[f]) > 1]
+    lo_f = min(by_frame)
+    compared = [f for f in sorted(by_frame) if tag[f % hist] == f and f - hist < lo_f]
+    for kind, k in plants:
+        if kind == "carried":
+            f = compared[k]
+            hhi[f % hist] ^= 1 << 7
+        else:
+            f = twice[k]
+            ev[by_frame[f][0 if kind == "first" else -1]][kind == "later"] ^= 1 << 3
+    parts_hi = np.zeros((t_ticks, d), np.int64)
+    parts_lo = np.zeros((t_ticks, d), np.int64)
+    for (t, j, f), (hi, lo) in zip(events, ev):
+        parts_hi[t, j] = (hi - f * frame_weight) & mask
+        parts_lo[t, j] = (lo - f) & mask
+
+    def i32(a):
+        return np.asarray(a, np.int64).astype(np.uint32).view(np.int32)
+
+    meta = np.array([c0, 1 if latched else 0, 3 if latched else -1], np.int32)
+    return i32(parts_hi), i32(parts_lo), np.array(tag, np.int32), i32(hhi), i32(hlo), meta
 
 
 def random_tick_args(players: int, max_prediction: int, n_rows: int, seed: int, mod: int = 16,
@@ -1237,10 +1370,12 @@ def arena_fused_phase(torch, np, dev, tag):
         if key in ARENA_TIMED:
             timed, ptimed = copy_carry(kc), copy_carry(pc)
             b_ms, b_by = arena_bound(n, players, d, t_ticks, int(timed["meta"][0]))
+            tail_ms = tail_verdict_ms(torch, ctx, timed, inputs)
             ms = events_ms(torch, lambda: core.batch(timed, inputs), ARENA_TIMED[key])
             plain_ms = events_ms(torch, lambda: plain_batch(ptimed, inputs, ctx), 1)
             print(f"{key}: synctest_fused (arena) {ms:.4f} ms/batch vs plain {plain_ms:.1f} ms, "
-                  f"bound {b_ms:.4f} ms ({b_by}) {tag}")
+                  f"bound {b_ms:.4f} ms ({b_by}); its tail's verdict alone on this batch's parts "
+                  f"{tail_ms:.4f} ms {tag}")
             entries[key] = {
                 "name": "synctest_fused_arena", "route": "cuda",
                 "source": "ggrs_tpu_torch/csrc/synctest_fused.cu",
@@ -1249,7 +1384,7 @@ def arena_fused_phase(torch, np, dev, tag):
                 "shape": f"Arena({players}, {n}), d={d}, T={t_ticks}",
                 "max_abs_err": err, "bit_equal": err == 0,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None, "launches": 0,
+                "library_ms": None, "launches": 0, "tail_verdict_ms": tail_ms,
             }
             del timed, ptimed
         del kc, pc
@@ -1425,8 +1560,7 @@ def reduce_and_injected_phase(torch, np, dev, tag):
         vcarry, pcarry = copy_carry(timed), copy_carry(timed)
         v_ms = queued_ms(torch, lambda: core.tiled.verdict(vcarry, *parts), TIMED_LAUNCHES)
         v_plain_ms = events_ms(torch, lambda: PlainTiled(ctx).verdict(pcarry, *parts), 1)
-        v_bytes = 4 * (2 * d + 6 * ctx.hist_len + 6)
-        v_b, v_by = least(v_bytes, 12 * d)
+        v_b, v_by = verdict_bound(1, d, ctx.hist_len)
         entries[("synctest_verdict", key)] = {
             "name": "synctest_verdict", "route": "cuda",
             "source": "ggrs_tpu_torch/csrc/synctest_tiled.cu",
@@ -1815,10 +1949,10 @@ def swarm_synctest_phase(torch, np, dev, tag):
         if tiled:
             parts, pparts = [], []
             ms = events_ms(torch, lambda: parts.append(core.run_kernel(timed, inputs)), reps)
-            v_ms = events_ms(torch, lambda: core.verdict(timed, *parts[-1]), reps)
+            v_ms = queued_ms(torch, lambda: core.verdict(timed, *parts[-1]), TIMED_LAUNCHES)
             plain_ms = events_ms(torch, lambda: pparts.append(plain_parts(ptimed, inputs, ctx)), 1)
             v_plain_ms = events_ms(torch, lambda: plain_verdict(ptimed, *pparts[-1], ctx), 1)
-            v_b, v_by = least(4 * (2 * t_ticks * d + 6 * ctx.hist_len + 6), 12 * t_ticks * d)
+            v_b, v_by = verdict_bound(t_ticks, d, ctx.hist_len)
             entries[("synctest_verdict", key)] = {
                 "name": "synctest_verdict", "route": "cuda", "source": "ggrs_tpu_torch/csrc/synctest_tiled.cu",
                 "replaces": "ggrs_tpu/tpu/pallas_tiled.py:468",
@@ -1828,9 +1962,11 @@ def swarm_synctest_phase(torch, np, dev, tag):
                 "launches": 0,
             }
         else:
+            tail_ms = tail_verdict_ms(torch, ctx, timed, inputs)
             ms = events_ms(torch, lambda: core.batch(timed, inputs), reps)
             plain_ms = events_ms(torch, lambda: plain_batch(ptimed, inputs, ctx), 1)
-        print(f"{key}: {name} {ms:.4f} ms/batch vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}) {tag}")
+        tail = "" if tiled else f"; its tail's verdict alone on this batch's parts {tail_ms:.4f} ms"
+        print(f"{key}: {name} {ms:.4f} ms/batch vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}){tail} {tag}")
         entries[(name, key)] = {
             "name": name, "route": "cuda", "source": f"ggrs_tpu_torch/csrc/{core.kernel}.cu",
             "replaces": "ggrs_tpu/tpu/pallas_tiled.py:428" if tiled else "ggrs_tpu/tpu/pallas_core.py:979",
@@ -1840,6 +1976,8 @@ def swarm_synctest_phase(torch, np, dev, tag):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "launches": 0,
         }
+        if not tiled:
+            entries[(name, key)]["tail_verdict_ms"] = tail_ms
         del timed, ptimed, kc, pc
     return scripts, plain_final, entries
 
@@ -2108,6 +2246,10 @@ def arena_inline_phase(torch, np, dev, tag, arena_path):
         b_ms, b_by = inline_bound(n, players, d, t_ticks, c0)
         ms = events_ms(torch, lambda: core.run_kernel(timed_k, inputs), reps)
         plain_ms = events_ms(torch, lambda: plain_parts(timed_p, inputs, ctx), 1)
+        parts = core.run_kernel(timed_k, inputs)
+        v_ms = queued_ms(torch, lambda: core.verdict(timed_k, *parts), TIMED_LAUNCHES)
+        v_plain_ms = events_ms(torch, lambda: plain_verdict(timed_p, *parts, ctx), 1)
+        v_b, v_by = verdict_bound(t_ticks, d, ctx.hist_len)
         barriers = t_ticks * (d + 1)
         print(f"{key}: synctest_tiled_arena_inline ({plan.regime}) {ms:.4f} ms/batch ({barriers} barriers, "
               f"{ms / barriers * 1e3:.2f} us a step) vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}) {tag}")
@@ -2121,7 +2263,17 @@ def arena_inline_phase(torch, np, dev, tag, arena_path):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "launches": 0,
         }
-        del kc, pc, timed_k, timed_p
+        v_entry = {
+            "name": "synctest_verdict", "route": "cuda", "source": "ggrs_tpu_torch/csrc/synctest_tiled.cu",
+            "replaces": "ggrs_tpu/tpu/pallas_tiled.py:468",
+            "tpu_counterpart": "PallasTiledSyncTestCore._verdict, after the inline route's batches",
+            "shape": f"T={t_ticks}, d={d} events", "max_abs_err": err, "bit_equal": err == 0,
+            "ms": v_ms, "plain_ms": v_plain_ms, "bound_ms": v_b, "bound_by": v_by, "library_ms": None,
+            "launches": 0,
+        }
+        print(f"{key}: synctest_verdict after the inline route {v_ms:.4f} ms (queued) vs plain {v_plain_ms:.2f} ms, "
+              f"bound {v_b:.7f} ms ({v_by}) {tag}")
+        del kc, pc, timed_k, timed_p, parts
 
         sess = DeviceSyncTestSession(Arena(players, n), players, d, backend=backend, device=dev)
         if sess.backend != "cuda-tiled" or type(sess.core) is not TiledSyncTestCore:
@@ -2144,7 +2296,8 @@ def arena_inline_phase(torch, np, dev, tag, arena_path):
         sess.check()
         p50, p90 = samples[main_reps // 2], samples[(main_reps * 9) // 10]
         entry["launches"] = counts["synctest_tiled_arena_inline"]
-        entries.append(entry)
+        v_entry["launches"] = counts["synctest_verdict"]
+        entries += [entry, v_entry]
         if sess.core.plan.regime != regime:
             fail(f"{key}: the session's inline route took the {sess.core.plan.regime} regime, expected {regime}")
         run = {"key": key, "backend": f"{backend} -> {sess.backend}", "regime": regime, "ms_per_batch_p50": p50,
@@ -2408,12 +2561,10 @@ def main() -> None:
         if tiled:
             parts, pparts = [], []
             ms = events_ms(torch, lambda: parts.append(core.run_kernel(timed, inputs)), reps)
-            v_ms = events_ms(torch, lambda: core.verdict(timed, *parts[-1]), reps)
+            v_ms = queued_ms(torch, lambda: core.verdict(timed, *parts[-1]), TIMED_LAUNCHES)
             plain_ms = events_ms(torch, lambda: pparts.append(plain_parts(ptimed, inputs, ctx)), 1)
             v_plain_ms = events_ms(torch, lambda: plain_verdict(ptimed, *pparts[-1], ctx), 1)
-            v_bytes = 4 * (2 * t_ticks * d + 6 * ctx.hist_len + 6)
-            v_ops = 12 * t_ticks * d
-            v_bound = max(v_bytes / HBM_BYTES_PER_S, v_ops / INT32_OPS_PER_S) * 1e3
+            v_bound, v_by = verdict_bound(t_ticks, d, ctx.hist_len)
             verdict_entry = {
                 "name": "synctest_verdict", "route": "cuda",
                 "source": "ggrs_tpu_torch/csrc/synctest_tiled.cu",
@@ -2422,11 +2573,11 @@ def main() -> None:
                 "shape": f"T={t_ticks}, d={d} events",
                 "max_abs_err": err, "bit_equal": err == 0,
                 "ms": v_ms, "plain_ms": v_plain_ms,
-                "bound_ms": v_bound,
-                "bound_by": "bytes" if v_bytes / HBM_BYTES_PER_S >= v_ops / INT32_OPS_PER_S else "operations",
+                "bound_ms": v_bound, "bound_by": v_by,
                 "library_ms": None,
             }
         else:
+            tail_ms = tail_verdict_ms(torch, ctx, timed, inputs)
             ms = events_ms(torch, lambda: core.batch(timed, inputs), reps)
             plain_ms = events_ms(torch, lambda: plain_batch(ptimed, inputs, ctx), 1)
         del timed, ptimed
@@ -2441,12 +2592,18 @@ def main() -> None:
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         }
+        tail = ""
+        if not tiled:
+            entry["tail_verdict_ms"] = tail_ms
+            tail = f"; its tail's verdict alone on this batch's parts {tail_ms:.4f} ms"
         entries.append(entry)
         if tiled:
             entries.append({"key": key, **verdict_entry})
         print(f"{key}: {core.kernel} {ms:.4f} ms/batch vs plain {entry['plain_ms']:.1f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}) {tag}")
+              f"bound {b_ms:.4f} ms ({b_by}){tail} {tag}")
         del kc, pc
+
+    verdict_streams_phase(torch, np, dev, tag)
 
     mark("2")
 

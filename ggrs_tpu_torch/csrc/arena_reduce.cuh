@@ -1,15 +1,21 @@
 // What the arena kernels that reduce the whole world before a step share:
 // the whole-batch SyncTest kernel (synctest_fused.cu, K1), the request
-// path's tick (resim_tick.cu, K3) and the beam rollout (beam_rollout.cu,
-// K4); and, below, the team sums at O(1) an entity that K2's inline route
-// (synctest_tiled.cu) and the reduction table (reduce_table.cu, K5) use. An arena step needs, per team, the living count and centroid of the
-// state entering it; the world is spread over blocks that cannot see each
-// other, so a reduction is: block sums (warp shuffles,
-// arena::block_team_sums) -> uint32 atomics into a raw row in global
-// memory -> a GRID barrier -> every block finalizes the row itself (P
-// teams of scalar work, exact floor division). The barrier needs every
-// block of the grid resident at once, so these kernels are launched
-// cooperatively after an occupancy query (`resident_blocks`).
+// path's tick (resim_tick.cu, K3), the beam rollout (beam_rollout.cu, K4),
+// K2's inline route (synctest_tiled.cu) and the reduction table
+// (reduce_table.cu, K5). An arena step needs, per team, the living count and
+// centroid of the state entering it; the world is spread over blocks that
+// cannot see each other, so a reduction is: block sums -> uint32 atomics
+// into a raw row in global memory -> a GRID barrier -> every block
+// finalizes the row itself (P teams of scalar work, exact floor division).
+// The barrier needs every block of the grid resident at once, so these
+// kernels are launched cooperatively after an occupancy query
+// (`resident_blocks`).
+//
+// Two barriers: `grid_sync` (K3, K4), and the split `grid_arrive` /
+// `grid_wait` (K1, K2's inline route), which lets a block work between its
+// arrival and its wait. Two ways to sum teams: `arena::block_team_sums`
+// (K3, K4), which walks every team, and `arena::warp_team_add` (K1, K2's
+// inline route, K5), O(1) an entity.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -51,78 +57,52 @@ __device__ __forceinline__ void grid_sync(unsigned int* bar) {
   __syncthreads();
 }
 
-// What arena's grid-wide reduction steppers share: this entity's team and
-// the next team (its enemy), shared-memory scratch for block sums, the raw
-// table in global memory and the barrier.
-struct ArenaReduce {
-  arena::Team* fin;   // shared: finalized teams, [slots * P]
-  uint32_t* scratch;  // shared: 3 * kTeamChunk * kWarps words
-  uint32_t* raw;      // global: raw sums, [slots * 3P], zeroed before launch
-  unsigned int* bar;  // global: grid barrier
-  int num_players, input_size, team, enemy;
+__device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
 
-  // add this block's sums of `s` to raw row `slot`
-  __device__ __forceinline__ void add(const arena::State& s, bool active, int slot) {
-    arena::block_team_sums<kWarps>(active, s.px, s.py, s.hp, team, num_players, scratch,
-                                   raw + (size_t)slot * 3 * num_players);
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The grid barrier, split so that a block works between its
+// arrival and its wait. `arrived` counts every arrival ever made (it only
+// grows, so it needs no reset between barriers); the g-th barrier a block
+// waits on completes when it reaches (g + 1) * gridDim.x. Thread 0 arrives
+// with a release atomic, after a block barrier, so the block's writes
+// before it are released; it waits with acquire loads, with no sleep for
+// the first spins; a block that waits ~10 s traps, so the launch fails
+// instead of hanging the card.
+__device__ __forceinline__ void grid_arrive(unsigned long long* arrived) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long old;
+    asm volatile("atom.release.gpu.global.add.u64 %0, [%1], 1;" : "=l"(old) : "l"(arrived) : "memory");
   }
-  // after a grid barrier: finalize raw row `slot` into fin row `slot`
-  __device__ __forceinline__ void finalize(int slot) {
-    const int P = num_players;
-    for (int t = threadIdx.x; t < P; t += kBlock) {
-      const uint32_t* r = raw + (size_t)slot * 3 * P + 3 * t;  // atomics live in L2: read there
-      fin[slot * P + t] = arena::finalize((int)__ldcg(r), (int)__ldcg(r + 1), (int)__ldcg(r + 2));
+}
+
+__device__ __forceinline__ void grid_wait(const unsigned long long* arrived, unsigned long long target) {
+  if (threadIdx.x == 0) {
+    unsigned long long since = 0;
+    for (unsigned spins = 0; ld_acquire(arrived) < target; ++spins) {
+      if (spins < 2048) continue;
+      __nanosleep(64);
+      if ((spins & 1023) == 0) {
+        const unsigned long long now = globaltimer();
+        if (since == 0) since = now;
+        else if (now - since > 10000000000ull) __trap();
+      }
     }
   }
-  // zero raw row `slot` (block 0 only)
-  __device__ __forceinline__ void zero(int slot) {
-    if (blockIdx.x == 0)
-      for (int j = threadIdx.x; j < 3 * num_players; j += kBlock) raw[(size_t)slot * 3 * num_players + j] = 0;
-  }
-  __device__ __forceinline__ void step(arena::State& s, const int* in, int slot) {
-    const int P = num_players;
-    arena::step(s, in[0], arena::throttle_of(in, input_size), fin[slot * P + team], fin[slot * P + enemy]);
-  }
-};
+  __syncthreads();
+}
 
-// T == 1: the reference reduces inline from the state entering every step.
-// Three raw rows rotate: while step k adds to row k % 3, block 0 zeroes row
-// (k+1) % 3 and slower blocks may still read row (k-1) % 3. A step is three
-// phases — gather (this block's sums of the state entering it), reduce (the
-// grid barrier and the finalize), apply (the step on the finalized row) —
-// which a block that owns several entity tiles runs once per tile, once,
-// and once per tile again (synctest_tiled.cu's persistent inline body).
-struct ArenaInlineStepper : ArenaReduce {
-  int k;
-
-  // this entity's team and its enemy, for a block that walks several tiles
-  __device__ __forceinline__ void at(int e) {
-    team = e % num_players;
-    enemy = (team + 1) % num_players;
-  }
-  __device__ __forceinline__ void gather(const arena::State& s, bool active) {
-    zero((k + 1) % 3);
-    add(s, active, k % 3);
-  }
-  __device__ __forceinline__ void reduce() {
-    grid_sync(bar);
-    finalize(k % 3);
-    __syncthreads();
-  }
-  __device__ __forceinline__ void apply(arena::State& s, const int* in) { ArenaReduce::step(s, in, k % 3); }
-
-  __device__ __forceinline__ void seed(const arena::State&, bool) {}
-  __device__ void step(arena::State& s, bool active, const int* in, int, int) {
-    gather(s, active);
-    reduce();
-    apply(s, in);
-    ++k;
-  }
-  __device__ __forceinline__ void frontier_done(const arena::State&, bool, int, int) {}
-};
-
-// The team sums at O(1) an entity, whatever P is (K5, reduce_table.cu, and
-// K2's inline route, synctest_tiled.cu). Each warp sums its lanes' raw
+// The team sums at O(1) an entity, whatever P is (K1, synctest_fused.cu;
+// K2's inline route, synctest_tiled.cu; K5, reduce_table.cu). Each warp sums its lanes' raw
 // terms — the living count and the sums of px >> 6 and py >> 6 of the
 // entities a lane holds for `team` (zeros for a lane with none) — into a
 // row of 3P words in shared memory: its own row, with plain adds (no other

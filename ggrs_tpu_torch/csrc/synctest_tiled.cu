@@ -14,8 +14,9 @@
 // WITHOUT the frame term, zero for events that did not happen.
 //
 // The history compare is the reference's jnp post-pass `_verdict`
-// (pallas_tiled.py:468); here it is `synctest_verdict_kernel`, one thread,
-// the same function the whole-batch kernel runs in its last block.
+// (pallas_tiled.py:468); here it is `synctest_verdict_kernel`, one block of
+// a thread an event (up to 1024), the same function the whole-batch kernel
+// runs in its last block (synctest_body.cuh).
 //
 // What bounds it on an H100: at 1M entities, d=8, the state and ring are
 // 220 MB, streamed once in and once out per batch (~0.13 ms at 3.35 TB/s),
@@ -171,50 +172,6 @@ __device__ __forceinline__ arena::Team finalize_sums(uint32_t count, uint32_t sx
 // Word j of the block's team sums: its warps' rows, left zero
 __device__ __forceinline__ uint32_t block_sum(const Shared& sh, int words, int j) {
   return arena::warp_rows_sum(sh.rows, sh.own_row ? sh.warps : 1, words, j);
-}
-
-__device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// The grid barrier, split so that a block works between its
-// arrival and its wait. `arrived` counts every arrival ever made (it only
-// grows, so it needs no reset between barriers or launches); the g-th
-// barrier of the core's life completes when it reaches (g + 1) * gridDim.x.
-// Thread 0 arrives with a release atomic, after a block barrier, so the
-// block's writes before it are released; it waits with acquire loads, with
-// no sleep for the first spins; a block that waits ~10 s traps, so the
-// launch fails instead of hanging the card.
-__device__ __forceinline__ void grid_arrive(unsigned long long* arrived) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long old;
-    asm volatile("atom.release.gpu.global.add.u64 %0, [%1], 1;" : "=l"(old) : "l"(arrived) : "memory");
-  }
-}
-
-__device__ __forceinline__ void grid_wait(const unsigned long long* arrived, unsigned long long target) {
-  if (threadIdx.x == 0) {
-    unsigned long long since = 0;
-    for (unsigned spins = 0; ld_acquire(arrived) < target; ++spins) {
-      if (spins < 2048) continue;
-      __nanosleep(64);
-      if ((spins & 1023) == 0) {
-        const unsigned long long now = globaltimer();
-        if (since == 0) since = now;
-        else if (now - since > 10000000000ull) __trap();
-      }
-    }
-  }
-  __syncthreads();
 }
 
 // The reduction: block sums -> three rotating raw rows in
@@ -430,8 +387,7 @@ __global__ void synctest_verdict_kernel(const uint32_t* parts_hi, const uint32_t
                                         int t_ticks, int d, uint32_t frame_weight, int* h_tag,
                                         int* h_hi, int* h_lo, int* meta) {
   extern __shared__ int sh[];
-  if (threadIdx.x == 0)
-    synctest_verdict(parts_hi, parts_lo, t_ticks, d, frame_weight, h_tag, h_hi, h_lo, meta, sh);
+  synctest_verdict(parts_hi, parts_lo, t_ticks, d, frame_weight, h_tag, h_hi, h_lo, meta, sh);
 }
 
 namespace {
@@ -569,8 +525,10 @@ extern "C" int synctest_verdict_launch(const uint32_t* parts_hi, const uint32_t*
                                        int t_ticks, int d, int frame_weight, int* h_tag,
                                        int* h_hi, int* h_lo, int* meta, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = 3 * (size_t)(d + 2) * sizeof(int);
-  synctest_verdict_kernel<<<1, 32, smem, st>>>(parts_hi, parts_lo, t_ticks, d,
-                                               (uint32_t)frame_weight, h_tag, h_hi, h_lo, meta);
+  const size_t smem = verdict_smem_words(d) * sizeof(int);
+  // one block, a thread an event up to 1024 (whole warps)
+  const int threads = min(1024, 32 * max(1, (t_ticks * d + 31) / 32));
+  synctest_verdict_kernel<<<1, threads, smem, st>>>(parts_hi, parts_lo, t_ticks, d,
+                                                    (uint32_t)frame_weight, h_tag, h_hi, h_lo, meta);
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import prime_row, random_tick_rows
+from chip_smoke import VERDICT_STREAMS, prime_row, random_tick_rows, verdict_stream
 from ggrs_tpu_torch import (
     Arena, DeviceRollbackBackend, DeviceSyncTestSession, ExGame, KernelError, SaveGameState, SessionBuilder,
     Swarm,
@@ -49,6 +49,42 @@ def test_missing_compiler_or_source_is_a_kernel_error(monkeypatch, tmp_path):
         build.build(["no_such_kernel"])
 
 
+def assert_latch_probes(core, ctx, steady, script, corrupt, t_ticks):
+    """Divergence probes that K1 latches in its tail (and K2 in its verdict
+    kernel), each run by the kernel and the plain version: full carry equal
+    and the same frame latched. (1) The history value of the first frame
+    tick 0 re-saves is flipped: that re-save is compared with the carried
+    history. (2) From a fresh carry, frames 0..3, then the ring slot of
+    frame 1 corrupted: the batch that crosses frame d loads it only at its
+    last tick (frame d+1), and latches frame 2 there. With single-tick
+    batches every batch is its own last tick."""
+    d = ctx.d
+
+    def run(pair, inputs):
+        core.batch(pair[0], inputs)
+        plain_batch(pair[1], inputs, ctx)
+        torch.cuda.synchronize()
+        for k in CARRY_KEYS:
+            assert torch.equal(pair[0][k], pair[1][k]), k
+
+    pair = [copy_carry(steady[0]), copy_carry(steady[1])]
+    c0 = int(pair[0]["meta"][0])
+    assert c0 > d and int(pair[0]["meta"][1]) == 0
+    for carry in pair:
+        carry["h_hi"][(c0 - d + 1) % ctx.hist_len] ^= 1 << 5
+    run(pair, script(t_ticks))
+    assert pair[0]["meta"].tolist()[1:] == [1, c0 - d + 1]
+
+    pair = [sync_test.initial_carry(ctx)]
+    pair.append(copy_carry(pair[0]))
+    for ticks in ([4] if t_ticks > 1 else [1] * (d + 1)):
+        run(pair, script(ticks))
+    for carry in pair:
+        corrupt(carry, 1 % ctx.ring_len)
+    run(pair, script(d + 2 - int(pair[0]["meta"][0]) if t_ticks > 1 else 1))
+    assert pair[0]["meta"].tolist() == [d + 2, 1, 2]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("core_cls", [FusedSyncTestCore, TiledSyncTestCore])
 def test_kernel_matches_plain_on_card(cuda_card, core_cls):
@@ -59,14 +95,47 @@ def test_kernel_matches_plain_on_card(cuda_card, core_cls):
     plain = copy_carry(kernel)
     rng = np.random.default_rng(12)
     batches = 3
+
+    def script(t_ticks):
+        return torch.from_numpy(rng.integers(0, 16, size=(t_ticks, 2, 1)).astype(np.int32)).to(dev)
+
     for _ in range(batches):
-        inputs = torch.from_numpy(rng.integers(0, 16, size=(24, 2, 1)).astype(np.int32)).to(dev)
+        inputs = script(24)
         core.batch(kernel, inputs)
         plain_batch(plain, inputs, ctx)
         torch.cuda.synchronize()
         for k in CARRY_KEYS:
             assert torch.equal(kernel[k], plain[k]), k
     assert core.launches == batches
+
+    def corrupt(carry, slot):  # the heading: never clamped back
+        carry["ring"][slot, 4, :64] += 7
+
+    assert_latch_probes(core, ctx, (kernel, plain), script, corrupt, 24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", VERDICT_STREAMS, ids=[s[0] for s in VERDICT_STREAMS])
+def test_verdict_kernel_matches_plain_on_card(cuda_card, stream):
+    """synctest_verdict_launch (one block, a thread an event) equals the
+    serial plain_verdict on each crafted stream (test_torch_verdict.py holds
+    plain_verdict against the reference on the same streams)."""
+    name, d, t_ticks, c0, carried, plants, latched = stream
+    ctx = PlaneContext(ExGame(2, 4096), 2, d, torch.device("cuda"))
+    ph, pl, tag, hhi, hlo, meta = verdict_stream(np, d, t_ticks, c0, carried, plants, latched,
+                                                 ctx.cs_frame_weight, seed=d * 1000 + t_ticks)
+    kernel = sync_test.initial_carry(ctx)
+    for key, value in (("h_tag", tag), ("h_hi", hhi), ("h_lo", hlo), ("meta", meta)):
+        kernel[key].copy_(torch.from_numpy(value))
+    plain = copy_carry(kernel)
+    core = TiledSyncTestCore(ctx)
+    parts = torch.from_numpy(ph).cuda(), torch.from_numpy(pl).cuda()
+    core.verdict(kernel, *parts)
+    plain_verdict(plain, *parts, ctx)
+    torch.cuda.synchronize()
+    for k in ("h_tag", "h_hi", "h_lo", "meta"):
+        assert torch.equal(kernel[k], plain[k]), (name, k)
+    assert core.verdict_launches == 1
 
 
 @pytest.mark.cuda
@@ -187,8 +256,10 @@ def test_arena_fused_kernel_matches_plain_on_card(cuda_card, players, input_size
     plain = copy_carry(kernel)
     rng = np.random.default_rng(players + t_ticks)
     batches = 3 if t_ticks > 1 else 14
+    steady = None
     for b in range(batches):
         if b == batches - 1:  # kill 64 entities in the slot the next rollback loads
+            steady = copy_carry(kernel), copy_carry(plain)
             slot = (int(kernel["meta"][0]) - ctx.d) % ctx.ring_len
             for carry in (kernel, plain):
                 carry["ring"][slot, 4, :64] = 0
@@ -200,6 +271,11 @@ def test_arena_fused_kernel_matches_plain_on_card(cuda_card, players, input_size
             assert torch.equal(kernel[k], plain[k]), (b, k)
     assert core.launches == batches
     assert int(kernel["meta"][1]) == 1  # the probe latched
+
+    def kill(carry, slot):
+        carry["ring"][slot, 4, :64] = 0
+
+    assert_latch_probes(core, ctx, steady, lambda t: arena_script(rng, t, players, input_size), kill, t_ticks)
 
 
 @pytest.mark.cuda
@@ -454,8 +530,10 @@ def test_swarm_synctest_kernels_match_plain_on_card(cuda_card, core_cls, n, t_ti
     plain = copy_carry(kernel)
     rng = np.random.default_rng(n + t_ticks)
     batches = 3 if t_ticks > 1 else 14
+    steady = None
     for b in range(batches):
         if b == batches - 1:
+            steady = copy_carry(kernel), copy_carry(plain)
             slot = (int(kernel["meta"][0]) - ctx.d) % ctx.ring_len
             for carry in (kernel, plain):
                 carry["ring"][slot, 0, 5] += 7
@@ -467,6 +545,11 @@ def test_swarm_synctest_kernels_match_plain_on_card(cuda_card, core_cls, n, t_ti
             assert torch.equal(kernel[k], plain[k]), (b, k)
     assert core.launches == batches
     assert int(kernel["meta"][1]) == 1  # the probe latched
+
+    def corrupt(carry, slot):  # px: the torus wrap keeps it
+        carry["ring"][slot, 0, 5] += 7
+
+    assert_latch_probes(core, ctx, steady, lambda t: swarm_script(rng, t, 3), corrupt, t_ticks)
 
 
 @pytest.mark.cuda
