@@ -31,7 +31,13 @@ NVIDIA card (written for an H100). Run from the repository root:
    ExGame(2, 4096) at max_prediction 9, ExGame(4, 4096) at 12 and
    ExGame(2, 1048576) at 9. Then a divergence probe per shape through the
    request path: corrupt the ring slot the next rollback loads, and the
-   kernel and the plain version must latch the same mismatch frame.
+   kernel and the plain version must latch the same mismatch frame. Then
+   K3 against its plain version on every crafted stream of TICK_STREAMS
+   (what the scalar pass computes: state frames after loads of slots the
+   same dispatch saved, frames going back, history keys reused, hits and
+   mismatches, a latch carried in, verification off, zero-advance rows; 1,
+   8 and 16 rows at W = 11 and 14) on ex_game, swarm and arena, arena on
+   both of its layouts, the dispatches launched back to back.
 5. Drives the request path, `SessionBuilder().start_synctest_session()`
    -> `DeviceRollbackBackend(device="cuda")` (check distance 8, device
    verification), eager and with lazy_ticks=8, at 4096 and 1M entities: K3's
@@ -85,19 +91,24 @@ NVIDIA card (written for an H100). Run from the repository root:
    pass. Prints ms per batch (K1) or per tick (injection route) p50/p90
    from CUDA events and rollback-frames/s.
 10. Holds arena's K3 body (a whole-world reduction and a grid barrier
-   before every advance) against plain_tick_multi after every dispatch
-   (his/los and the whole core, device verification on, tolerance zero):
-   ar4_l16 (Arena(4, 4096), max_prediction 9, bench.py:1275's 16-row
-   buffers with an 8-frame rollback in every row, timed per rollback
-   tick), ar2_4096, ar2_65536, ar4_w (Arena(4, 4096, input_size=2) at
-   max_prediction 12, DISCONNECTED slots) and ar4_153600 (a few rows,
-   parity only), each with a kill probe (hp = 0 in the slot the next
-   rollback loads) through the request path that kernel and plain version
-   latch at the same frame. Then arena's K4 body against plain_rollout
-   (trajectory, checksums, anchor): ab16_4096 (Arena(2, 4096), 16 x 11),
-   ab16_65536 (the case the reference sends to XLA) and ab16_4p_w
-   (Arena(4, 4096, input_size=2), 16 x 14, 20% DISCONNECTED), each with a
-   kill probe on the anchor.
+   before every advance, on a grid of one block an SM) against
+   plain_tick_multi after every dispatch (his/los and the whole core,
+   device verification on, tolerance zero): ar4_l16 (Arena(4, 4096),
+   max_prediction 9, bench.py:1275's 16-row buffers with an 8-frame
+   rollback in every row, timed per rollback tick), ar2_4096, ar2_65536,
+   ar4_w (Arena(4, 4096, input_size=2) at max_prediction 12, DISCONNECTED
+   slots), ar4_153600 (a few rows, parity only), all with the states on
+   chip, and ar32_2m (Arena(32, 2000000), parity only: past the card's
+   shared memory, the states in global memory), each with a kill probe
+   (hp = 0 in the slot the next rollback loads) through the request path
+   that kernel and plain version latch at the same frame; each prints its
+   layout and must take the expected one. Then arena's K4 body (each
+   member's own blocks and barrier) against plain_rollout (trajectory,
+   checksums, anchor): ab16_4096 (Arena(2, 4096), 16 x 11), ab16_65536 (the
+   case the reference sends to XLA), ab16_4p_w (Arena(4, 4096,
+   input_size=2), 16 x 14, 20% DISCONNECTED), with the states on chip, and
+   ab16_131072 (Arena(4, 131072), parity only: the states read back from
+   the trajectory), each with a kill probe on the anchor.
 11. Drives arena's request path, `SessionBuilder().start_synctest_session()`
    (check distance 8) -> `DeviceRollbackBackend(Arena(2, N), 9,
    device_verify=True)` at 4096 and 65536, eager and lazy_ticks=8, and
@@ -258,9 +269,13 @@ ARENA_TICK_SHAPES = [
     ("ar2_65536", 2, 65536, 1, 9),  # top of arena's envelope (32768 per team)
     ("ar4_w", 4, 4096, 2, 12),  # the throttle byte and DISCONNECTED slots
     ("ar4_153600", 4, 153600, 1, 9),  # near the top of the reference's whole_world_fits
+    # past what the card holds on chip (1.3M at 32 teams): K3's states in global memory
+    ("ar32_2m", 32, 2_000_000, 1, 9),
 ]
 ARENA_ROLLBACK_ROWS = 16  # ar4_l16: 16-row buffers, an 8-frame rollback in every row
-ARENA_STREAM_ROWS = {"ar4_153600": 8}  # random rows past the spin-up; parity only there
+ARENA_STREAM_ROWS = {"ar4_153600": 8, "ar32_2m": 2}  # random rows past the spin-up; parity only there
+# the layout arena_tick_plan must pick on an H100 (else "grid-shared": the states on chip)
+ARENA_TICK_REGIME = {"ar32_2m": "grid-global"}
 ARENA_TICK_ROWS = 8  # rows per multi-row dispatch of the random streams
 # the arena request path: key, players, entities, lazy_ticks, ticks, K3 timing reps
 ARENA_REQUEST_RUNS = [
@@ -276,7 +291,10 @@ ARENA_BEAM_SHAPES = [
     ("ab16_4096", 2, 4096, 9, 16, 11),
     ("ab16_65536", 2, 65536, 9, 16, 11),  # the case the reference sends to XLA
     ("ab16_4p_w", 4, 4096, 12, 16, 14),  # the throttle byte, 20% DISCONNECTED cells
+    # 16384 entities a block: the states read back from the trajectory; parity only
+    ("ab16_131072", 4, 131072, 9, 16, 11),
 ]
+ARENA_BEAM_ON_CHIP = {"ab16_131072": False}  # where beam_plan must not keep the states on chip (else it must)
 ARENA_TIMED_SPECULATIONS = {"ab16_4096": 200, "ab16_65536": 50}
 ARENA_BEAM_PATH_TICKS = {"ab16_4096": 100, "ab16_65536": 40}
 ARENA_BEAM_SCRIPTS = {
@@ -716,6 +734,100 @@ def random_tick_rows(core, n_rows: int, seed: int, mod: int = 16):
     return np.stack([core.pack_tick_row(*a[:6], start_frame=a[6]) for a in args])
 
 
+# crafted K3 row streams, for the scalar pass above all (the state frames,
+# ring-frame tags, first-seen history and latch): name, players,
+# max_prediction (W = max_prediction + 2), rows a dispatch, device
+# verification, a latch carried in, and the stream as specs (`tick_stream`).
+# They load slots earlier rows of the same dispatch saved, go back in frames
+# (rollbacks, and rows that load an older frame and only save it), reuse
+# history keys (frame f and f + W), skip saves, save past the last advance,
+# replay frames with their own inputs (hits) and with others (mismatches:
+# two or more in a dispatch, the earlier latching), and carry DISCONNECTED
+# slots. Each is a whole number of dispatches
+TICK_STREAMS = [
+    ("w11_t1", 2, 9, 1, True, False,
+     [("spin", 11), ("rb", 8, ""), ("rb", 8, ""), ("rb", 3, "skip"), ("rb", 8, "diverge"), ("rb", 8, ""),
+      ("rb", 5, "diverge")]),
+    ("w11_t8", 2, 9, 8, True, False,
+     [("spin", 11), ("rb", 8, ""), ("rb", 8, ""), ("rb", 8, "trail"), ("rb", 8, ""), ("rb", 4, "diverge"),
+      ("rb", 2, "trail"), ("rb", 8, "diverge"), ("zero", 0), ("rb", 6, "skip"), ("rb", 8, "disc"),
+      ("rb", 1, ""), ("zero", 3), ("rb", 7, "skip trail")]),
+    ("w11_t16", 4, 9, 16, True, False,
+     [("spin", 10), ("rb", 8, "disc"), ("zero", 5), ("rb", 2, ""), ("rb", 8, "skip"), ("rb", 8, "diverge"),
+      ("zero", 0), ("rb", 3, "trail"), ("rb", 8, ""), ("spin", 3), ("rb", 8, "diverge disc"), ("rb", 6, ""),
+      ("zero", 8), ("rb", 1, "skip"), ("rb", 8, ""), ("rb", 8, ""), ("rb", 8, "trail"), ("rb", 5, ""),
+      ("zero", 2), ("rb", 8, "diverge"), ("rb", 8, "")]),
+    ("w14_t1", 2, 12, 1, True, False,
+     [("spin", 14), ("rb", 11, ""), ("zero", 0), ("rb", 11, "diverge"), ("zero", 6), ("rb", 4, "trail"),
+      ("rb", 11, "skip")]),
+    ("w14_t8_latched", 4, 12, 8, True, True,
+     [("spin", 13), ("rb", 11, "disc"), ("rb", 11, ""), ("rb", 7, "diverge"), ("zero", 4), ("rb", 11, ""),
+      ("rb", 9, "skip trail"), ("rb", 11, "diverge"), ("rb", 11, ""), ("rb", 2, ""), ("rb", 11, ""), ("rb", 11, "")]),
+    ("w14_t16", 2, 12, 16, True, False,
+     [("spin", 14), ("rb", 11, ""), ("rb", 11, ""), ("zero", 0), ("rb", 11, "trail"), ("rb", 6, "diverge"),
+      ("rb", 11, ""), ("rb", 11, "skip"), ("zero", 12), ("rb", 3, ""), ("rb", 11, "diverge disc"),
+      ("rb", 11, ""), ("rb", 11, ""), ("spin", 2), ("rb", 11, ""), ("rb", 10, "trail"), ("rb", 11, ""),
+      ("rb", 11, "")]),
+    ("w11_t8_noverify", 2, 9, 8, False, False,
+     [("spin", 11), ("rb", 8, ""), ("rb", 8, "diverge"), ("zero", 3), ("rb", 8, "skip"), ("rb", 5, "trail")]),
+]
+
+
+def tick_stream(core, specs, seed: int, mod: int = 16):
+    """The packed int32 rows [T, L] of a crafted stream for `core`. Specs:
+    ("spin", k) k rows that advance one frame and save the frame they start
+    at; ("rb", depth, flags) a rollback: load the slot of frame c - depth
+    (c the live frame), advance depth + 1 frames saving each frame stepped
+    from, with the frames' own inputs, or, with "diverge" in flags, others
+    (a re-save of those frames then mismatches); "skip" skips the saves at
+    positions 1 and depth - 1, "trail" also saves at depth + 1 (past the
+    last advance: the frozen state), "disc" makes one player of position 0
+    DISCONNECTED; ("zero", back) a row that advances nothing and saves at
+    position 0: with back > 0 it first loads the slot of frame c - back,
+    so the live world goes back there. Input byte 0 is drawn below `mod`,
+    a second byte (arena's throttle) below 16."""
+    import numpy as np
+
+    W, P, I = core.window, core.num_players, core.game.input_size
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, mod, size=(1024, P, I), dtype=np.int64)
+    if I > 1:
+        table[..., 1:] %= 16
+    rows, frame = [], 0
+
+    def row(do_load, start, adv, saves, flags=""):
+        inputs = np.zeros((W, P, I), np.uint8)
+        for i in range(adv):
+            own = table[start + i]
+            inputs[i] = (own + 1) % mod if "diverge" in flags else own
+        statuses = np.zeros((W, P), np.int32)
+        if "disc" in flags:
+            statuses[0, P - 1] = 2  # InputStatus.DISCONNECTED
+        slots = np.full((W,), core.scratch_slot, np.int32)
+        for i in saves:
+            slots[i] = (start + i) % core.ring_len
+        rows.append(core.pack_tick_row(do_load, start % core.ring_len if do_load else 0, inputs, statuses, slots,
+                                       adv, start_frame=start))
+
+    for kind, arg, *rest in specs:
+        if kind == "spin":
+            for _ in range(arg):
+                row(False, frame, 1, [0])
+                frame += 1
+        elif kind == "rb":
+            flags = rest[0]
+            start = frame - arg
+            saves = [i for i in range(arg + 1) if not ("skip" in flags and i in (1, arg - 1))]
+            if "trail" in flags and arg + 1 < W:
+                saves.append(arg + 1)
+            row(True, start, arg + 1, saves, flags)
+            frame = start + arg + 1
+        else:  # zero
+            frame -= arg
+            row(arg > 0, frame, 0, [0])
+    return np.stack(rows)
+
+
 def prime_row(core):
     """A row that saves the live world into every ring slot and advances
     nothing. Random streams (and bench.py:1275's buffer) load slots their
@@ -840,6 +952,47 @@ def tick_phase(torch, np, dev, tag, shapes=None, game_cls=None, mod=16, probe_pl
         print(f"{key}: divergence probe: K3 and plain both latched mismatch at frame {want}")
         del stacks
     return errs
+
+
+def tick_streams_phase(torch, np, dev, tag):
+    """K3 against plain_tick_multi on the crafted streams of TICK_STREAMS,
+    every body (ex_game, swarm, arena on each layout arena_tick_plan can
+    pick: the states on chip, and in global memory forced on the same
+    world), the kernel's dispatches launched back to back: his/los of every
+    dispatch and the whole core at the end, tolerance zero; a stream with
+    verification on must end latched."""
+    from ggrs_tpu_torch import Arena, ExGame, ResimCore, Swarm
+    from ggrs_tpu_torch.device.tick_core import arena_tick_plan, plain_tick_multi
+    from ggrs_tpu_torch.kernels import build
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bodies = [(ExGame, 16, None), (Swarm, SWARM_MOD, None), (Arena, 64, None), (Arena, 64, "grid-global")]
+    for name, players, mp, per, verify, latched, specs in TICK_STREAMS:
+        for game_cls, mod, regime in bodies:
+            core = ResimCore(game_cls(players, 4096), mp, players, device_verify=verify, device=dev)
+            if regime is not None:
+                core.tick_core.prepare(build.load("resim_tick"), arena_tick_plan(
+                    core.ctx.n, players, core.window, core.ctx.input_size, sms, 0))
+            if latched:
+                core.carry["flag"].copy_(torch.tensor([1, 3], dtype=torch.int32))
+            plain = {k: v.clone() for k, v in core.carry.items()}
+            rows = tick_stream(core, specs, seed=len(name), mod=mod)
+            batches = [core.upload(rows[b : b + per]) for b in range(0, len(rows), per)]
+            outs = [core.tick_core.tick_multi(core.carry, batch) for batch in batches]
+            err = 0
+            for batch, (his, los) in zip(batches, outs):
+                p_his, p_los = plain_tick_multi(plain, batch, core)
+                err = max(err, carry_err(torch, {"h": his, "l": los}, {"h": p_his, "l": p_los}, "hl"))
+            err = max(err, carry_err(torch, core.carry, plain, tuple(core.carry)))
+            what = f"{name} {game_cls.__name__}{f' {regime}' if regime else ''}"
+            if err:
+                fail(f"{what}: K3 and plain version differ on a crafted stream (max abs err {err})")
+            if verify and not bool(core.carry["flag"][0]):
+                fail(f"{what}: the crafted stream latched no mismatch")
+            print(f"{what}: resim_tick == plain on {len(batches)} {per}-row dispatch(es) launched back to back "
+                  f"(W={core.window}, verify {'on' if verify else 'off'}, latch "
+                  f"{core.carry['flag'].tolist() if verify else 'off'}) {tag}")
+            del core, plain
 
 
 def request_path_phase(torch, np, dev, tag, errs):
@@ -1736,9 +1889,13 @@ def arena_tick_phase(torch, np, dev, tag):
             if not bool((core.carry["state"][4] > 0).any()):
                 fail(f"{key}: the stream left no living entity, so it tested no reduction")
             disconnects = int((rows[:, core.off_status : core.off_input] == 2).sum())
+            plan = core.tick_core.plan
+            if plan.regime != ARENA_TICK_REGIME.get(key, "grid-shared"):
+                fail(f"{key}: K3-arena took the {plan.regime} layout, expected {ARENA_TICK_REGIME.get(key)}")
             print(f"{key}: resim_tick (arena) == plain after each of {-(-len(rows) // per_dispatch)} "
                   f"{per_dispatch}-row dispatch(es) ({players} players, {n} entities, input_size "
-                  f"{input_size}, max_prediction {mp}, device verify, {disconnects} DISCONNECTED cells) {tag}")
+                  f"{input_size}, max_prediction {mp}, device verify, {disconnects} DISCONNECTED cells; "
+                  f"{plan.regime}: {plan.blocks} blocks of {plan.threads} threads) {tag}")
             if key == "ar4_l16":
                 buf = core.upload(rows[:ARENA_ROLLBACK_ROWS])
                 ptimed = {k: v.clone() for k, v in core.carry.items()}
@@ -1820,9 +1977,13 @@ def arena_beam_phase(torch, np, dev, tag):
                 fail(f"{key}: K4 (arena) and plain_rollout differ at speculation {k} (max abs err {err})")
         if disconnects and not cells:
             fail(f"{key}: no DISCONNECTED cell was drawn")
+        plan = core.beam_rollout.plans[width]
+        if plan.on_chip != ARENA_BEAM_ON_CHIP.get(key, True):
+            fail(f"{key}: K4-arena's plan {plan} keeps its states {'on' if plan.on_chip else 'off'} chip")
         print(f"{key}: beam_rollout (arena) == plain_rollout for each of {BEAM_SPECULATIONS} speculations "
               f"({players} players, {n} entities, input_size {input_size}, {width} members x {steps} steps"
-              f"{f', {cells} DISCONNECTED cells' if disconnects else ''}) {tag}")
+              f"{f', {cells} DISCONNECTED cells' if disconnects else ''}; {plan.group} blocks a member of "
+              f"{plan.threads} threads, states {'on chip' if plan.on_chip else 'in the trajectory'}) {tag}")
 
         # kill probe: hp = 0 for KILLED entities of the newest snapshot (a
         # slot the stream never saved holds a zero world, dead already)
@@ -2653,6 +2814,7 @@ def main() -> None:
 
     # -- phases 4 and 5: K3 against its plain version, then the request path
     tick_errs = tick_phase(torch, np, dev, tag)
+    tick_streams_phase(torch, np, dev, tag)
     mark("4")
     request_path, tick_entries = request_path_phase(torch, np, dev, tag, tick_errs)
     mark("5")

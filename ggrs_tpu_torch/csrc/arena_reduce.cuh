@@ -4,18 +4,17 @@
 // K2's inline route (synctest_tiled.cu) and the reduction table
 // (reduce_table.cu, K5). An arena step needs, per team, the living count and
 // centroid of the state entering it; the world is spread over blocks that
-// cannot see each other, so a reduction is: block sums -> uint32 atomics
-// into a raw row in global memory -> a GRID barrier -> every block
-// finalizes the row itself (P teams of scalar work, exact floor division).
-// The barrier needs every block of the grid resident at once, so these
-// kernels are launched cooperatively after an occupancy query
-// (`resident_blocks`).
-//
-// Two barriers: `grid_sync` (K3, K4), and the split `grid_arrive` /
-// `grid_wait` (K1, K2's inline route), which lets a block work between its
-// arrival and its wait. Two ways to sum teams: `arena::block_team_sums`
-// (K3, K4), which walks every team, and `arena::warp_team_add` (K1, K2's
-// inline route, K5), O(1) an entity.
+// cannot see each other, so a reduction is: team sums at O(1) an entity
+// (`arena::warp_team_add`; K1 past 64 teams walks every team,
+// `arena::block_team_sums`) -> block sums -> uint32 atomics into a raw row in
+// global memory -> a barrier across the blocks that hold the world -> every
+// block finalizes the row itself (P teams of scalar work, exact floor
+// division). A barrier across blocks needs them resident at once: K1, K2's
+// inline route and K3 launch cooperatively after an occupancy query and use
+// the split grid barrier `grid_arrive` / `grid_wait`, which lets a block work
+// between its arrival and its wait (K2 and K3 share `inline_arena`'s
+// rotating raw rows below); K4 gives each member its own blocks and
+// barrier (beam_rollout.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,33 +28,6 @@
 constexpr int kNotCoResident = -1;
 // blocks per SM the arena kernel is built for (<= 64 registers a thread)
 constexpr int kArenaMinBlocksPerSm = 8;
-
-// A grid-wide barrier for a cooperatively launched grid: bar[0] counts the
-// blocks arrived, bar[1] is the generation; both zeroed before the launch.
-// The fences make every write a block made before the barrier (its
-// reduction atomics, its zeroing of a table row) visible to every block
-// after it. A block that waits more than ~10 s traps: the launch then fails
-// with an error instead of hanging the card.
-__device__ __forceinline__ void grid_sync(unsigned int* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned int* gen = bar + 1;
-    const unsigned int g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      for (long long spins = 0; *gen == g; ++spins) {
-        __nanosleep(100);
-        if (spins > (1ll << 27)) __trap();
-      }
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
 
 __device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
   unsigned long long v;
@@ -102,7 +74,8 @@ __device__ __forceinline__ void grid_wait(const unsigned long long* arrived, uns
 }
 
 // The team sums at O(1) an entity, whatever P is (K1, synctest_fused.cu;
-// K2's inline route, synctest_tiled.cu; K5, reduce_table.cu). Each warp sums its lanes' raw
+// K2's inline route, synctest_tiled.cu; K3, resim_tick.cu; K4,
+// beam_rollout.cu; K5, reduce_table.cu). Each warp sums its lanes' raw
 // terms — the living count and the sums of px >> 6 and py >> 6 of the
 // entities a lane holds for `team` (zeros for a lane with none) — into a
 // row of 3P words in shared memory: its own row, with plain adds (no other
@@ -199,6 +172,82 @@ __device__ __forceinline__ void team_terms(const State& s, uint32_t& one, uint32
 
 }  // namespace arena
 
+// The pieces of the persistent grids of K2's inline route and K3's arena
+// body (one block an SM, each owning a contiguous run of entities).
+namespace inline_arena {
+
+constexpr int kThreads = 1024;  // at most, a block (64 registers a thread: one such block an SM)
+constexpr int kMaxWarps = kThreads / 32;
+
+// What a block of a persistent grid that owns a contiguous run of entities
+// keeps in its dynamic shared memory (K2's inline route, synctest_tiled.cu,
+// and K3's arena body, resim_tick.cu, each lay it out): the pending step's
+// finalized teams [3P], each warp's save sums, the team rows [nrows][3P] (a
+// row a warp up to arena::kRowTeams teams, else one shared row), and, when
+// the states stay on chip, the block's states [6][per_block].
+struct Shared {
+  arena::Team* fin;
+  uint32_t* ev;
+  uint32_t* rows;
+  int* st;
+  int warps;     // the block's warps that hold an entity: the rows and save sums to add up
+  bool own_row;  // a row a warp (else the warps share rows[0])
+};
+
+// arena::finalize for the sums these kernels make. In the model's envelope
+// they are non-negative as int32 (18-bit positions, a team under 2^16), so
+// an unsigned division floors as exg::floor_div_pos does, at less cost;
+// any other value takes arena::finalize itself.
+__device__ __forceinline__ arena::Team finalize_sums(uint32_t count, uint32_t sx, uint32_t sy) {
+  if ((int)(count | sx | sy) < 0) return arena::finalize((int)count, (int)sx, (int)sy);
+  const uint32_t safe = count > 1 ? count : 1;
+  return arena::Team{(int)((sx / safe) << arena::kCentroidShift), (int)((sy / safe) << arena::kCentroidShift),
+                     (int)count};
+}
+
+// Word j of the block's team sums: its warps' rows, left zero
+__device__ __forceinline__ uint32_t block_sum(const Shared& sh, int words, int j) {
+  return arena::warp_rows_sum(sh.rows, sh.own_row ? sh.warps : 1, words, j);
+}
+
+// The reduction: block sums -> three rotating raw rows in
+// global memory -> the grid barrier -> every block finalizes the row. `g0`,
+// the barriers completed before this launch, numbers the steps across
+// launches: step g adds to row g % 3 while block 0 zeroes row (g + 1) % 3
+// (last read before barrier g - 1), so the rows need no reset between
+// launches.
+struct GridReduce {
+  uint32_t* raw;                // global [3][3P]
+  unsigned long long* arrived;  // global, the barrier's counter
+  unsigned long long g0;
+
+  __device__ __forceinline__ void arrive(const Shared& sh, int P, int k) const {
+    __syncthreads();  // every warp's row adds are in
+    const unsigned long long g = g0 + k;
+    uint32_t* row = raw + (size_t)(g % 3) * 3 * P;
+    for (int j = threadIdx.x; j < 3 * P; j += blockDim.x) {
+      const uint32_t v = block_sum(sh, 3 * P, j);
+      if (v) atomicAdd(&row[j], v);
+    }
+    if (blockIdx.x == 0) {
+      uint32_t* next = raw + (size_t)((g + 1) % 3) * 3 * P;
+      for (int j = threadIdx.x; j < 3 * P; j += blockDim.x) next[j] = 0;
+    }
+    grid_arrive(arrived);
+  }
+  __device__ __forceinline__ void wait(const Shared& sh, int P, int k) const {
+    const unsigned long long g = g0 + k;
+    grid_wait(arrived, (g + 1) * gridDim.x);
+    const uint32_t* row = raw + (size_t)(g % 3) * 3 * P;
+    for (int t = threadIdx.x; t < P; t += blockDim.x) {
+      const uint32_t* r = row + 3 * t;  // atomics live in L2: read there
+      sh.fin[t] = finalize_sums(__ldcg(r), __ldcg(r + 1), __ldcg(r + 2));
+    }
+  }
+};
+
+}  // namespace inline_arena
+
 // Blocks of `fn` (kBlock threads, `smem` bytes of dynamic shared memory)
 // that can be resident at once on the current device: what a cooperative
 // launch may ask for.
@@ -212,4 +261,30 @@ inline cudaError_t resident_blocks(const void* fn, size_t smem, long long* out) 
     return err;
   *out = (long long)per_sm * sms;
   return cudaSuccess;
+}
+
+// The card's limits a persistent grid's plan is made from: out[0] the SM
+// count, out[1] the shared memory a block may opt in to (bytes).
+inline cudaError_t card_limits(int* out) {
+  int device = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(&out[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+}
+
+// A plan's one-time set-up for kernel `fn`: the shared-memory attribute,
+// then the occupancy query. kNotCoResident when `blocks` blocks of
+// `threads` threads cannot be resident at once; else 0 or a CUDA error.
+inline int co_resident(const void* fn, int blocks, int threads, int smem_bytes) {
+  cudaError_t err;
+  if (smem_bytes > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes)) != cudaSuccess)
+    return (int)err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem_bytes)) != cudaSuccess)
+    return (int)err;
+  return (long long)per_sm * sms >= blocks ? 0 : kNotCoResident;
 }

@@ -166,136 +166,218 @@ __global__ void __launch_bounds__(kBlock) beam_rollout_kernel(BeamArgs<typename 
 // ---------------------------------------------------------------------------
 // Arena. Before every step each member reduces its OWN world (per team: the
 // living count, Σ px>>6, Σ py>>6), as the reference's single-tile rollout
-// does inline (pallas_beam.py:69-103). The grid is persistent and
-// co-resident (cooperative launch, sized by the occupancy query); its blocks
-// loop over (member, entity tile) work items, so any B·N runs — the
-// reference sends B·L windows past its single tile to XLA
-// (resim.py:958-1000), this kernel runs them itself. Step l reads member
-// b's world from traj[b, l-1] (from the anchor when l = 0) and writes
-// traj[b, l]: no state lives in registers across a barrier. The reduction
-// of the state entering step l+1 is taken right after step l, from the
-// values just computed, into raw row (l+1, b) of a table the launch zeroed
-// ([1 + (L-1)·B, 3P]: the anchor's row serves every member at l = 0); one
-// grid barrier before each step makes the rows complete, so a launch waits
-// at L barriers. The anchor's reduction and checksum are taken once, by the
-// work items of member 0. Per-(member, step) checksum partials go to parts
-// with uint32 atomics and the last block folds the frame terms, as for
-// ex_game.
+// does inline (pallas_beam.py:69-103); the reference sends B·L windows past
+// its single tile to XLA (resim.py:958-1000), this kernel runs them itself.
+// The members are independent, so each has a group of `group` blocks of its
+// own, each block owning a contiguous run of the member's entities (a
+// thread an entity in whole warps, up to 1024), and only a member's blocks
+// wait for each other: a reduction is block sums -> uint32 atomics into the
+// member's raw row [L][3P] in global memory -> a barrier on the member's
+// own arrival counter (grid_arrive / grid_wait: release, acquire) -> a
+// finalize in every block of the group. The grid is cooperative (its
+// blocks co-resident: at most one an SM) and holds `members` groups; a
+// group serves members g, g + members, ... in turn, so any B runs. The
+// layout comes from the host (device/beam_core.py `beam_plan`).
 //
-// What bounds it on an H100: per entity-member-step 64 int32 ops of step,
-// 3 + 3P of reduction and 18 of checksum, and 24 B written to the
-// trajectory (read back once by the next step, from L2 while a step's
-// 24·B·N bytes fit in it). At 65536 entities x 16 members a step writes
-// 25 MB; the 277 MB trajectory bounds a launch at ~0.08 ms of HBM writes.
+// A block keeps its run's states in shared memory from step to step while
+// they fit (kOnChip), else it reads each step's state back from the
+// trajectory it wrote (traj[b, l-1], from L2). Every step's state goes to
+// traj[b, l]: adoption reads it. Each member reduces the anchor itself; the
+// anchor's checksum is member 0's. Team sums are O(1) an entity
+// (`arena::warp_team_add`). Each warp keeps its sums of each step's
+// checksum terms in shared memory, and a block adds them to parts once a
+// member: one atomic a block and step. The LAST block to finish (a ticket)
+// folds the frame terms (`finish`, pallas_beam.py:268) and leaves the
+// parts, the ticket, the counters and the raw rows zero: the scratch is the
+// core's, zeroed once, and a call is one launch.
+//
+// A thread-block cluster a member (the group's sums through distributed
+// shared memory, a cluster barrier a step; a block a member as its group of
+// one) was measured beside this layout and removed: on an H100 it trailed
+// at 4096 entities (0.0382 against 0.0357 ms at 16 x 11) and by far at
+// 65536 (0.226 against 0.123: about two waves of clusters, though how many
+// clusters of 8 blocks of 1024 threads fit the card at once was not
+// measured); a block a member took 0.071 and 0.798 ms.
+//
+// What bounds it on an H100: per entity-member-step 64 int32 ops of step, 6
+// of reduction and 18 of checksum, and 24 B written to the trajectory. At
+// 65536 entities x 16 members x 11 steps the 277 MB trajectory bounds a
+// launch at ~0.08 ms of HBM writes; at 4096 entities each step's chain of
+// pass, block sums, barrier and finalize sets the time.
+namespace beam_arena {
 
-struct ArenaBeamArgs {
-  const int* anchor;        // [6, n] ring[anchor_slot]
-  const int* anchor_frame;  // [1] r_frame[anchor_slot]
-  const int* script;        // [B, L, P, 1 + I]
-  int* traj;                // [B, L, 6, n] out
-  int* out;                 // [2*B*L + 3] out: his[B*L], los[B*L], a_hi, a_lo, frame
-  uint32_t* parts_hi;       // [B*L + 1] zeroed before launch; the anchor's row last
-  uint32_t* parts_lo;       // [B*L + 1]
-  uint32_t* done;           // last-block ticket, zeroed before launch
-  uint32_t* raw;            // [1 + (L-1)*B, 3P] raw team sums, zeroed before launch
-  unsigned int* bar;        // [2] grid barrier, zeroed before launch
-  int n, num_players, input_size, beam, steps;
+constexpr int kThreads = 1024;  // at most, a block (64 registers a thread: one such block an SM)
+constexpr int kMaxWarps = kThreads / 32;
+constexpr int kMaxGroup = 8;  // blocks a member at most
+
+struct Args {
+  const int* anchor;            // [6, n] ring[anchor_slot]
+  const int* anchor_frame;      // [1] r_frame[anchor_slot]
+  const int* script;            // [B, L, P, 1 + I]
+  int* traj;                    // [B, L, 6, n] out
+  int* out;                     // [2*B*L + 3] out: his[B*L], los[B*L], a_hi, a_lo, frame
+  uint32_t* parts_hi;           // [B*L + 1], the anchor's row last: zero on entry, left zero
+  uint32_t* parts_lo;           // [B*L + 1]
+  uint32_t* done;               // last-block ticket, zero on entry, left zero
+  unsigned long long* arrived;  // [B] the members' arrival counters, zero on entry, left zero
+  uint32_t* raw;                // [B, L, 3P] the members' raw team sums, zero on entry, left zero
+  int n, num_players, input_size, beam, steps, group, per_block;
   int disc_input, disc_throttle;  // the disconnect row: input byte, throttle
   arena::Weights cw;
 };
 
-// this block's sum of (hi, lo) added to parts[k]; `red`: 2 * kWarps words
-__device__ __forceinline__ void block_checksum_add(uint32_t hi, uint32_t lo, uint32_t* red,
-                                                   uint32_t* parts_hi, uint32_t* parts_lo, size_t k) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  hi = warp_sum(hi);
-  lo = warp_sum(lo);
-  if (lane == 0) {
-    red[warp] = hi;
-    red[kWarps + warp] = lo;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t h = 0, l = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      h += red[w];
-      l += red[kWarps + w];
-    }
-    atomicAdd(&parts_hi[k], h);
-    atomicAdd(&parts_lo[k], l);
-  }
-  __syncthreads();  // red is reused by the next call
-}
+// The block's dynamic shared memory, in words, in this order (device/
+// beam_core.py `beam_smem_bytes` mirrors it): finalized teams [3P], the
+// team rows [nrows][3P], the member's resolved script [L][P][2], each
+// warp's checksum sums [L + 1][kMaxWarps][2] (the anchor's last), then the
+// block's states [6][per_block] when they stay on chip.
+template <bool kOnChip>
+__global__ void __launch_bounds__(kThreads, 1) rollout_kernel(Args a) {
+  extern __shared__ int smem_words[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(smem_words);
+  const int L = a.steps, P = a.num_players, I = a.input_size, B = a.beam, G = a.group;
+  const bool own_row = P <= arena::kRowTeams;
+  arena::Team* fin = reinterpret_cast<arena::Team*>(smem);
+  uint32_t* rows = smem + 3 * P;
+  int* inp = reinterpret_cast<int*>(rows + (own_row ? kMaxWarps : 1) * 3 * P);
+  uint32_t* evs = reinterpret_cast<uint32_t*>(inp + 2 * L * P);
+  int* st = reinterpret_cast<int*>(evs + 2 * (L + 1) * kMaxWarps);
+  const int words = (int)(reinterpret_cast<uint32_t*>(st) - smem);
 
-// dynamic shared memory of the arena rollout, in words: finalized teams
-// [B][P], block-sum scratch, checksum sums [2][warps]
-__host__ __device__ inline size_t arena_beam_smem_words(int beam, int p) {
-  return 3 * (size_t)beam * p + 3 * (size_t)arena::kTeamChunk * kWarps + 2 * (size_t)kWarps;
-}
-
-__global__ void __launch_bounds__(kBlock, kArenaMinBlocksPerSm) beam_rollout_arena_kernel(ArenaBeamArgs a) {
-  extern __shared__ int smem[];
-  const int L = a.steps, P = a.num_players, I = a.input_size, B = a.beam;
-  arena::Team* fin = reinterpret_cast<arena::Team*>(smem);           // [B][P]
-  uint32_t* scratch = reinterpret_cast<uint32_t*>(fin + (size_t)B * P);  // 3 * kTeamChunk * kWarps
-  uint32_t* red = scratch + 3 * arena::kTeamChunk * kWarps;           // [2][warps]
-
-  const int tiles = (a.n + kBlock - 1) / kBlock;
-  const int items = B * tiles;  // item = b * tiles + tile
+  const int rank = blockIdx.x % G, members = gridDim.x / G;  // a group's blocks are consecutive
+  const int per_block = a.per_block, bd = blockDim.x;
+  const int lo = rank * per_block;
+  const int count = max(0, min(per_block, a.n - lo));
+  const int rounds = (count + bd - 1) / bd;
+  const int warps = min(kMaxWarps, (count + 31) / 32);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warp0 = threadIdx.x & ~31;
+  const int team0 = (lo + (int)threadIdx.x) % P, team_stride = bd % P;
+  const bool fixed = team_stride == 0;  // every round of this thread is the same team: sum in registers
   const size_t n = (size_t)a.n, slot_stride = (size_t)arena::kPlanes * n;
-  const size_t raw_row = 3 * (size_t)P;
+  for (int j = threadIdx.x; j < words; j += bd) smem[j] = 0;
 
-  // the anchor: its reduction (raw row 0) and its checksum, once per tile
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int e = tile * kBlock + threadIdx.x;
-    const bool active = e < a.n;
-    const arena::State s = active ? arena::load(a.anchor, n, e) : arena::State{};
-    arena::block_team_sums<kWarps>(active, s.px, s.py, s.hp, e % P, P, scratch, a.raw);
-    uint32_t hi = 0, lo = 0;
-    if (active) {
-      uint32_t ew[arena::kPlanes];
-      arena::entity_weights(a.cw, (uint32_t)e, ew);
-      arena::checksum_terms(s, ew, hi, lo);
+  auto next_team = [&](int team) { return team + team_stride >= P ? team + team_stride - P : team + team_stride; };
+  // a warp's team terms of one round into the rows (the whole warp calls it
+  // when it holds an entity this round), or, with `fixed`, kept in registers
+  auto add_terms = [&](int r, uint32_t o, uint32_t x, uint32_t y, int team, uint32_t (&acc)[3]) {
+    if (fixed) {
+      acc[0] += o;
+      acc[1] += x;
+      acc[2] += y;
+    } else if (r * bd + warp0 < count) {
+      arena::warp_team_add(o, x, y, team, P, false, rows, own_row);
     }
-    block_checksum_add(hi, lo, red, a.parts_hi, a.parts_lo, (size_t)B * L);
-  }
+  };
+  auto flush_terms = [&](const uint32_t (&acc)[3]) {
+    if (fixed && warp0 < count) arena::warp_team_add(acc[0], acc[1], acc[2], team0, P, true, rows, own_row);
+  };
+  // a warp's sums of one step's checksum terms
+  auto put_sums = [&](int row, uint32_t hi, uint32_t lo_sum) {
+    hi = warp_sum(hi);
+    lo_sum = warp_sum(lo_sum);
+    if (lane == 0) {
+      evs[(row * kMaxWarps + warp) * 2] = hi;
+      evs[(row * kMaxWarps + warp) * 2 + 1] = lo_sum;
+    }
+  };
 
-  for (int l = 0; l < L; ++l) {
-    grid_sync(a.bar);
-    // every member's teams for the state entering step l
-    for (int k = threadIdx.x; k < B * P; k += kBlock) {
-      const int b = k / P, t = k % P;
-      const uint32_t* r = a.raw + (l == 0 ? 0 : (1 + (size_t)(l - 1) * B + b) * raw_row) + 3 * t;
-      fin[k] = arena::finalize((int)__ldcg(r), (int)__ldcg(r + 1), (int)__ldcg(r + 2));  // L2
+  for (int b = blockIdx.x / G; b < B; b += members) {
+    // member b's script, with the disconnect substitution (the previous
+    // member's last reads of it came before its last block barrier)
+    for (int k = threadIdx.x; k < L * P; k += bd) {
+      const int* cell = a.script + ((size_t)b * L * P + k) * (1 + I);
+      const bool off = cell[0] == kDisconnected;
+      inp[2 * k] = off ? a.disc_input : cell[1];
+      inp[2 * k + 1] = off ? a.disc_throttle : arena::throttle_of(cell + 1, I);
     }
-    __syncthreads();
-    for (int item = blockIdx.x; item < items; item += gridDim.x) {
-      const int b = item / tiles, tile = item % tiles;
-      const int e = tile * kBlock + threadIdx.x;
-      const bool active = e < a.n;
-      const int own = e % P;
-      arena::State s{};
-      uint32_t hi = 0, lo = 0;
-      if (active) {
-        const int* src = l == 0 ? a.anchor : a.traj + ((size_t)b * L + l - 1) * slot_stride;
-        s = arena::load(src, n, e);
-        const int* cell = a.script + (((size_t)b * L + l) * P + own) * (1 + I);
-        const bool off = cell[0] == kDisconnected;
-        arena::step(s, off ? a.disc_input : cell[1], off ? a.disc_throttle : arena::throttle_of(cell + 1, I),
-                    fin[b * P + own], fin[b * P + (own + 1) % P]);
-        arena::store(a.traj + ((size_t)b * L + l) * slot_stride, n, e, s);
-        uint32_t ew[arena::kPlanes];
-        arena::entity_weights(a.cw, (uint32_t)e, ew);
-        arena::checksum_terms(s, ew, hi, lo);
+    // the member's teams for reduction k (0: the anchor; l: the state
+    // entering step l) -> fin
+    auto reduce = [&](int k) {
+      __syncthreads();  // every warp's row adds are in
+      uint32_t* row = a.raw + ((size_t)b * L + k) * 3 * P;
+      for (int j = threadIdx.x; j < 3 * P; j += bd) {
+        const uint32_t v = arena::warp_rows_sum(rows, own_row ? warps : 1, 3 * P, j);
+        if (v) atomicAdd(&row[j], v);
       }
-      block_checksum_add(hi, lo, red, a.parts_hi, a.parts_lo, (size_t)b * L + l);
-      if (l + 1 < L)  // the reduction step l+1 will need
-        arena::block_team_sums<kWarps>(active, s.px, s.py, s.hp, own, P, scratch,
-                                       a.raw + (1 + (size_t)l * B + b) * raw_row);
+      grid_arrive(a.arrived + b);
+      grid_wait(a.arrived + b, (unsigned long long)(k + 1) * G);
+      for (int t = threadIdx.x; t < P; t += bd) {
+        const uint32_t* r = row + 3 * t;  // atomics live in L2: read there
+        fin[t] = inline_arena::finalize_sums(__ldcg(r), __ldcg(r + 1), __ldcg(r + 2));
+      }
+      __syncthreads();
+    };
+
+    {  // the anchor: kept, its team terms, and member 0's checksum terms
+      uint32_t acc[3] = {0, 0, 0}, hi = 0, lo_sum = 0;
+      int team = team0;
+      for (int r = 0; r < rounds; ++r, team = next_team(team)) {
+        const int i = r * bd + threadIdx.x;
+        uint32_t o = 0, x = 0, y = 0;
+        if (i < count) {
+          const int e = lo + i;
+          const arena::State s = arena::load(a.anchor, n, e);
+          if (kOnChip) arena::store(st, (size_t)per_block, i, s);
+          arena::team_terms(s, o, x, y);
+          if (b == 0) {
+            uint32_t ew[arena::kPlanes], h, l;
+            arena::entity_weights(a.cw, (uint32_t)e, ew);
+            arena::checksum_terms(s, ew, h, l);
+            hi += h;
+            lo_sum += l;
+          }
+        }
+        add_terms(r, o, x, y, team, acc);
+      }
+      flush_terms(acc);
+      if (b == 0) put_sums(L, hi, lo_sum);
+      reduce(0);
     }
+
+    for (int l = 0; l < L; ++l) {
+      int* traj_l = a.traj + ((size_t)b * L + l) * slot_stride;
+      const int* prev = l == 0 ? a.anchor : traj_l - slot_stride;
+      const int* in = inp + 2 * l * P;
+      const bool terms = l + 1 < L;  // the reduction step l+1 will need
+      uint32_t acc[3] = {0, 0, 0}, hi = 0, lo_sum = 0;
+      int team = team0;
+      for (int r = 0; r < rounds; ++r, team = next_team(team)) {
+        const int i = r * bd + threadIdx.x;
+        uint32_t o = 0, x = 0, y = 0;
+        if (i < count) {
+          const int e = lo + i;
+          arena::State s = kOnChip ? arena::load(st, (size_t)per_block, i) : arena::load(prev, n, e);
+          arena::step(s, in[2 * team], in[2 * team + 1], fin[team], fin[team + 1 == P ? 0 : team + 1]);
+          arena::store(traj_l, n, e, s);
+          if (kOnChip) arena::store(st, (size_t)per_block, i, s);
+          uint32_t ew[arena::kPlanes], h, l2;
+          arena::entity_weights(a.cw, (uint32_t)e, ew);
+          arena::checksum_terms(s, ew, h, l2);
+          hi += h;
+          lo_sum += l2;
+          if (terms) arena::team_terms(s, o, x, y);
+        }
+        if (terms) add_terms(r, o, x, y, team, acc);
+      }
+      if (terms) flush_terms(acc);
+      put_sums(l, hi, lo_sum);
+      if (terms) reduce(l + 1);
+    }
+
+    // the block's checksum sums, one atomic a (member, step)
+    __syncthreads();
+    for (int j = threadIdx.x; j < 2 * (L + 1); j += bd) {
+      const int row = j >> 1, word = j & 1;
+      if (row == L && b != 0) continue;
+      uint32_t v = 0;
+      for (int w = 0; w < warps; ++w) v += evs[(row * kMaxWarps + w) * 2 + word];
+      if (v) atomicAdd((word == 0 ? a.parts_hi : a.parts_lo) + (row < L ? (size_t)b * L + row : (size_t)B * L), v);
+    }
+    __syncthreads();  // evs and inp are the next member's
   }
 
-  // last-block-done, then the frame terms (finish, pallas_beam.py:268)
+  // the ticket; the last block folds the frame terms (finish,
+  // pallas_beam.py:268) and leaves the scratch zero
   __shared__ bool is_last;
   __threadfence();
   __syncthreads();
@@ -305,20 +387,31 @@ __global__ void __launch_bounds__(kBlock, kArenaMinBlocksPerSm) beam_rollout_are
   __threadfence();
   const int frame = *a.anchor_frame;
   const int bl = B * L;
-  for (int k = threadIdx.x; k <= bl; k += kBlock) {
+  for (int k = threadIdx.x; k <= bl; k += bd) {
     const uint32_t f = k < bl ? (uint32_t)(frame + 1 + k % L) : (uint32_t)frame;
     const uint32_t hi = __ldcg(&a.parts_hi[k]) + f * a.cw.frame_weight;
-    const uint32_t lo = __ldcg(&a.parts_lo[k]) + f;
+    const uint32_t lo_sum = __ldcg(&a.parts_lo[k]) + f;
+    a.parts_hi[k] = 0;
+    a.parts_lo[k] = 0;
     if (k < bl) {
       a.out[k] = (int)hi;
-      a.out[bl + k] = (int)lo;
+      a.out[bl + k] = (int)lo_sum;
     } else {
       a.out[2 * bl] = (int)hi;
-      a.out[2 * bl + 1] = (int)lo;
+      a.out[2 * bl + 1] = (int)lo_sum;
       a.out[2 * bl + 2] = frame;
     }
   }
+  for (int k = threadIdx.x; k < B; k += bd) a.arrived[k] = 0;
+  for (size_t k = threadIdx.x; k < (size_t)B * L * 3 * P; k += bd) a.raw[k] = 0;
+  if (threadIdx.x == 0) *a.done = 0;
 }
+
+const void* kernel_of(int on_chip) {
+  return on_chip ? (const void*)rollout_kernel<true> : (const void*)rollout_kernel<false>;
+}
+
+}  // namespace beam_arena
 
 }  // namespace
 
@@ -386,55 +479,60 @@ extern "C" int beam_rollout_swarm_launch(const int* ring, int anchor_slot, const
                                    input_size, beam, steps, 1, disconnect_row, cs, stream);
 }
 
-// The arena rollout, launched cooperatively on as many blocks as can be
-// resident (at most one per (member, 128-entity tile) work item). ring:
-// [slots, 6, n]; scratch: parts_hi [B*L+1], parts_lo [B*L+1], done [1],
-// barrier [2], raw [(1 + (L-1)*B) * 3P]. Returns the CUDA error of the
-// reset, the occupancy query, the shared-memory attribute or the launch, or
-// kNotCoResident when not one block fits. disconnect_row: I ints in host
-// memory. cs: 13 int32 — checksum w[6], base[6], frame weight.
+// The card's limits the arena rollout's plan is made from: out[0] the SM
+// count, out[1] the shared memory a block may opt in to (bytes).
+extern "C" int beam_rollout_arena_limits(int* out) { return (int)card_limits(out); }
+
+// Once per plan (device/beam_core.py `beam_plan`): the shared-memory
+// attribute, then the occupancy query: kNotCoResident when the grid of
+// `blocks` blocks of `threads` threads cannot be resident at once; else 0
+// or a CUDA error.
+extern "C" int beam_rollout_arena_prepare(int on_chip, int group, int blocks, int threads, int smem_bytes) {
+  if (group < 1 || group > beam_arena::kMaxGroup || blocks % group || threads < 32 ||
+      threads > beam_arena::kThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  return co_resident(beam_arena::kernel_of(on_chip), blocks, threads, smem_bytes);
+}
+
+// The arena rollout on the plan `prepare` accepted: a cooperative grid of
+// `blocks` blocks of `threads` threads, `group` blocks a member in flight,
+// `per_block` entities and `smem_bytes` of dynamic shared memory each.
+// ring: [slots, 6, n]; scratch: the members' arrival counters [B] (u64),
+// the ticket, parts_hi [B*L+1], parts_lo [B*L+1] and the members' raw rows
+// [B, L, 3P]; zero before the core's first launch, and every launch leaves
+// it so. Returns the CUDA error of the launch (0 on success).
+// disconnect_row: I ints in host memory. cs: 13 int32 — checksum w[6],
+// base[6], frame weight.
 extern "C" int beam_rollout_arena_launch(const int* ring, int anchor_slot, const int* r_frame,
                                          const int* script, int* traj, int* out, uint32_t* scratch,
                                          int n, int num_players, int input_size, int beam, int steps,
-                                         const int* disconnect_row, const int* cs, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                         int on_chip, int group, int blocks, int threads, int per_block,
+                                         int smem_bytes, const int* disconnect_row, const int* cs, void* stream) {
   const size_t rows = (size_t)beam * steps + 1;
-  const size_t raw_rows = 1 + (size_t)(steps - 1) * beam;
-  const size_t words = 2 * rows + 3 + raw_rows * 3 * num_players;
-  cudaError_t err = cudaMemsetAsync(scratch, 0, words * sizeof(uint32_t), st);
-  if (err != cudaSuccess) return (int)err;
-  ArenaBeamArgs a;
+  beam_arena::Args a;
   a.anchor = ring + (size_t)anchor_slot * arena::kPlanes * (size_t)n;
   a.anchor_frame = r_frame + anchor_slot;
   a.script = script;
   a.traj = traj;
   a.out = out;
-  a.parts_hi = scratch;
-  a.parts_lo = scratch + rows;
-  a.done = scratch + 2 * rows;
-  a.bar = scratch + 2 * rows + 1;
-  a.raw = scratch + 2 * rows + 3;
+  a.arrived = reinterpret_cast<unsigned long long*>(scratch);
+  a.done = scratch + 2 * (size_t)beam;
+  a.parts_hi = a.done + 1;
+  a.parts_lo = a.parts_hi + rows;
+  a.raw = a.parts_lo + rows;
   a.n = n;
   a.num_players = num_players;
   a.input_size = input_size;
   a.beam = beam;
   a.steps = steps;
+  a.group = group;
+  a.per_block = per_block;
   a.disc_input = disconnect_row[0];
   a.disc_throttle = input_size >= 2 ? (disconnect_row[1] & 0x0F) : arena::kDefaultThrottle;
   a.cw = weights_from<arena::Weights, arena::kPlanes>(cs);
-  const size_t smem = arena_beam_smem_words(beam, num_players) * sizeof(int);
-  const void* fn = (const void*)beam_rollout_arena_kernel;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  long long resident = 0;
-  if ((err = resident_blocks(fn, smem, &resident)) != cudaSuccess) return (int)err;
-  if (resident < 1) return kNotCoResident;
-  const long long items = (long long)beam * ((n + kBlock - 1) / kBlock);
-  const int blocks = (int)(items < resident ? items : resident);
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kBlock), args, smem, st);
+  const cudaError_t err = cudaLaunchCooperativeKernel(beam_arena::kernel_of(on_chip), dim3(blocks), dim3(threads),
+                                                      args, smem_bytes, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -28,9 +28,22 @@
 // reduced in the block (warp shuffles, then shared memory) and added to
 // parts_hi/lo [T, W] with uint32 atomics, exact in any order; a skipped save
 // adds nothing and keeps its part at 0. The LAST block to finish (a
-// done-counter ticket, as the whole-batch SyncTest kernel) then runs the
-// scalar pass serially in one thread: no host round trip, one launch per
-// dispatch.
+// done-counter ticket) then runs the scalar pass with all its threads
+// (`tick_scalar_pass`): no host round trip, and one launch per dispatch —
+// the parts and the ticket live in a scratch the core zeroes once, which
+// the last block leaves zero again.
+//
+// The scalar pass, parallel: a state frame per row (a load takes the frame
+// the loaded slot holds, which may be one an earlier row of the launch
+// saved; else the previous row's frame plus its advance count) by one short
+// scan over the rows; then a thread an event for the frames, the checksums,
+// the ring-frame tags (the last write to a slot wins) and the first-seen
+// history keyed on start_frame + i: an event is seen when the latest
+// earlier write to its key carries its frame, and is compared with the
+// first write of that run (the carried value when the run reaches back
+// past the launch); the lowest-ordered mismatch latches. A row's W keys
+// are W consecutive frames, so no two events of a row share a key, and an
+// event finds the earlier writes of its key by one look a row.
 //
 // What bounds it on an H100: per entity a row moves 20 B per load and per
 // save, plus the state once in and once out per launch — a lone d=8
@@ -40,11 +53,12 @@
 // 16.7 Tops/s. So large worlds are bound by the ring bytes (swarm: 28 B a
 // column, 49 ops an advance and 21 a save). At 4096
 // entities only 32 blocks exist, and each thread's serial chain of steps
-// plus the serial scalar pass set the time, not any peak rate.
+// sets the time, not any peak rate.
 //
 // Left for later: keeping a block's ring columns in shared memory for the
 // whole launch (each row's loads and saves then never leave the SM);
-// splitting small worlds over more blocks; a parallel scalar pass.
+// splitting small worlds over more blocks.
+#include <climits>
 #include <cuda_runtime.h>
 
 #include "arena_reduce.cuh"
@@ -69,65 +83,215 @@ struct TickArgs {
   const int* rows;     // [T, L] packed control words
   int* his;            // [T, W] out: per-slot checksums (uint32 bit patterns)
   int* los;            // [T, W]
-  uint32_t* parts_hi;  // [T, W] zeroed before launch
+  uint32_t* parts_hi;  // [T, W] zero on entry, left zero
   uint32_t* parts_lo;  // [T, W]
-  uint32_t* done;      // last-block ticket, zeroed before launch
+  uint32_t* done;      // last-block ticket, zero on entry, left zero
   int n, num_players, input_size, window, t_rows, substeps, disconnect_input;
   Weights cw;
 };
 
 __host__ __device__ inline int row_len(int w, int p, int i) { return 4 + w + w * p + w * p * i; }
 
-// The scalar lanes (pallas_resim.py:356-424), in one thread, over the
-// launch's T x W save events in row order: the state's own frame (a load
-// takes the loaded slot's frame) drives each save's frame term,
-// frame_i = state_frame + min(i, advance_count); the history keys on
-// start_frame + i; a skipped save outputs (0, 0) and touches nothing.
+// The scalar pass takes the rows in chunks of scalar_rows(W) rows, about
+// kScalarEvents events, so its shared memory does not grow with T
+// (device/tick_core.py `scalar_smem_words` mirrors this).
+constexpr int kScalarEvents = 256;
+__host__ __device__ inline int scalar_rows(int w) { return w >= kScalarEvents ? 1 : kScalarEvents / w; }
+__host__ __device__ inline size_t scalar_smem_words(int w) {
+  const size_t tc = scalar_rows(w), events = tc * w;
+  return tc * (4 + w) + 2 * tc + 4 * events + 2 * ((size_t)w + 1) + 4 * (size_t)w + 4;
+}
+
+__device__ __forceinline__ int floor_mod(int x, int m) {
+  const int r = x % m;
+  return r < 0 ? r + m : r;
+}
+
+// The scalar lanes (pallas_resim.py:356-424) by the whole block, over the
+// launch's T x W save events in row order, in chunks of rows: each row's
+// state frame (a load takes the loaded slot's frame) drives each save's
+// frame term, frame_i = state_frame + min(i, advance_count); the history
+// keys on start_frame + i; a skipped save outputs (0, 0) and touches
+// nothing. `sm` holds scalar_smem_words(W) words. Leaves the parts zero.
 template <class Args>
-__device__ void tick_scalar_pass(const Args& a) {
-  const int W = a.window, P = a.num_players;
-  const int off_save = 4, L = row_len(W, P, a.input_size);
-  int sf = *a.state_frame;
-  for (int t = 0; t < a.t_rows; ++t) {
-    const int* row = a.rows + (size_t)t * L;
-    if (row[0] != 0) sf = a.r_frame[row[1]];
-    const int adv = row[2], start = row[3];
-    for (int i = 0; i < W; ++i) {
-      const int slot = row[off_save + i];
-      const size_t k = (size_t)t * W + i;
+__device__ void tick_scalar_pass(const Args& a, int* sm) {
+  const int W = a.window, L = row_len(W, a.num_players, a.input_size), C = 4 + W;
+  const int TC = scalar_rows(W), E = TC * W;
+  const int tid = threadIdx.x, bd = blockDim.x;
+  const bool verify = a.h_tag != nullptr;
+  const uint32_t fw = a.cw.frame_weight;
+  int* ctl = sm;                                          // [TC][4 + W] the chunk's control words
+  int* sf = ctl + TC * C;                                 // [TC] each row's frame after its load
+  int* src = sf + TC;                                     // [TC] a load's source event in the chunk, or -1
+  uint32_t* ehi = reinterpret_cast<uint32_t*>(src + TC);  // [E] each event's checksum
+  uint32_t* elo = ehi + E;
+  uint32_t* rhi = elo + E;  // [E] the value a save's history holds after it
+  uint32_t* rlo = rhi + E;
+  int* rf = reinterpret_cast<int*>(rlo + E);  // [W+1] ring-frame tags as the chunk found them
+  int* last_slot = rf + W + 1;                // [W+1] the chunk's last save to each slot
+  int* tag = last_slot + W + 1;               // [W] the history as the chunk found it
+  int* hhi = tag + W;
+  int* hlo = hhi + W;
+  int* last_key = hlo + W;  // [W] the chunk's last save to each history key
+  int* misc = last_key + W;  // lowest mismatching event, latch, latched frame, state frame
+  auto frame_of = [&](int e) { return sf[e / W] + min(e % W, ctl[(e / W) * C + 2]); };
+  auto key_frame = [&](int e) { return ctl[(e / W) * C + 3] + e % W; };
+
+  for (int s = tid; s <= W; s += bd) rf[s] = a.r_frame[s];
+  if (verify)
+    for (int h = tid; h < W; h += bd) {
+      tag[h] = a.h_tag[h];
+      hhi[h] = a.h_hi[h];
+      hlo[h] = a.h_lo[h];
+    }
+  if (tid == 0) {
+    misc[1] = verify ? a.flag[0] : 0;
+    misc[2] = verify ? a.flag[1] : 0;
+    misc[3] = *a.state_frame;
+  }
+  for (int t0 = 0; t0 < a.t_rows; t0 += TC) {
+    const int tc = min(TC, a.t_rows - t0), events = tc * W;
+    for (int k = tid; k < tc * C; k += bd) ctl[k] = a.rows[(size_t)(t0 + k / C) * L + k % C];
+    for (int s = tid; s <= W; s += bd) last_slot[s] = -1;
+    for (int h = tid; h < W; h += bd) last_key[h] = -1;
+    if (tid == 0) misc[0] = INT_MAX;
+    __syncthreads();
+
+    // a load's source: the chunk's last save to its slot before its row
+    for (int t = tid; t < tc; t += bd) {
+      const int slot = ctl[t * C + 1];
+      int found = -1;
+      if (ctl[t * C] != 0 && slot < W)
+        for (int t2 = t - 1; t2 >= 0 && found < 0; --t2)
+          for (int i = W - 1; i >= 0; --i)
+            if (ctl[t2 * C + 4 + i] == slot) {
+              found = t2 * W + i;
+              break;
+            }
+      src[t] = found;
+    }
+    __syncthreads();
+    if (tid == 0) {  // the rows' state frames: one short scan
+      int f = misc[3];
+      for (int t = 0; t < tc; ++t) {
+        if (ctl[t * C] != 0) f = src[t] >= 0 ? frame_of(src[t]) : rf[ctl[t * C + 1]];
+        sf[t] = f;
+        f += ctl[t * C + 2];
+      }
+      misc[3] = f;
+    }
+    __syncthreads();
+
+    // a thread an event: its checksum (the parts read in L2, where their
+    // atomics live, and left zero), the last saves to each slot and key
+    for (int e = tid; e < events; e += bd) {
+      const int slot = ctl[(e / W) * C + 4 + e % W];
+      const size_t k = (size_t)t0 * W + e;
       uint32_t hi = 0, lo = 0;
       if (slot < W) {
-        const int frame_i = sf + min(i, adv);
-        // parts were summed with atomics in L2: read them there
-        hi = __ldcg(&a.parts_hi[k]) + (uint32_t)frame_i * a.cw.frame_weight;
-        lo = __ldcg(&a.parts_lo[k]) + (uint32_t)frame_i;
-        a.r_frame[slot] = frame_i;
-        if (a.h_tag != nullptr) {
-          const int frame = start + i;
-          const int h = ((frame % W) + W) % W;  // Python's floor modulo
-          const bool seen = a.h_tag[h] == frame;
-          if (seen && ((uint32_t)a.h_hi[h] != hi || (uint32_t)a.h_lo[h] != lo)) {
-            if (a.flag[0] == 0) a.flag[1] = frame;
-            a.flag[0] = 1;
-          }
-          a.h_tag[h] = frame;
-          if (!seen) {
-            a.h_hi[h] = (int)hi;
-            a.h_lo[h] = (int)lo;
-          }
-        }
+        const int f = frame_of(e);
+        hi = __ldcg(&a.parts_hi[k]) + (uint32_t)f * fw;
+        lo = __ldcg(&a.parts_lo[k]) + (uint32_t)f;
+        a.parts_hi[k] = 0;
+        a.parts_lo[k] = 0;
+        atomicMax(&last_slot[slot], e);
+        if (verify) atomicMax(&last_key[floor_mod(key_frame(e), W)], e);
       }
+      ehi[e] = hi;
+      elo[e] = lo;
       a.his[k] = (int)hi;
       a.los[k] = (int)lo;
     }
-    sf += adv;
+    __syncthreads();
+
+    if (verify) {
+      // each save's history: walk back over the earlier saves of its key
+      // (one a row at most) while they carry its frame
+      for (int e = tid; e < events; e += bd) {
+        const int t = e / W;
+        if (ctl[t * C + 4 + e % W] >= W) continue;
+        const int vf = key_frame(e), key = floor_mod(vf, W);
+        int first = e, t2 = t;
+        bool carried = false;
+        for (;;) {
+          int prev = -1;
+          while (--t2 >= 0) {
+            const int i2 = floor_mod(key - ctl[t2 * C + 3], W);
+            if (ctl[t2 * C + 4 + i2] < W) {
+              prev = t2 * W + i2;
+              break;
+            }
+          }
+          if (prev < 0) {
+            carried = tag[key] == vf;
+            break;
+          }
+          if (key_frame(prev) != vf) break;
+          first = prev;
+        }
+        const uint32_t r_hi = carried ? (uint32_t)hhi[key] : ehi[first];
+        const uint32_t r_lo = carried ? (uint32_t)hlo[key] : elo[first];
+        rhi[e] = r_hi;
+        rlo[e] = r_lo;
+        if ((carried || first != e) && (r_hi != ehi[e] || r_lo != elo[e])) atomicMin(&misc[0], e);
+      }
+      __syncthreads();
+    }
+
+    // what the chunk leaves: each slot's and key's last write, the latch
+    for (int s = tid; s < W; s += bd)
+      if (last_slot[s] >= 0) rf[s] = frame_of(last_slot[s]);
+    if (verify) {
+      for (int h = tid; h < W; h += bd) {
+        const int e = last_key[h];
+        if (e < 0) continue;
+        tag[h] = key_frame(e);
+        hhi[h] = (int)rhi[e];
+        hlo[h] = (int)rlo[e];
+      }
+      if (tid == 0 && misc[0] != INT_MAX && misc[1] == 0) {
+        misc[1] = 1;
+        misc[2] = key_frame(misc[0]);
+      }
+    }
+    __syncthreads();
   }
-  *a.state_frame = sf;
+  for (int s = tid; s < W; s += bd) a.r_frame[s] = rf[s];
+  if (verify)
+    for (int h = tid; h < W; h += bd) {
+      a.h_tag[h] = tag[h];
+      a.h_hi[h] = hhi[h];
+      a.h_lo[h] = hlo[h];
+    }
+  if (tid == 0) {
+    *a.state_frame = misc[3];
+    if (verify) {
+      a.flag[0] = misc[1];
+      a.flag[1] = misc[2];
+    }
+  }
+}
+
+// Every block: fence its parts atomics and draw a ticket. The block that
+// draws the last one sees all parts; it resets the ticket and runs the
+// scalar pass. `sm`: the dynamic shared memory, free again.
+template <class Args>
+__device__ __forceinline__ void last_block_scalar_pass(const Args& a, int* sm) {
+  __shared__ bool is_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(a.done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  if (threadIdx.x == 0) *a.done = 0;
+  tick_scalar_pass(a, sm);
 }
 
 template <class M>
 __global__ void __launch_bounds__(kBlock) resim_tick_kernel(TickArgs<typename M::Weights> a) {
-  extern __shared__ int smem[];
+  extern __shared__ int smem_words[];
+  int* smem = smem_words;
   const int W = a.window, P = a.num_players, I = a.input_size;
   const int off_save = 4, off_status = 4 + W, off_input = off_status + W * P;
   const int L = row_len(W, P, I);
@@ -193,53 +357,47 @@ __global__ void __launch_bounds__(kBlock) resim_tick_kernel(TickArgs<typename M:
     }
   }
   if (active) M::store(a.state, n, e, s);
-
-  // last-block-done: every thread fences its own parts atomics, then one
-  // ticket per block; the block that draws the last ticket sees all parts
-  __shared__ bool is_last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(a.done, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!is_last || threadIdx.x != 0) return;
-  __threadfence();
-  tick_scalar_pass(a);
+  last_block_scalar_pass(a, smem);
 }
 
 // ---------------------------------------------------------------------------
 // Arena. Every advance first reduces the WHOLE current world (per team: the
 // living count, Σ px>>6, Σ py>>6) and finalizes it into centroids, as the
 // reference's single-tile kernel does inline (pallas_resim.py:74-121; no
-// per-frame cache: P2P resim states are fresh). The world is spread over
-// blocks, so each advance is: block sums -> uint32 atomics into the raw row
-// of this (row, slot), which the launch zeroed (T·W·3P words: no barrier is
-// spent on zeroing) -> one grid barrier -> every block finalizes the row
-// into shared memory -> the step. A 16-row dispatch of SyncTest rows at
-// check distance 8 therefore waits at 144 grid barriers.
+// per-frame cache: P2P resim states are fresh). A 16-row dispatch of
+// SyncTest rows at check distance 8 therefore reduces 144 times.
 //
-// The grid is persistent and co-resident (cooperative launch, sized by the
-// occupancy query): each block loops over entity tiles of 128, so any world
-// runs, up to and past the reference's whole_world_fits envelope (161,280
-// entities at max_prediction 9). Between barriers an entity's state lives in
-// the carry's `state` buffer, not in registers — a thread may own several
-// entities — so a load copies the ring slot into `state`, a save copies
-// `state` into the slot, and each step reads and writes `state`: 24 B each
-// way per entity-step, from L2 at the worlds the request path runs (a
-// 4096-entity world is 96 KB). A thread reads and writes only the columns
-// of the entities it owns, so no barrier is needed between a row's loads,
-// saves and steps beyond the reduction's own.
+// The body runs on K2's inline machinery (arena_reduce.cuh, namespace
+// inline_arena): a persistent cooperative grid of one block an SM, each
+// block owning a contiguous run of entities, a thread an entity in whole
+// warps up to 1024. The layout comes from the host (device/tick_core.py
+// `arena_tick_plan`): the run's states stay in the block's shared memory
+// for the whole launch while the world fits the card's shared memory, else
+// in the carry's `state` buffer (the global layout). An advance is: pass A
+// over the block's entities (bring each state up to date — apply the
+// pending step with the teams finalized after the last barrier, or take
+// the row's load — keep it, add its team terms to the warp's row, O(1) an
+// entity); the block's sums into a rotating raw row and the barrier's
+// ARRIVAL (grid_arrive); the slot's save, if any, from the kept states,
+// while the other blocks arrive; the barrier's WAIT and the finalize; then
+// the save's event sums, one atomic per block. The step itself waits for
+// the next pass, so a save after the last advance of a row, and the next
+// row's load, take no extra pass. A thread reads and writes only the ring
+// columns of its own entities, so a row may load a slot an earlier row of
+// the launch saved. Every save still reaches the ring: the ring is the
+// carry's output. The state goes back to `state` once, at the end.
 //
 // A DISCONNECTED owner steps with the game's whole disconnect row (input
 // byte and throttle byte), resolved once per row into shared memory.
 //
 // What bounds it on an H100: per entity an advance is 64 int32 ops of step
-// and 3 + 3P of reduction, a save 18; the bytes a dispatch must move are
-// the ring slots it loads and saves and the state (24 B per entity column).
-// At 4096 entities the 32 tiles leave most of the card idle and the serial
-// chain of barriers (a few microseconds each) sets the time.
+// and 6 of reduction, a save 18; the bytes a dispatch must move are the
+// ring slots it loads before saving them, the slots it saves and the state
+// (24 B per entity column). At the request path's worlds neither bound is
+// near: the chain of barriers, one an advance, sets the time.
 
 struct ArenaTickArgs {
-  int* state;          // [6, n] live world: every entity's state between barriers
+  int* state;          // [6, n] live world
   int* state_frame;    // [1]
   int* ring;           // [W+1, 6, n]
   int* r_frame;        // [W+1]
@@ -250,140 +408,223 @@ struct ArenaTickArgs {
   const int* rows;     // [T, L]
   int* his;            // [T, W] out
   int* los;            // [T, W]
-  uint32_t* parts_hi;  // [T, W] zeroed before launch
+  uint32_t* parts_hi;  // [T, W] zero on entry, left zero
   uint32_t* parts_lo;  // [T, W]
-  uint32_t* done;      // last-block ticket, zeroed before launch
-  uint32_t* raw;       // [T, W, 3P] raw team sums, one row per advance, zeroed before launch
-  unsigned int* bar;   // [2] grid barrier, zeroed before launch
+  uint32_t* done;      // last-block ticket, zero on entry, left zero
   int n, num_players, input_size, window, t_rows;
   int disc_input, disc_throttle;  // the disconnect row: input byte, throttle
   arena::Weights cw;
 };
 
-// dynamic shared memory of the arena tick, in words: staged rows [2][L],
-// resolved (input, throttle) [W*P][2], save sums [hi, lo][W][warps],
-// finalized teams [P], block-sum scratch
-__host__ __device__ inline size_t arena_tick_smem_words(int w, int p, int i) {
-  return 2 * (size_t)row_len(w, p, i) + 2 * (size_t)w * p + 2 * (size_t)w * kWarps + 3 * (size_t)p +
-         3 * (size_t)arena::kTeamChunk * kWarps;
-}
+// The block's dynamic shared memory, in words, in this order (device/
+// tick_core.py `arena_tick_smem_bytes` mirrors it): finalized teams [3P],
+// each warp's save sums [2][kMaxWarps][2], the team rows [nrows][3P], the
+// staged rows [2][L + 2WP] (control words, then each slot's resolved
+// (input, throttle) pairs), the pending step's pairs [P][2], then the
+// block's states [6][per_block] when they stay on chip. The scalar pass
+// reuses it from word 0 at the end.
 
-__global__ void __launch_bounds__(kBlock, kArenaMinBlocksPerSm) resim_tick_arena_kernel(ArenaTickArgs a) {
-  extern __shared__ int smem[];
-  const int W = a.window, P = a.num_players, I = a.input_size;
-  const int off_save = 4, off_status = 4 + W, off_input = off_status + W * P;
-  const int L = row_len(W, P, I);
-  int* staged = smem;                                          // [2][L], double-buffered
-  int* resolved = staged + 2 * L;                              // [W*P][2]
-  uint32_t* red = reinterpret_cast<uint32_t*>(resolved + 2 * W * P);  // [hi, lo][W][warps]
-  arena::Team* fin = reinterpret_cast<arena::Team*>(red + 2 * W * kWarps);  // [P]
-  uint32_t* scratch = reinterpret_cast<uint32_t*>(fin + P);   // 3 * kTeamChunk * kWarps
+namespace tick_arena {
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int tiles = (a.n + kBlock - 1) / kBlock;
+using inline_arena::GridReduce;
+using inline_arena::kMaxWarps;
+using inline_arena::Shared;
+
+enum Pending { kNone, kStep, kLoad, kInit };  // what a kept state still needs
+
+template <bool kOnChip>
+__device__ void tick_rows(const ArenaTickArgs& a, const Shared& sh, const GridReduce& rd, int per_block,
+                          int* stage, int* pend) {
+  const int W = a.window, P = a.num_players, I = a.input_size, L = row_len(W, P, I);
+  const int off_save = 4, off_status = 4 + W, off_input = off_status + W * P, stride = L + 2 * W * P;
   const size_t n = (size_t)a.n, slot_stride = (size_t)arena::kPlanes * n;
+  const int bd = blockDim.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lo = blockIdx.x * per_block;
+  const int count = max(0, min(per_block, a.n - lo));
+  const int rounds = (count + bd - 1) / bd;
+  const int team0 = (lo + (int)threadIdx.x) % P, team_stride = bd % P;
+  const bool fixed = team_stride == 0;  // every round of this thread is the same team: sum in registers
+  const int warp0 = threadIdx.x & ~31;
+  int k = 0, saves = 0;  // barriers and saves so far in this launch
+  int pending = kOnChip ? kInit : kNone;
+  const int* src = nullptr;  // the ring slot of a pending load
+
+  auto next_team = [&](int team) { return team + team_stride >= P ? team + team_stride - P : team + team_stride; };
+  auto kept = [&](int i, int e) {
+    return kOnChip ? arena::load(sh.st, (size_t)per_block, i) : arena::load(a.state, n, e);
+  };
+  auto keep = [&](int i, int e, const arena::State& s) {
+    if (kOnChip) arena::store(sh.st, (size_t)per_block, i, s);
+    else arena::store(a.state, n, e, s);
+  };
+  // entity e (the block's i-th) with what is pending applied
+  auto current = [&](int i, int e, int team) {
+    if (pending == kLoad) return arena::load(src, n, e);
+    if (pending == kInit) return arena::load(a.state, n, e);
+    arena::State s = kept(i, e);
+    if (pending == kStep)
+      arena::step(s, pend[2 * team], pend[2 * team + 1], sh.fin[team], sh.fin[team + 1 == P ? 0 : team + 1]);
+    return s;
+  };
+  // a warp's save sums into ev
+  auto put_sums = [&](uint32_t hi, uint32_t lo_sum, uint32_t* ev) {
+    hi = warp_sum(hi);
+    lo_sum = warp_sum(lo_sum);
+    if (lane == 0) {
+      ev[2 * warp] = hi;
+      ev[2 * warp + 1] = lo_sum;
+    }
+  };
+  // Pass A: bring every state up to date and keep it; `terms`: add its team
+  // terms to the warp rows; `dst`: save it there too (checksum terms to ev)
+  auto pass = [&](bool terms, int* dst, uint32_t* ev) {
+    uint32_t one = 0, sx = 0, sy = 0, hi = 0, lo_sum = 0;
+    int team = team0;
+    for (int r = 0; r < rounds; ++r, team = next_team(team)) {
+      const int i = r * bd + threadIdx.x;
+      uint32_t o = 0, x = 0, y = 0;
+      if (i < count) {
+        const int e = lo + i;
+        const arena::State s = current(i, e, team);
+        keep(i, e, s);
+        if (terms) arena::team_terms(s, o, x, y);
+        if (dst != nullptr) {
+          uint32_t ew[arena::kPlanes], h, l;
+          arena::entity_weights(a.cw, (uint32_t)e, ew);
+          arena::store(dst, n, e, s);
+          arena::checksum_terms(s, ew, h, l);
+          hi += h;
+          lo_sum += l;
+        }
+      }
+      if (!terms) continue;
+      if (fixed) {
+        one += o;
+        sx += x;
+        sy += y;
+      } else if (r * bd + warp0 < count) {  // warp-uniform: the warp holds an entity this round
+        arena::warp_team_add(o, x, y, team, P, false, sh.rows, sh.own_row);
+      }
+    }
+    if (terms && fixed && warp0 < count) arena::warp_team_add(one, sx, sy, team0, P, true, sh.rows, sh.own_row);
+    if (dst != nullptr) put_sums(hi, lo_sum, ev);
+    pending = kNone;
+  };
+  // Pass B: the kept states (nothing pending) saved to dst
+  auto save_pass = [&](int* dst, uint32_t* ev) {
+    uint32_t hi = 0, lo_sum = 0;
+    for (int r = 0; r < rounds; ++r) {
+      const int i = r * bd + threadIdx.x;
+      if (i < count) {
+        const int e = lo + i;
+        uint32_t ew[arena::kPlanes], h, l;
+        arena::entity_weights(a.cw, (uint32_t)e, ew);
+        const arena::State s = kept(i, e);
+        arena::store(dst, n, e, s);
+        arena::checksum_terms(s, ew, h, l);
+        hi += h;
+        lo_sum += l;
+      }
+    }
+    put_sums(hi, lo_sum, ev);
+  };
+  // event (t, i)'s block sums (after a block barrier): one atomic a word,
+  // by the last warp's last two lanes
+  auto event_add = [&](int t, int i, const uint32_t* ev) {
+    const int word = (int)threadIdx.x - (bd - 2);
+    if (word < 0) return;
+    uint32_t v = 0;
+    for (int w = 0; w < sh.warps; ++w) v += ev[2 * w + word];
+    if (v) atomicAdd((word == 0 ? a.parts_hi : a.parts_lo) + (size_t)t * W + i, v);
+  };
 
   for (int t = 0; t < a.t_rows; ++t) {
-    // row t into its buffer (the other one may still be read by the
-    // previous row's save reduction in slower threads), then every slot's
-    // inputs with the disconnect substitution; `resolved` was last read by
-    // the previous row's steps, which every thread finished before that
-    // row's closing barrier
-    int* row = staged + (t & 1) * L;
-    for (int k = threadIdx.x; k < L; k += kBlock) row[k] = a.rows[(size_t)t * L + k];
-    __syncthreads();
-    for (int k = threadIdx.x; k < W * P; k += kBlock) {
-      const bool off = row[off_status + k] == kDisconnected;
-      const int* in = row + off_input + k * I;
-      resolved[2 * k] = off ? a.disc_input : in[0];
-      resolved[2 * k + 1] = off ? a.disc_throttle : arena::throttle_of(in, I);
+    // row t into its buffer (the other one holds row t-1, which no thread
+    // reads once past this row's barrier), its slots' inputs resolved with
+    // the disconnect substitution
+    int* row = stage + (t & 1) * stride;
+    int* res = row + L;
+    const int* g = a.rows + (size_t)t * L;
+    for (int j = threadIdx.x; j < L; j += bd) row[j] = g[j];
+    for (int j = threadIdx.x; j < W * P; j += bd) {
+      const bool off = g[off_status + j] == kDisconnected;
+      const int* in = g + off_input + j * I;
+      res[2 * j] = off ? a.disc_input : in[0];
+      res[2 * j + 1] = off ? a.disc_throttle : arena::throttle_of(in, I);
     }
     __syncthreads();
 
     if (row[0] != 0) {
-      const int* src = a.ring + (size_t)row[1] * slot_stride;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int e = tile * kBlock + threadIdx.x;
-        if (e < a.n) arena::store(a.state, n, e, arena::load(src, n, e));
-      }
+      pending = kLoad;
+      src = a.ring + (size_t)row[1] * slot_stride;
     }
     const int adv = row[2];
     for (int i = 0; i < W; ++i) {
       const int slot = row[off_save + i];
-      if (slot < W) {  // save-then-advance: slot i snapshots the pre-advance state
-        uint32_t hi = 0, lo = 0;
-        int* dst = a.ring + (size_t)slot * slot_stride;
-        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-          const int e = tile * kBlock + threadIdx.x;
-          if (e < a.n) {
-            const arena::State s = arena::load(a.state, n, e);
-            arena::store(dst, n, e, s);
-            uint32_t ew[arena::kPlanes], h, l;
-            arena::entity_weights(a.cw, (uint32_t)e, ew);
-            arena::checksum_terms(s, ew, h, l);
-            hi += h;
-            lo += l;
-          }
+      int* dst = slot < W ? a.ring + (size_t)slot * slot_stride : nullptr;
+      // save sums alternate between two buffers: a buffer is written again
+      // only after a barrier that follows every read of it
+      uint32_t* ev = sh.ev + (saves & 1) * 2 * kMaxWarps;
+      if (i < adv) {  // save-then-advance: slot i snapshots the pre-advance state
+        pass(true, nullptr, nullptr);
+        rd.arrive(sh, P, k);
+        if (dst != nullptr) save_pass(dst, ev);
+        rd.wait(sh, P, k);
+        for (int j = threadIdx.x; j < P; j += bd) {
+          pend[2 * j] = res[2 * (i * P + j)];
+          pend[2 * j + 1] = res[2 * (i * P + j) + 1];
         }
-        hi = warp_sum(hi);
-        lo = warp_sum(lo);
-        if (lane == 0) {
-          red[i * kWarps + warp] = hi;
-          red[(W + i) * kWarps + warp] = lo;
-        }
-      }
-      if (i < adv) {
-        // the whole world's reduction, then the step on it
-        uint32_t* raw = a.raw + ((size_t)t * W + i) * 3 * P;
-        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-          const int e = tile * kBlock + threadIdx.x;
-          const bool active = e < a.n;
-          const arena::State s = active ? arena::load(a.state, n, e) : arena::State{};
-          arena::block_team_sums<kWarps>(active, s.px, s.py, s.hp, e % P, P, scratch, raw);
-        }
-        grid_sync(a.bar);
-        for (int k = threadIdx.x; k < P; k += kBlock)  // atomics live in L2: read there
-          fin[k] = arena::finalize((int)__ldcg(raw + 3 * k), (int)__ldcg(raw + 3 * k + 1),
-                                   (int)__ldcg(raw + 3 * k + 2));
+        __syncthreads();  // fin, pend and ev are in
+        pending = kStep;
+        ++k;
+      } else if (dst != nullptr) {
+        if (pending == kNone) save_pass(dst, ev);
+        else pass(false, dst, ev);
         __syncthreads();
-        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-          const int e = tile * kBlock + threadIdx.x;
-          if (e < a.n) {
-            arena::State s = arena::load(a.state, n, e);
-            const int own = e % P;
-            const int* in = resolved + 2 * (i * P + own);
-            arena::step(s, in[0], in[1], fin[own], fin[(own + 1) % P]);
-            arena::store(a.state, n, e, s);
-          }
-        }
       }
-    }
-
-    // the row's save sums: red is rewritten only after the next row's first
-    // barrier, which every thread reaches after finishing this reduction
-    __syncthreads();
-    for (int j = threadIdx.x; j < W; j += kBlock) {
-      if (row[off_save + j] < W) {
-        uint32_t hi = 0, lo = 0;
-        for (int w = 0; w < kWarps; ++w) {
-          hi += red[j * kWarps + w];
-          lo += red[(W + j) * kWarps + w];
-        }
-        atomicAdd(&a.parts_hi[(size_t)t * W + j], hi);
-        atomicAdd(&a.parts_lo[(size_t)t * W + j], lo);
+      if (dst != nullptr) {
+        event_add(t, i, ev);
+        ++saves;
       }
     }
   }
+  if (kOnChip || pending != kNone) {  // the state goes back once
+    int team = team0;
+    for (int r = 0; r < rounds; ++r, team = next_team(team)) {
+      const int i = r * bd + threadIdx.x;
+      if (i < count) arena::store(a.state, n, lo + i, current(i, lo + i, team));
+    }
+  }
+}
 
-  // last-block-done, then the scalar pass, as for ex_game
-  __shared__ bool is_last;
-  __threadfence();
+}  // namespace tick_arena
+
+// scratch: the barrier counter (u64) and three raw rows [3, 3P], then the
+// ticket and parts_hi, parts_lo [T, W]: zero before the core's first
+// launch, and every launch leaves them so
+template <bool kOnChip>
+__global__ void __launch_bounds__(inline_arena::kThreads, 1) resim_tick_arena_kernel(
+    ArenaTickArgs a, uint32_t* scratch, int per_block) {
+  using namespace inline_arena;
+  extern __shared__ int smem_words[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(smem_words);
+  const int W = a.window, P = a.num_players;
+  const bool own_row = P <= arena::kRowTeams;
+  uint32_t* ev = smem + 3 * P;
+  uint32_t* rows = ev + 4 * kMaxWarps;
+  int* stage = reinterpret_cast<int*>(rows + (own_row ? kMaxWarps : 1) * 3 * P);
+  int* pend = stage + 2 * (row_len(W, P, a.input_size) + 2 * W * P);
+  int* st = pend + 2 * P;
+  const int words = (int)(reinterpret_cast<uint32_t*>(st) - smem);  // all but the states
+  const int count = max(0, min(per_block, a.n - (int)blockIdx.x * per_block));
+  const Shared sh{reinterpret_cast<arena::Team*>(smem), ev, rows, st, min(kMaxWarps, (count + 31) / 32), own_row};
+  for (int j = threadIdx.x; j < words; j += blockDim.x) smem[j] = 0;
   __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(a.done, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!is_last || threadIdx.x != 0) return;
-  __threadfence();
-  tick_scalar_pass(a);
+  auto* arrived = reinterpret_cast<unsigned long long*>(scratch);
+  // no block of this launch can have passed its first barrier yet
+  const GridReduce rd{scratch + 2, arrived, ld_acquire(arrived) / gridDim.x};
+  tick_arena::tick_rows<kOnChip>(a, sh, rd, per_block, stage, pend);
+  last_block_scalar_pass(a, smem_words);
 }
 
 }  // namespace
@@ -391,17 +632,13 @@ __global__ void __launch_bounds__(kBlock, kArenaMinBlocksPerSm) resim_tick_arena
 namespace {
 
 // The tick of a model with no reduction. Returns the CUDA error of the
-// scratch reset, the shared-memory attribute or the launch (0 on success).
+// shared-memory attribute or the launch (0 on success).
 template <class M>
 int launch_tick(int* state, int* state_frame, int* ring, int* r_frame, int* h_tag, int* h_hi, int* h_lo,
                 int* flag, const int* rows, int* his, int* los, uint32_t* scratch, int n, int num_players,
                 int input_size, int window, int t_rows, int substeps, const int* disconnect_row,
                 const int* cs, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t events = (size_t)t_rows * window;
-  // scratch: parts_hi [T*W], parts_lo [T*W], done counter [1]
-  cudaError_t err = cudaMemsetAsync(scratch, 0, (2 * events + 1) * sizeof(uint32_t), st);
-  if (err != cudaSuccess) return (int)err;
   TickArgs<typename M::Weights> a;
   a.state = state;
   a.state_frame = state_frame;
@@ -414,9 +651,9 @@ int launch_tick(int* state, int* state_frame, int* ring, int* r_frame, int* h_ta
   a.rows = rows;
   a.his = his;
   a.los = los;
-  a.parts_hi = scratch;
-  a.parts_lo = scratch + events;
-  a.done = scratch + 2 * events;
+  a.done = scratch;
+  a.parts_hi = scratch + 1;
+  a.parts_lo = scratch + 1 + events;
   a.n = n;
   a.num_players = num_players;
   a.input_size = input_size;
@@ -425,23 +662,29 @@ int launch_tick(int* state, int* state_frame, int* ring, int* r_frame, int* h_ta
   a.substeps = substeps;
   a.disconnect_input = disconnect_row[0];  // the step reads byte 0
   a.cw = weights_from<typename M::Weights, M::kPlanes>(cs);
-  const size_t smem =
-      (2 * (size_t)row_len(window, num_players, input_size) + 2 * (size_t)window * kWarps) *
-      sizeof(int);
+  const size_t body = 2 * (size_t)row_len(window, num_players, input_size) + 2 * (size_t)window * kWarps;
+  const size_t words = body > scalar_smem_words(window) ? body : scalar_smem_words(window);
+  const size_t smem = words * sizeof(int);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(resim_tick_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(resim_tick_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (n + kBlock - 1) / kBlock;
-  resim_tick_kernel<M><<<blocks, kBlock, smem, st>>>(a);
+  resim_tick_kernel<M><<<blocks, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+const void* arena_kernel(int on_chip) {
+  return on_chip ? (const void*)resim_tick_arena_kernel<true> : (const void*)resim_tick_arena_kernel<false>;
 }
 
 }  // namespace
 
 // h_tag/h_hi/h_lo/flag are null when device verification is off.
 // disconnect_row: the game's disconnect input, I ints in host memory.
+// scratch: the ticket, then parts_hi [T*W], parts_lo [T*W]; zero before
+// the core's first launch, and every launch leaves it so.
 // ex_game. cs: 11 int32 — checksum w[5], base[5], frame weight.
 extern "C" int resim_tick_launch(int* state, int* state_frame, int* ring, int* r_frame, int* h_tag,
                                  int* h_hi, int* h_lo, int* flag, const int* rows, int* his,
@@ -464,23 +707,35 @@ extern "C" int resim_tick_swarm_launch(int* state, int* state_frame, int* ring, 
                                    disconnect_row, cs, stream);
 }
 
-// The arena tick, launched cooperatively on as many blocks as can be
-// resident (at most one per 128-entity tile). scratch: parts_hi [T*W],
-// parts_lo [T*W], done [1], barrier [2], raw [T*W*3P]. Returns the CUDA
-// error of the reset, the occupancy query, the shared-memory attribute or
-// the launch, or kNotCoResident when not one block fits. disconnect_row: I
-// ints in host memory. cs: 13 int32 — checksum w[6], base[6], frame weight.
+// The card's limits the arena tick's plan is made from: out[0] the SM
+// count, out[1] the shared memory a block may opt in to (bytes).
+extern "C" int resim_tick_arena_limits(int* out) { return (int)card_limits(out); }
+
+// Once per plan (the core's first arena launch): the shared-memory
+// attribute, then the occupancy query: kNotCoResident when the grid of
+// `blocks` blocks of `threads` threads cannot be resident at once; else 0
+// or a CUDA error. on_chip: the states in shared memory (else in `state`).
+extern "C" int resim_tick_arena_prepare(int on_chip, int blocks, int threads, int smem_bytes) {
+  if (blocks < 1 || threads < 32 || threads > inline_arena::kThreads || threads % 32) return (int)cudaErrorInvalidValue;
+  return co_resident(arena_kernel(on_chip), blocks, threads, smem_bytes);
+}
+
+// The arena tick, T rows in one launch on the plan `prepare` accepted: a
+// cooperative grid of `blocks` blocks of `threads` threads, `per_block`
+// entities and `smem_bytes` of dynamic shared memory each. scratch: the
+// barrier counter (u64) and three raw rows [3, 3P], the ticket, parts_hi
+// [T*W], parts_lo [T*W]; zero before the core's first launch, and every
+// launch leaves it so. Returns the CUDA error of the launch (0 on success).
+// disconnect_row: I ints in host memory. cs: 13 int32 — checksum w[6],
+// base[6], frame weight.
 extern "C" int resim_tick_arena_launch(int* state, int* state_frame, int* ring, int* r_frame,
                                        int* h_tag, int* h_hi, int* h_lo, int* flag,
                                        const int* rows, int* his, int* los, uint32_t* scratch,
                                        int n, int num_players, int input_size, int window,
-                                       int t_rows, const int* disconnect_row, const int* cs,
+                                       int t_rows, int on_chip, int blocks, int threads, int per_block,
+                                       int smem_bytes, const int* disconnect_row, const int* cs,
                                        void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t events = (size_t)t_rows * window;
-  const size_t words = 2 * events + 3 + events * 3 * num_players;
-  cudaError_t err = cudaMemsetAsync(scratch, 0, words * sizeof(uint32_t), st);
-  if (err != cudaSuccess) return (int)err;
+  const size_t events = (size_t)t_rows * window, fixed = 2 + 9 * (size_t)num_players;
   ArenaTickArgs a;
   a.state = state;
   a.state_frame = state_frame;
@@ -493,11 +748,9 @@ extern "C" int resim_tick_arena_launch(int* state, int* state_frame, int* ring, 
   a.rows = rows;
   a.his = his;
   a.los = los;
-  a.parts_hi = scratch;
-  a.parts_lo = scratch + events;
-  a.done = scratch + 2 * events;
-  a.bar = scratch + 2 * events + 1;
-  a.raw = scratch + 2 * events + 3;
+  a.done = scratch + fixed;
+  a.parts_hi = scratch + fixed + 1;
+  a.parts_lo = scratch + fixed + 1 + events;
   a.n = n;
   a.num_players = num_players;
   a.input_size = input_size;
@@ -506,19 +759,9 @@ extern "C" int resim_tick_arena_launch(int* state, int* state_frame, int* ring, 
   a.disc_input = disconnect_row[0];
   a.disc_throttle = input_size >= 2 ? (disconnect_row[1] & 0x0F) : arena::kDefaultThrottle;
   a.cw = weights_from<arena::Weights, arena::kPlanes>(cs);
-  const size_t smem = arena_tick_smem_words(window, num_players, input_size) * sizeof(int);
-  const void* fn = (const void*)resim_tick_arena_kernel;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  long long resident = 0;
-  if ((err = resident_blocks(fn, smem, &resident)) != cudaSuccess) return (int)err;
-  if (resident < 1) return kNotCoResident;
-  const long long tiles = (n + kBlock - 1) / kBlock;
-  const int blocks = (int)(tiles < resident ? tiles : resident);
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kBlock), args, smem, st);
+  void* args[] = {&a, &scratch, &per_block};
+  const cudaError_t err = cudaLaunchCooperativeKernel(arena_kernel(on_chip), dim3(blocks), dim3(threads), args,
+                                                      smem_bytes, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -141,75 +141,6 @@ __global__ void __launch_bounds__(kBlock) synctest_tiled_arena_kernel(
 // last pass.
 namespace inline_arena {
 
-constexpr int kThreads = 1024;  // at most, a block (64 registers a thread: one such block an SM)
-constexpr int kMaxWarps = kThreads / 32;
-
-// The block's dynamic shared memory, in this order (device/tiled_core.py
-// `inline_smem_bytes` sizes it): the pending step's finalized teams [3P],
-// each warp's save sums [kMaxWarps][2], the team rows [nrows][3P] (a row a
-// warp up to arena::kRowTeams teams, else one shared row), then, kOnChip,
-// the block's states [6][per_block].
-struct Shared {
-  arena::Team* fin;
-  uint32_t* ev;
-  uint32_t* rows;
-  int* st;
-  int warps;     // the block's warps that hold an entity: the rows and save sums to add up
-  bool own_row;  // a row a warp (else the warps share rows[0])
-};
-
-// arena::finalize for the sums this kernel makes. In the model's envelope
-// they are non-negative as int32 (18-bit positions, a team under 2^16), so
-// an unsigned division floors as exg::floor_div_pos does, at less cost;
-// any other value takes arena::finalize itself.
-__device__ __forceinline__ arena::Team finalize_sums(uint32_t count, uint32_t sx, uint32_t sy) {
-  if ((int)(count | sx | sy) < 0) return arena::finalize((int)count, (int)sx, (int)sy);
-  const uint32_t safe = count > 1 ? count : 1;
-  return arena::Team{(int)((sx / safe) << arena::kCentroidShift), (int)((sy / safe) << arena::kCentroidShift),
-                     (int)count};
-}
-
-// Word j of the block's team sums: its warps' rows, left zero
-__device__ __forceinline__ uint32_t block_sum(const Shared& sh, int words, int j) {
-  return arena::warp_rows_sum(sh.rows, sh.own_row ? sh.warps : 1, words, j);
-}
-
-// The reduction: block sums -> three rotating raw rows in
-// global memory -> the grid barrier -> every block finalizes the row. `g0`,
-// the barriers completed before this launch, numbers the steps across
-// launches: step g adds to row g % 3 while block 0 zeroes row (g + 1) % 3
-// (last read before barrier g - 1), so the rows need no reset between
-// launches.
-struct GridReduce {
-  uint32_t* raw;                // global [3][3P]
-  unsigned long long* arrived;  // global, the barrier's counter
-  unsigned long long g0;
-
-  __device__ __forceinline__ void arrive(const Shared& sh, int P, int k) const {
-    __syncthreads();  // every warp's row adds are in
-    const unsigned long long g = g0 + k;
-    uint32_t* row = raw + (size_t)(g % 3) * 3 * P;
-    for (int j = threadIdx.x; j < 3 * P; j += blockDim.x) {
-      const uint32_t v = block_sum(sh, 3 * P, j);
-      if (v) atomicAdd(&row[j], v);
-    }
-    if (blockIdx.x == 0) {
-      uint32_t* next = raw + (size_t)((g + 1) % 3) * 3 * P;
-      for (int j = threadIdx.x; j < 3 * P; j += blockDim.x) next[j] = 0;
-    }
-    grid_arrive(arrived);
-  }
-  __device__ __forceinline__ void wait(const Shared& sh, int P, int k) const {
-    const unsigned long long g = g0 + k;
-    grid_wait(arrived, (g + 1) * gridDim.x);
-    const uint32_t* row = raw + (size_t)(g % 3) * 3 * P;
-    for (int t = threadIdx.x; t < P; t += blockDim.x) {
-      const uint32_t* r = row + 3 * t;  // atomics live in L2: read there
-      sh.fin[t] = finalize_sums(__ldcg(r), __ldcg(r + 1), __ldcg(r + 2));
-    }
-  }
-};
-
 // The batch, in the event layout of synctest_entity_batch
 // (synctest_body.cuh). The block owns entities [lo, lo + count); thread
 // tid walks lo + tid, lo + tid + blockDim, ... with its team stepped
@@ -468,33 +399,15 @@ const void* inline_kernel(int on_chip) {
 
 // The card's limits the inline route's plan is made from: out[0] the SM
 // count, out[1] the shared memory a block may opt in to (bytes).
-extern "C" int synctest_tiled_inline_arena_limits(int* out) {
-  int device = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return (int)err;
-  return (int)cudaDeviceGetAttribute(&out[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-}
+extern "C" int synctest_tiled_inline_arena_limits(int* out) { return (int)card_limits(out); }
 
 // Once per plan (the core's first inline launch): the shared-memory
 // attribute, then the occupancy query: kNotCoResident when the grid of
 // `blocks` blocks of `threads` threads cannot be resident at once; else 0
 // or a CUDA error. on_chip: the states in shared memory (else in `state`).
 extern "C" int synctest_tiled_inline_arena_prepare(int on_chip, int blocks, int threads, int smem_bytes) {
-  const void* fn = inline_kernel(on_chip);
   if (blocks < 1 || threads < 32 || threads > inline_arena::kThreads || threads % 32) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (smem_bytes > 48 * 1024 &&
-      (err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes)) != cudaSuccess)
-    return (int)err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem_bytes)) !=
-      cudaSuccess)
-    return (int)err;
-  return (long long)per_sm * sms >= blocks ? 0 : kNotCoResident;
+  return co_resident(inline_kernel(on_chip), blocks, threads, smem_bytes);
 }
 
 // Arena inline, T ticks in one launch, on the plan `prepare` accepted:

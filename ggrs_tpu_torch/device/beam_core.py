@@ -6,9 +6,9 @@ snapshot (a ring slot of a `ResimCore` carry) roll B candidate input
 scripts L frames each, and return every member's state after every step
 with its checksum, and the anchor's own checksum — one launch of
 `csrc/beam_rollout.cu` on CUDA (ex_game's or swarm's body, one template,
-or arena's, which reduces each member's world before every step behind a
-grid barrier; `launch.ENTRIES` chooses),
-`plain_rollout` on the CPU.
+or arena's, which reduces each member's world before every step among the
+member's own blocks, on the layout `beam_plan` picks; `launch.ENTRIES`
+chooses the body), `plain_rollout` on the CPU.
 
 A script is packed into ONE int32 tensor `[B, L, P, 1 + I]` (one upload):
 `[..., 0]` is the cell's status, `[..., 1:]` its input bytes. A
@@ -19,6 +19,7 @@ statuses.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -27,6 +28,9 @@ import torch
 from ..errors import ConfigError
 from ..kernels import build, launch
 from ..ops import fixed_point as fx
+from .tiled_core import ARENA_STATE_WORDS, INLINE_THREADS, ROW_TEAMS, block_threads
+
+MAX_GROUP = 8  # csrc/beam_rollout.cu beam_arena::kMaxGroup: blocks a member at most
 
 
 class Speculation(NamedTuple):
@@ -77,6 +81,48 @@ def plain_rollout(anchor_planes: torch.Tensor, frame, beam_inputs: torch.Tensor,
     return Speculation(traj, his, los, fx.to_i32(a_hi), fx.to_i32(a_lo), frame.clone())
 
 
+class BeamPlan(NamedTuple):
+    """How the arena rollout lays B members on the card: one cooperative
+    grid of `members` groups of `group` blocks, a group serving members g,
+    g + members, ... in turn."""
+
+    group: int  # blocks a member
+    members: int  # members in flight: the grid is group * members blocks, at most one an SM
+    threads: int  # a block's: a thread an entity, in whole warps
+    per_block: int  # the contiguous run of a member's entities a block owns
+    on_chip: bool  # the run's states stay in shared memory from step to step
+    smem_bytes: int  # dynamic shared memory a block takes
+
+
+def beam_smem_bytes(players: int, steps: int, state_cols: int) -> int:
+    """The arena rollout's dynamic shared memory (csrc/beam_rollout.cu,
+    `beam_arena::rollout_kernel`), in bytes: finalized teams [3P], team
+    rows [rows][3P] (a row a warp up to ROW_TEAMS teams, else one), the
+    member's resolved script [L][P][2], each warp's checksum sums
+    [L+1][32][2], and `state_cols` entities' states when they stay on
+    chip."""
+    warps = INLINE_THREADS // 32
+    rows = warps if players <= ROW_TEAMS else 1
+    words = 3 * players + rows * 3 * players + 2 * steps * players + 2 * (steps + 1) * warps
+    return 4 * (words + ARENA_STATE_WORDS * state_cols)
+
+
+def beam_plan(n: int, players: int, beam: int, steps: int, sms: int, smem_per_block: int) -> BeamPlan:
+    """The arena rollout's layout for B = `beam` members of n entities and
+    `players` teams, up to `steps` steps, on a card of `sms` SMs whose
+    blocks may take `smem_per_block` bytes of shared memory: a group of
+    blocks a member (as many as fill the card, up to MAX_GROUP, and no
+    more than the member has warps of entities), each owning a contiguous
+    run of the member's entities, their states on chip while they fit; as
+    many members in flight as one block an SM allows."""
+    group = max(1, min(MAX_GROUP, sms // beam, -(-n // 32)))
+    per_block = -(-n // group)
+    smem = beam_smem_bytes(players, steps, per_block)
+    on_chip = smem <= smem_per_block
+    return BeamPlan(group, max(1, min(beam, sms // group)), block_threads(per_block), per_block, on_chip,
+                    smem if on_chip else beam_smem_bytes(players, steps, 0))
+
+
 class BeamRollout:
     """K4's wrapper for one (game, players) plane context; counts its
     launches in `launches`. On CPU tensors it runs `plain_rollout`; on
@@ -89,6 +135,32 @@ class BeamRollout:
         self.disconnect_input = tuple(disconnect_input)  # the game's row, I ints
         self.max_steps = max_steps  # the deepest rollout a caller may ask for
         self.launches = 0
+        self.plans = {}  # arena's BeamPlan by beam width, made at its first launch
+        # arena's scratch (counters, ticket, parts, raw rows) of `_words`
+        # words: zero when made, and every launch leaves it zero
+        self._scratch, self._words = None, 0
+
+    def plan(self, lib, beam: int) -> BeamPlan:
+        """Arena's plan for `beam` members, made at the first launch of that
+        width from the card's limits (read from the kernel library) by
+        `beam_plan`."""
+        if beam not in self.plans:
+            limits = (ctypes.c_int * 2)()
+            fn = launch.declare(lib, "beam_rollout_arena_limits", [launch.P])
+            launch.raise_on(fn(limits), "beam_rollout_arena_limits")
+            ctx = self.ctx
+            self.prepare(lib, beam, beam_plan(ctx.n, ctx.num_players, beam, self.max_steps, limits[0], limits[1]))
+        return self.plans[beam]
+
+    def prepare(self, lib, beam: int, plan: BeamPlan) -> None:
+        """A plan's one-time set-up (the shared-memory attribute) and the
+        check that its launch can run — `KernelError` when it cannot; then
+        it is the plan for `beam` members. Measurement code may call it
+        before the first launch of that width to time another plan."""
+        fn = launch.declare(lib, "beam_rollout_arena_prepare", [launch.I] * 5)
+        launch.raise_cooperative(fn(int(plan.on_chip), plan.group, plan.group * plan.members, plan.threads,
+                                    plan.smem_bytes), "beam_rollout_arena_prepare")
+        self.plans[beam] = plan
 
     def script(self, beam_inputs: np.ndarray, beam_statuses: np.ndarray) -> torch.Tensor:
         """Host candidate rows -> the packed int32 script [B, L, P, 1 + I]
@@ -143,15 +215,17 @@ class BeamRollout:
                 out.data_ptr())
         disconnect = launch.disconnect_arg(self.disconnect_input)
         if entry.reduces:
-            fn = launch.declare(lib, entry.symbol, [Pt, It] + [Pt] * 5 + [It] * 5 + [Pt] * 3)
-            # parts_hi [B*L + 1], parts_lo [B*L + 1] (the anchor's row last),
-            # the ticket, the grid barrier [2] and the raw reduction rows:
-            # the anchor's, then one [3P] per (step >= 1, member)
-            scratch = torch.empty(2 * (B * L + 1) + 3 + (1 + (L - 1) * B) * ctx.reduce_len,
-                                  dtype=torch.int32, device=device)
-            rc = fn(*ptrs, scratch.data_ptr(), n, P, I, B, L, disconnect, launch.weights_arg(ctx),
-                    launch.stream_of(device))
-            launch.raise_cooperative(rc, self.kernel)
+            plan = self.plan(lib, B)
+            # the members' arrival counters [B] (u64), the ticket, parts_hi and
+            # parts_lo [B*L + 1] (the anchor's row last), the members' raw rows [B, L, R]
+            words = 2 * B + 1 + 2 * (B * L + 1) + B * L * ctx.reduce_len
+            if words > self._words:
+                self._scratch, self._words = torch.zeros(words, dtype=torch.int32, device=device), words
+            fn = launch.declare(lib, entry.symbol, [Pt, It] + [Pt] * 5 + [It] * 11 + [Pt] * 3)
+            rc = fn(*ptrs, self._scratch.data_ptr(), n, P, I, B, L, int(plan.on_chip), plan.group,
+                    plan.group * plan.members, plan.threads, plan.per_block, plan.smem_bytes, disconnect,
+                    launch.weights_arg(ctx), launch.stream_of(device))
+            launch.raise_on(rc, self.kernel)
         else:
             extra = launch.model_ints(entry, ctx)
             fn = launch.declare(lib, entry.symbol, [Pt, It] + [Pt] * 5 + [It] * (5 + len(extra)) + [Pt] * 3)

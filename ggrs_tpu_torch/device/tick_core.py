@@ -8,7 +8,11 @@ his/los [T, W] (int32 tensors holding the uint32 bit patterns, (0, 0) for
 skipped saves) — `csrc/resim_tick.cu`, with one body per model, chosen by
 `launch.ENTRIES`: ex_game's and swarm's (one template, `resim_tick_launch`
 and `resim_tick_swarm_launch`) and arena's (`resim_tick_arena_launch`, a
-whole-world reduction and a grid barrier before every advance).
+whole-world reduction and a grid barrier before every advance, on the
+persistent grid `arena_tick_plan` lays out). Each body ends in the same
+parallel scalar pass, and a dispatch is that one launch: the kernel's
+scratch (partial checksums, ticket, arena's barrier and raw rows) is the
+wrapper's, zeroed once, and every launch leaves it zero.
 
 `plain_tick_multi` is the same dispatch in plain PyTorch with the
 semantics of the reference's `ResimCore._tick_impl` (ggrs_tpu/tpu/resim.py
@@ -21,6 +25,8 @@ carry runs, what the tests hold against the reference, and what
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -28,8 +34,49 @@ from ..errors import ConfigError
 from ..kernels import build, launch
 from ..ops import fixed_point as fx
 from .planes import partial_checksum_planes
+from .tiled_core import ARENA_STATE_WORDS, INLINE_THREADS, ROW_TEAMS, InlinePlan, block_threads
 
 VERIFY_KEYS = ("h_tag", "h_hi", "h_lo", "flag")
+SCALAR_EVENTS = 256  # csrc/resim_tick.cu kScalarEvents: the scalar pass takes rows in chunks of about this many events
+
+
+def scalar_smem_words(window: int) -> int:
+    """The scalar pass's shared memory in words (csrc/resim_tick.cu
+    `scalar_smem_words`): a chunk of rows' control words, frames and load
+    sources, four words an event, the carried ring-frame tags and history,
+    and the chunk's last writes."""
+    tc = max(1, SCALAR_EVENTS // window)
+    return tc * (4 + window) + 2 * tc + 4 * tc * window + 2 * (window + 1) + 4 * window + 4
+
+
+def arena_tick_smem_bytes(players: int, window: int, input_size: int, state_cols: int) -> int:
+    """The arena tick's dynamic shared memory (csrc/resim_tick.cu, the
+    layout above `tick_arena`), in bytes: finalized teams [3P], each warp's
+    save sums [2][32][2], team rows [rows][3P] (a row a warp up to
+    ROW_TEAMS teams, else one), the staged rows [2][L + 2WP], the pending
+    step's pairs [P][2] and `state_cols` entities' states when they stay on
+    chip; at least what the scalar pass reuses."""
+    warps = INLINE_THREADS // 32
+    rows = warps if players <= ROW_TEAMS else 1
+    row_len = 4 + window + window * players + window * players * input_size
+    words = (3 * players + 4 * warps + rows * 3 * players + 2 * (row_len + 2 * window * players) + 2 * players
+             + ARENA_STATE_WORDS * state_cols)
+    return 4 * max(words, scalar_smem_words(window))
+
+
+def arena_tick_plan(n: int, players: int, window: int, input_size: int, sms: int,
+                    smem_per_block: int) -> InlinePlan:
+    """The arena tick's layout for a world of n entities and `players`
+    teams at this window and input size, on a card of `sms` SMs whose
+    blocks may take `smem_per_block` bytes of shared memory: one block an
+    SM, each owning a contiguous run of entities, with the run's states
+    on chip while they fit, else in the carry's state buffer."""
+    per_block = -(-n // sms)
+    blocks, threads = -(-n // per_block), block_threads(per_block)
+    on_chip = arena_tick_smem_bytes(players, window, input_size, per_block)
+    if on_chip <= smem_per_block:
+        return InlinePlan("grid-shared", blocks, threads, per_block, on_chip)
+    return InlinePlan("grid-global", blocks, threads, per_block, arena_tick_smem_bytes(players, window, input_size, 0))
 
 
 def check_rows(rows: np.ndarray, core) -> None:
@@ -132,6 +179,40 @@ class TickCore:
     def __init__(self, core):
         self.core = core
         self.launches = 0
+        self.plan = None  # arena's InlinePlan, made at its first launch
+        # the kernel's scratch for up to `_rows` rows: zero when made, and
+        # every launch leaves it zero
+        self._scratch, self._rows = None, 0
+
+    def _arena_plan(self, lib) -> InlinePlan:
+        """Arena's plan, made at its first launch from the card's limits
+        (read from the kernel library) by `arena_tick_plan`."""
+        if self.plan is None:
+            limits = (ctypes.c_int * 2)()
+            fn = launch.declare(lib, "resim_tick_arena_limits", [launch.P])
+            launch.raise_on(fn(limits), "resim_tick_arena_limits")
+            core = self.core
+            self.prepare(lib, arena_tick_plan(core.ctx.n, core.num_players, core.window, core.ctx.input_size,
+                                              limits[0], limits[1]))
+        return self.plan
+
+    def prepare(self, lib, plan: InlinePlan) -> None:
+        """The arena plan's one-time set-up (the shared-memory attribute)
+        and residency check — `KernelError` when its grid cannot be
+        resident; then `plan` is the wrapper's. Measurement code may call
+        it before the first launch to time another plan."""
+        fn = launch.declare(lib, "resim_tick_arena_prepare", [launch.I] * 4)
+        launch.raise_cooperative(fn(int(plan.regime == "grid-shared"), plan.blocks, plan.threads, plan.smem_bytes),
+                                 "resim_tick_arena_prepare")
+        self.plan = plan
+
+    def _scratch_for(self, t_rows: int, fixed: int, device) -> torch.Tensor:
+        """The zeroed scratch: `fixed` words, then parts_hi and parts_lo
+        [T, W] for up to the most rows a dispatch has had."""
+        if t_rows > self._rows:
+            self._scratch = torch.zeros(fixed + 2 * t_rows * self.core.window, dtype=torch.int32, device=device)
+            self._rows = t_rows
+        return self._scratch
 
     def tick_multi(self, carry, rows: torch.Tensor):
         """T rows (int32 [T, L] on the carry's device) in place; returns
@@ -166,21 +247,19 @@ class TickCore:
                 carry["r_frame"].data_ptr(), *verify, rows.data_ptr(), his.data_ptr(), los.data_ptr())
         disconnect = launch.disconnect_arg(core.disconnect_input)
         if entry.reduces:
-            fn = launch.declare(lib, entry.symbol, [P] * 12 + [I] * 5 + [P, P, P])
-            # parts_hi [T*W], parts_lo [T*W], the ticket, the grid barrier [2]
-            # and one raw reduction row [3P] per (row, slot)
-            scratch = torch.empty(2 * t_rows * W + 3 + t_rows * W * ctx.reduce_len,
-                                  dtype=torch.int32, device=device)
+            plan = self._arena_plan(lib)
+            # the grid barrier's u64 counter and three raw rows [3, 3P], the ticket, then the parts
+            scratch = self._scratch_for(t_rows, 2 + 3 * ctx.reduce_len + 1, device)
+            fn = launch.declare(lib, entry.symbol, [P] * 12 + [I] * 10 + [P, P, P])
             rc = fn(*ptrs, scratch.data_ptr(), n, core.num_players, ctx.input_size, W, t_rows,
+                    int(plan.regime == "grid-shared"), plan.blocks, plan.threads, plan.per_block, plan.smem_bytes,
                     disconnect, launch.weights_arg(ctx), launch.stream_of(device))
-            launch.raise_cooperative(rc, self.kernel)
         else:
             extra = launch.model_ints(entry, ctx)
+            scratch = self._scratch_for(t_rows, 1, device)  # the ticket, then the parts
             fn = launch.declare(lib, entry.symbol, [P] * 12 + [I] * (5 + len(extra)) + [P, P, P])
-            # parts_hi [T*W], parts_lo [T*W] and the last-block ticket
-            scratch = torch.empty(2 * t_rows * W + 1, dtype=torch.int32, device=device)
             rc = fn(*ptrs, scratch.data_ptr(), n, core.num_players, ctx.input_size, W, t_rows, *extra,
                     disconnect, launch.weights_arg(ctx), launch.stream_of(device))
-            launch.raise_on(rc, self.kernel)
+        launch.raise_on(rc, self.kernel)
         self.launches += 1
         return his, los

@@ -274,16 +274,33 @@ class RefusingLaunch:
         return self.rc
 
 
+class H100Limits(RefusingLaunch):
+    """A `limits` entry point: an H100's 132 SMs and 227 KB of shared memory
+    a block."""
+
+    def __call__(self, out):
+        out[0], out[1] = 132, 232448
+        return super().__call__(out)
+
+
 class RefusingLib:
+    """K3's and K4's arena entry points: the card's limits, each plan's
+    one-time set-up, which reports a grid that cannot be resident, and the
+    launch, which reports a CUDA error."""
+
     def __init__(self, rc):
-        self.resim_tick_arena_launch = RefusingLaunch(rc)
-        self.beam_rollout_arena_launch = RefusingLaunch(rc)
+        resident = rc == launch.NOT_CO_RESIDENT
+        for kernel in ("resim_tick", "beam_rollout"):
+            setattr(self, f"{kernel}_arena_limits", H100Limits(0))
+            setattr(self, f"{kernel}_arena_prepare", RefusingLaunch(rc if resident else 0))
+            setattr(self, f"{kernel}_arena_launch", RefusingLaunch(0 if resident else rc))
 
 
 @pytest.mark.parametrize("rc,error", [(launch.NOT_CO_RESIDENT, "resident"), (2, "CUDA error 2")])
 def test_arena_kernel_refusal_raises_not_falls_back(monkeypatch, rc, error):
     """On a carry that is not on the CPU the arena wrappers launch their
-    kernel or raise: a launch that reports no resident block, or a CUDA
+    kernel or raise: a plan whose grid cannot be resident (reported when the
+    wrapper sets its layout up, before any launch), or a launch's CUDA
     error, is a KernelError, and the plain version never runs. (The carry
     sits on the `meta` device, which has no data, so only the launch path
     can take it.)"""
@@ -298,7 +315,9 @@ def test_arena_kernel_refusal_raises_not_falls_back(monkeypatch, rc, error):
     script = torch.zeros((4, 3, 2, 2), dtype=torch.int32, device="meta")
     with pytest.raises(KernelError, match=error):
         core.beam_rollout.rollout(core.carry["ring"], core.carry["r_frame"], 0, script)
-    assert lib.resim_tick_arena_launch.calls == lib.beam_rollout_arena_launch.calls == 1
+    assert lib.resim_tick_arena_prepare.calls == lib.beam_rollout_arena_prepare.calls == 1
+    launched = 0 if rc == launch.NOT_CO_RESIDENT else 1
+    assert lib.resim_tick_arena_launch.calls == lib.beam_rollout_arena_launch.calls == launched
     assert core.tick_core.launches == core.beam_rollout.launches == 0
 
 
@@ -317,3 +336,26 @@ def test_arena_kernels_refuse_more_teams_than_they_reduce(monkeypatch):
     core.beam_rollout.rollout(core.carry["ring"], core.carry["r_frame"], 0, script)
     assert lib.resim_tick_arena_launch.calls == lib.beam_rollout_arena_launch.calls == 1
     assert core.tick_core.launches == core.beam_rollout.launches == 1
+
+
+def test_arena_plans_lay_worlds_out_by_their_shapes():
+    """K3-arena's and K4-arena's layouts come from the shapes and the card's
+    limits alone (an H100's 132 SMs and 227 KB a block): K3 keeps a block's
+    run of states on chip while the world fits, in global memory past
+    that; K4 gives each member up to 8 blocks, keeps their states on chip
+    while a block's run fits, and holds as many members at once as one
+    block an SM allows."""
+    from ggrs_tpu_torch.device.beam_core import beam_plan
+    from ggrs_tpu_torch.device.tick_core import arena_tick_plan, arena_tick_smem_bytes
+
+    small = arena_tick_plan(4096, 2, 11, 1, 132, 232448)
+    assert (small.regime, small.blocks, small.threads, small.per_block) == ("grid-shared", 128, 32, 32)
+    assert arena_tick_plan(65536, 2, 11, 1, 132, 232448).regime == "grid-shared"
+    big = arena_tick_plan(2_000_000, 32, 11, 1, 132, 232448)
+    assert (big.regime, big.blocks, big.threads) == ("grid-global", 132, 1024)
+    assert big.smem_bytes == arena_tick_smem_bytes(32, 11, 1, 0)  # no states on chip
+    assert beam_plan(4096, 2, 16, 11, 132, 232448)[:5] == (8, 16, 512, 512, True)
+    assert beam_plan(65536, 2, 16, 11, 132, 232448)[:5] == (8, 16, 1024, 8192, True)
+    assert beam_plan(131072, 4, 16, 11, 132, 232448)[:5] == (8, 16, 1024, 16384, False)
+    assert beam_plan(4096, 2, 140, 11, 132, 232448)[:5] == (1, 132, 1024, 4096, True)
+    assert beam_plan(100, 3, 16, 11, 132, 232448)[:2] == (4, 16)  # a block has a warp of entities at least

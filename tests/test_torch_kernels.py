@@ -14,21 +14,21 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import VERDICT_STREAMS, prime_row, random_tick_rows, verdict_stream
+from chip_smoke import TICK_STREAMS, VERDICT_STREAMS, prime_row, random_tick_rows, tick_stream, verdict_stream
 from ggrs_tpu_torch import (
     Arena, DeviceRollbackBackend, DeviceSyncTestSession, ExGame, KernelError, SaveGameState, SessionBuilder,
     Swarm,
 )
 from ggrs_tpu_torch.convert import CARRY_KEYS, copy_carry
 from ggrs_tpu_torch.device import sync_test
-from ggrs_tpu_torch.device.beam_core import plain_rollout
+from ggrs_tpu_torch.device.beam_core import beam_plan, plain_rollout
 from ggrs_tpu_torch.device.fused_core import FusedSyncTestCore, plain_batch
 from ggrs_tpu_torch.device.injected_core import InjectedReduceCore
 from ggrs_tpu_torch.device.reduce_core import STATE as STATE_SLOT
 from ggrs_tpu_torch.device.reduce_core import ReduceTableCore, plain_reduce_table, source_slots
 from ggrs_tpu_torch.device.planes import PlaneContext
 from ggrs_tpu_torch.device.resim import RESIM_KEYS, ResimCore
-from ggrs_tpu_torch.device.tick_core import plain_tick_multi
+from ggrs_tpu_torch.device.tick_core import arena_tick_plan, plain_tick_multi
 from ggrs_tpu_torch.device.tiled_core import TiledSyncTestCore, plain_parts, plain_verdict
 from ggrs_tpu_torch.kernels import build
 
@@ -330,17 +330,37 @@ def test_arena_injected_route_matches_plain_on_card(cuda_card):
     assert core.reduce.launches == 3 + 18
 
 
+def sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def force_tick_layout(core, regime):
+    """K3-arena on `regime` ("plan": whatever arena_tick_plan picks;
+    "grid-global": the states in global memory, forced on a world whose
+    states would fit on chip)."""
+    if regime == "grid-global":
+        plan = arena_tick_plan(core.ctx.n, core.num_players, core.window, core.ctx.input_size, sms(), 0)
+        core.tick_core.prepare(build.load("resim_tick"), plan)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("players,n,input_size,mp,rows_per_dispatch",
-                         [(2, 4096, 1, 9, 1), (4, 4096, 2, 12, 8), (2, 65536, 1, 9, 8), (4, 153600, 1, 9, 4),
-                          (17, 4352, 1, 9, 8), (32, 4096, 2, 12, 4), (64, 4096, 1, 9, 8)])
-def test_arena_tick_kernel_matches_plain_on_card(cuda_card, players, n, input_size, mp, rows_per_dispatch):
+@pytest.mark.parametrize("players,n,input_size,mp,rows_per_dispatch,regime",
+                         [(2, 4096, 1, 9, 1, "plan"), (4, 4096, 2, 12, 8, "plan"), (2, 65536, 1, 9, 8, "plan"),
+                          (4, 153600, 1, 9, 4, "plan"), (17, 4352, 1, 9, 8, "plan"), (32, 4096, 2, 12, 4, "plan"),
+                          (64, 4096, 1, 9, 8, "plan"), (5, 4000, 2, 9, 8, "plan"), (65, 4160, 1, 9, 4, "plan"),
+                          (2, 4096, 1, 9, 8, "grid-global"), (5, 4000, 2, 12, 4, "grid-global"),
+                          (17, 4352, 1, 9, 1, "grid-global"), (65, 4160, 2, 9, 8, "grid-global")])
+def test_arena_tick_kernel_matches_plain_on_card(cuda_card, players, n, input_size, mp, rows_per_dispatch, regime):
     """K3's arena body (a whole-world reduction and a grid barrier before
-    every advance, a persistent grid looping over entity tiles) on a stream
-    with rollbacks, skipped and trailing saves, the throttle byte and
-    DISCONNECTED slots: his/los and the whole core equal
-    plain_tick_multi's after every dispatch, up to 153,600 entities."""
+    every advance, on a persistent grid of one block an SM with the states
+    on chip or, forced here on small worlds too, in global memory) on a
+    stream with rollbacks, skipped and trailing saves, the throttle byte and
+    DISCONNECTED slots: his/los and the whole core equal plain_tick_multi's
+    after every dispatch, up to 153,600 entities, for team counts a power of
+    two and not (5), past 16 and past 64 (one shared row of team sums), and
+    a world not a multiple of 128."""
     core = ResimCore(Arena(players, n, input_size), mp, players, device_verify=True, device="cuda")
+    force_tick_layout(core, regime)
     plain = {k: v.clone() for k, v in core.carry.items()}
     rows = np.concatenate([prime_row(core)[None],
                            random_tick_rows(core, mp + 2 + (4 if n > 65536 else 12), seed=n + players, mod=64)])
@@ -354,18 +374,70 @@ def test_arena_tick_kernel_matches_plain_on_card(cuda_card, players, n, input_si
             assert torch.equal(core.carry[k], plain[k]), (k, b)
     assert core.tick_core.launches == -(-len(rows) // rows_per_dispatch)
     assert (core.carry["state"][4] > 0).any()
+    if regime != "plan":
+        assert core.tick_core.plan.regime == regime
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("players,n,input_size,B,L", [(2, 4096, 1, 16, 11), (2, 65536, 1, 16, 11),
-                                                      (4, 4096, 2, 16, 14), (17, 4352, 1, 16, 11),
-                                                      (32, 4096, 2, 8, 14), (64, 4096, 1, 16, 11)])
-def test_arena_beam_kernel_matches_plain_on_card(cuda_card, players, n, input_size, B, L):
+@pytest.mark.parametrize("game_cls", [ExGame, Swarm, Arena])
+@pytest.mark.parametrize("stream", TICK_STREAMS, ids=[s[0] for s in TICK_STREAMS])
+def test_tick_kernel_matches_plain_on_crafted_streams_on_card(cuda_card, stream, game_cls):
+    """K3's parallel scalar pass on the crafted streams of
+    chip_smoke.TICK_STREAMS (loads of slots the same dispatch saved, frames
+    that go back, history keys reused, hits, mismatches with the earlier
+    latching, a latch carried in, verification off, skipped saves, zero-
+    advance rows; 1, 8 and 16 rows at W = 11 and 14), every body (arena
+    also with its states in global memory), the kernel's dispatches launched
+    back to back: his/los of every dispatch and the whole core at the end
+    equal plain_tick_multi's."""
+    name, players, mp, per, verify, latched, specs = stream
+    mod = {"ExGame": 16, "Arena": 64, "Swarm": 128}[game_cls.__name__]
+    for regime in ("plan", "grid-global") if game_cls is Arena else ("plan",):
+        core = ResimCore(game_cls(players, 4096), mp, players, device_verify=verify, device="cuda")
+        force_tick_layout(core, regime)
+        if latched:
+            core.carry["flag"].copy_(torch.tensor([1, 3], dtype=torch.int32))
+        plain = {k: v.clone() for k, v in core.carry.items()}
+        rows = tick_stream(core, specs, seed=len(name), mod=mod)
+        batches = [core.upload(rows[b : b + per]) for b in range(0, len(rows), per)]
+        outs = [core.tick_core.tick_multi(core.carry, batch) for batch in batches]
+        for batch, (his, los) in zip(batches, outs):
+            p_his, p_los = plain_tick_multi(plain, batch, core)
+            assert torch.equal(his, p_his) and torch.equal(los, p_los), regime
+        for k in core.carry:
+            assert torch.equal(core.carry[k], plain[k]), (regime, k)
+        if verify:
+            assert bool(core.carry["flag"][0])  # every stream mismatches somewhere
+        assert core.tick_core.launches == len(outs)
+
+
+def force_beam_layout(core, B, L, layout):
+    """K4-arena on `layout`: "plan" (what beam_plan picks), "global" (the
+    plan's group with the states read back from the trajectory)."""
+    if layout == "global":
+        ctx = core.ctx
+        plan = beam_plan(ctx.n, ctx.num_players, B, core.beam_rollout.max_steps, sms(), 0)
+        core.beam_rollout.prepare(build.load("beam_rollout"), B, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("players,n,input_size,B,L,layout", [
+    (2, 4096, 1, 16, 11, "plan"), (2, 65536, 1, 16, 11, "plan"), (4, 4096, 2, 16, 14, "plan"),
+    (17, 4352, 1, 16, 11, "plan"), (32, 4096, 2, 8, 14, "plan"), (64, 4096, 1, 16, 11, "plan"),
+    (5, 4000, 2, 16, 11, "plan"), (65, 4160, 1, 12, 11, "plan"), (4, 131072, 1, 16, 11, "plan"),
+    (2, 4096, 1, 16, 11, "global"), (5, 4000, 2, 16, 14, "global"), (17, 4352, 1, 3, 11, "global"),
+    (65, 4160, 2, 16, 11, "global"), (2, 2048, 1, 140, 4, "plan")])
+def test_arena_beam_kernel_matches_plain_on_card(cuda_card, players, n, input_size, B, L, layout):
     """K4's arena body (each member reduces its own world before every
-    step; a persistent grid over (member, tile) items, so 65536 x 16 runs
-    where the reference falls back to XLA) equals plain_rollout from
-    several ring slots, with 20% DISCONNECTED cells."""
+    step among its own blocks; 65536 x 16 runs where the reference falls
+    back to XLA) equals plain_rollout from several ring slots, with 20%
+    DISCONNECTED cells, its states on chip or read back from the
+    trajectory (131,072 entities a member, and forced on small worlds),
+    for team counts a power of two and not, past 16 and past 64, a world
+    not a multiple of 128, and more members than the grid holds at once
+    (140: a group serves two in turn)."""
     core = ResimCore(Arena(players, n, input_size), 12, players, device="cuda")
+    force_beam_layout(core, B, L, layout)
     core.tick_multi(np.concatenate([prime_row(core)[None], random_tick_rows(core, 20, seed=3, mod=64)]))
     rng = np.random.default_rng(n + B)
     for slot in (0, 3, 7):
@@ -380,6 +452,7 @@ def test_arena_beam_kernel_matches_plain_on_card(cuda_card, players, n, input_si
         for k, a, b in zip(spec._fields, spec, plain):
             assert torch.equal(a, b), (slot, k)
     assert core.beam_rollout.launches == 3
+    assert core.beam_rollout.plans[B].on_chip == (layout == "plan" and n <= 65536)
 
 
 @pytest.mark.cuda
