@@ -58,7 +58,9 @@ NVIDIA card (written for an H100). Run from the repository root:
    b16_4p_4096 (4 players, 16 x 14, with DISCONNECTED cells). A divergence
    probe corrupts the anchor slot: kernel and plain version still agree, and
    both differ from the clean speculation. Prints K4 ms (queued behind a spin
-   kernel), the plain ms and the bound.
+   kernel), the plain ms and the bound; after the timed launches (into the
+   scratch each left) one more must equal the plain version, and the
+   scratch must be zero.
 7. Drives the beam request path at b16_4096 and b12_65536:
    `SessionBuilder().start_synctest_session()` (check distance 8) ->
    `DeviceRollbackBackend(beam_width=B)` beside a beam-off twin over the same
@@ -80,15 +82,19 @@ NVIDIA card (written for an H100). Run from the repository root:
    next rollback loads: kernel and plain version latch the same frame.
    Then K5 (the reduction table) against its plain version over d+1
    sources and over the live state at 4096 and 65536, and the
-   injected-reduction route (K5 tables, K2 one tick per launch, the
-   verdict) against its plain twin on the card: ai_4096 (60 ticks) and
-   ai_65536 (30 ticks), both across frame d, with a divergence probe.
+   injected-reduction route (K5 tables at a batch's start and before frame
+   d, K2's one-launch tick: the tick, the next table and the verdict)
+   against its plain twin on the card: ai_4096 (60 ticks) and ai_65536 (30
+   ticks), both across frame d, with a divergence probe; then the tick
+   alone against plain_injected_tick over launches back to back, and its
+   time.
 9. Drives arena's main path: `DeviceSyncTestSession(Arena(2, N), 2, 8,
    backend="auto")` must pick K1 at 4096 and 65536, and
-   backend="cuda-tiled-injected" runs the injection route at both; the launch counts of K1, or of K2, K5
-   and the verdict, are set to 0 just before each run and must be above 0
-   after; the final carry must equal the plain version's and `check()` must
-   pass. Prints ms per batch (K1) or per tick (injection route) p50/p90
+   backend="cuda-tiled-injected" runs the injection route at both; the launch counts of K1, or of K2's
+   tick and K5, are set to 0 just before each run and must be above 0
+   after (the route: one tick launch a tick, K5 once a batch and at each
+   boot tick, no verdict launch); the final carry must equal the plain
+   version's and `check()` must pass. Prints ms per batch (K1) or per tick (injection route) p50/p90
    from CUDA events and rollback-frames/s.
 10. Holds arena's K3 body (a whole-world reduction and a grid barrier
    before every advance, on a grid of one block an SM) against
@@ -424,13 +430,15 @@ def events_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def queued_ms(torch, fn, reps: int) -> float:
+def queued_ms(torch, fn, reps: int, spin: int = 1_000_000) -> float:
     """Mean device ms of `fn` over `reps` launches queued behind a spin
     kernel: the host enqueues every launch while the card is still busy, so
     the launches run back to back with no host gap between them (a dispatch
-    shorter than its Python wrapper would otherwise time the wrapper)."""
+    shorter than its Python wrapper would otherwise time the wrapper).
+    `spin`: the spin kernel's cycles a call (~0.5 ms at the default), more
+    than the host takes to enqueue one."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(reps * 1_000_000)  # ~0.5 ms of spinning per launch to enqueue
+    torch.cuda._sleep(reps * spin)
     start.record()
     for _ in range(reps):
         fn()
@@ -531,6 +539,18 @@ def arena_bound(n, players, d, t_ticks, c0, reduces=True):
         reductions = steps if reduces else 0
     nbytes += 4 * t_ticks * players * 2
     ops = n * (steps * OPS_PER_ARENA_STEP + saves * OPS_PER_ARENA_SAVE + reductions * OPS_PER_ARENA_REDUCE)
+    return least(nbytes, ops)
+
+
+def injected_tick_bound(n, players, d, c0):
+    """Least ms of the injection route's one-launch tick with every save
+    stored: the T = 1 tick's bytes and ops (`arena_bound`, no reductions:
+    the table is an input), plus the table read and the next table written
+    ([d+1, 3P] each) and the next table's frontier row, 6 int32 ops an
+    entity."""
+    steps, saves = batch_work(n, d, 1, c0)
+    nbytes = 4 * 6 * n * (1 + saves + 1) + 4 * players * 2 + 2 * 4 * (d + 1) * 3 * players
+    ops = n * (steps * OPS_PER_ARENA_STEP + saves * OPS_PER_ARENA_SAVE + OPS_PER_ARENA_REDUCE)
     return least(nbytes, ops)
 
 
@@ -1244,8 +1264,16 @@ def beam_phase(torch, np, dev, tag, shapes=None, game_cls=None, mod=16, probe_pl
             plain_ms = events_ms(torch, lambda: plain_rollout(ring[slot], r_frame[slot], t_in, t_st,
                                                               core.ctx), 1)
             b_ms, b_by = beam_bound(n, width, steps, players, 1, suffix=suffix)
+            # after 2 * reps launches back to back, each into the scratch the one before left
+            again = br.rollout(ring, r_frame, slot, script)
+            want = plain_rollout(ring[slot], r_frame[slot], t_in, t_st, core.ctx)
+            torch.cuda.synchronize()
+            if spec_err(torch, again, want) or br._scratch.any():
+                fail(f"{key}: K4 after {2 * reps} launches back to back differs from plain_rollout or left its "
+                     f"scratch dirty")
             print(f"{key}: {name} {ms:.4f} ms per launch on the card ({b2b_ms:.4f} ms launched "
-                  f"back to back from Python) vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}) {tag}")
+                  f"back to back from Python) vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); "
+                  f"== plain_rollout after {2 * reps} launches back to back {tag}")
         out[key] = (err, ms, plain_ms, b2b_ms)
         del core, ring, r_frame
     return out
@@ -1420,23 +1448,16 @@ def beam_path_phase(torch, np, dev, tag, beam_errs, shapes=None, path_ticks=None
 
 
 class PlainTiled:
-    """Stands in for the injection route's K2 wrapper: the plain versions
-    (`plain_parts` on the injected table, `plain_verdict`) on the same
-    (CUDA) carry."""
+    """Stands in for the injection route's K2 wrapper: its tick's plain
+    version (`plain_injected_tick`) on the same (CUDA) carry."""
 
     def __init__(self, ctx):
         self.ctx = ctx
 
-    def run_kernel(self, carry, inputs, red_raw=None):
-        from ggrs_tpu_torch.device.tiled_core import plain_parts
+    def tick_injected(self, carry, inputs, red, nxt, later=0):
+        from ggrs_tpu_torch.device.tiled_core import plain_injected_tick
 
-        rows = [self.ctx.adapter.reduce_finalize(r) for r in red_raw]
-        return plain_parts(carry, inputs, self.ctx, red_of=lambda f, i: rows[i])
-
-    def verdict(self, carry, parts_hi, parts_lo):
-        from ggrs_tpu_torch.device.tiled_core import plain_verdict
-
-        plain_verdict(carry, parts_hi, parts_lo, self.ctx)
+        plain_injected_tick(carry, inputs, red, nxt, self.ctx)
 
 
 def plain_injected(ctx):
@@ -1605,15 +1626,16 @@ def library_reduce_ms(torch, carry, slots, players, reps):
 
 def reduce_and_injected_phase(torch, np, dev, tag):
     """K5 against plain_reduce_table, then the injection route against its
-    plain twin on the card, a divergence probe, and the K5 / K2 / verdict
-    times. Returns (twin final carries, scripts, entries keyed by name and shape)."""
+    plain twin on the card, a divergence probe, and the K5 time; then the
+    route's one-launch tick alone against its plain version over launches
+    back to back, and its time. Returns (twin final carries, scripts,
+    entries keyed by name and shape)."""
     from ggrs_tpu_torch import Arena
     from ggrs_tpu_torch.convert import CARRY_KEYS, copy_carry
     from ggrs_tpu_torch.device import sync_test
     from ggrs_tpu_torch.device.injected_core import InjectedReduceCore
     from ggrs_tpu_torch.device.planes import PlaneContext
     from ggrs_tpu_torch.device.reduce_core import STATE, plain_reduce_table, source_slots
-    from ggrs_tpu_torch.device.tiled_core import plain_parts
 
     rng = np.random.default_rng(3491)
     scripts = {key: rng.integers(0, 64, size=(ticks, p, 1), dtype=np.uint8)
@@ -1633,8 +1655,8 @@ def reduce_and_injected_phase(torch, np, dev, tag):
             err = max(err, carry_err(torch, kc, pc, CARRY_KEYS))
             if err:
                 fail(f"{key}: the injection route and its plain twin differ (max abs err {err})")
-        print(f"{key}: injection route (reduce_table + synctest_tiled_arena + verdict) == plain twin over "
-              f"{ticks} ticks across frame d={d} ({players} players, {n} entities) {tag}")
+        print(f"{key}: injection route (reduce_table + the one-launch synctest_tiled_arena tick) == plain twin "
+              f"over {ticks} ticks across frame d={d} ({players} players, {n} entities) {tag}")
         twin_final[key] = copy_carry(pc)
 
         # K5 alone, over the d+1 sources of the next tick and over the state,
@@ -1659,6 +1681,8 @@ def reduce_and_injected_phase(torch, np, dev, tag):
             b_ms, b_by = least(12 * n * S + 4 * S * 3 * players, n * S * OPS_PER_ARENA_REDUCE)
             print(f"{key}: reduce_table == plain over S={S} source(s); {ms:.4f} ms per launch on the card vs "
                   f"plain {plain_ms:.2f} ms, masked index_add_ {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}) {tag}")
+            if S == 1:  # the frontier row: no longer on the route (its tick sums it), parity only
+                continue
             entries[("reduce_table", key, S)] = {
                 "name": "reduce_table", "route": "cuda",
                 "source": "ggrs_tpu_torch/csrc/reduce_table.cu",
@@ -1687,44 +1711,49 @@ def reduce_and_injected_phase(torch, np, dev, tag):
         print(f"{key}: divergence probe (hp = 0 for {KILLED} entities): both latched frame {c - d + 1}")
         del probe
 
-        # K2 alone on one tick's table, and the verdict on its parts
-        timed = copy_carry(kc)
-        red = core.reduce.reduce_sources(timed, c)
+        # the one-launch tick alone, on alternating tables, launched back to
+        # back into the scratch the previous launch left, against its plain
+        # version after every launch; then timed (every save stored)
+        timed, ptimed = copy_carry(kc), copy_carry(kc)
+        tables = torch.zeros((2, d + 1, 3 * players), dtype=torch.int32, device=dev)
+        ptables = tables.clone()
+        core.reduce.reduce_sources(timed, c, out=tables[0])
+        ptables[0] = tables[0]
         one = inputs[:1]
-        ms = queued_ms(torch, lambda: core.tiled.run_kernel(timed, one, red_raw=red), TIMED_LAUNCHES)
-        b2b_ms = events_ms(torch, lambda: core.tiled.run_kernel(timed, one, red_raw=red), TIMED_LAUNCHES)
-        rows = [ctx.adapter.reduce_finalize(r) for r in red]
-        ptimed = copy_carry(timed)
-        plain_ms = events_ms(torch, lambda: plain_parts(ptimed, one, ctx, red_of=lambda f, i: rows[i]), 1)
-        b_ms, b_by = arena_bound(n, players, d, 1, c, reduces=False)
-        print(f"{key}: synctest_tiled (arena, injected table) {ms:.4f} ms per tick on the card ({b2b_ms:.4f} ms "
-              f"launched back to back from Python) vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}) {tag}")
+        twin_tiled = PlainTiled(ctx)
+        for k in range(4):
+            core.tiled.tick_injected(timed, one, tables[k % 2], tables[1 - k % 2])
+            twin_tiled.tick_injected(ptimed, one, ptables[k % 2], ptables[1 - k % 2])
+            torch.cuda.synchronize()
+            tick_err = max(carry_err(torch, timed, ptimed, CARRY_KEYS),
+                           carry_err(torch, {"t": tables}, {"t": ptables}, "t"))
+            if tick_err or core.tiled._tick_scratch.any():
+                fail(f"{key}: synctest_tiled_arena and plain_injected_tick differ at launch {k} (max abs err "
+                     f"{tick_err}) or left its scratch dirty")
+        c = int(timed["meta"][0])
+        red, nxt = tables[0], tables[1]
+        core.reduce.reduce_sources(timed, c, out=red)
+        nxt[d] = 0
+        ms = queued_ms(torch, lambda: core.tiled.tick_injected(timed, one, red, nxt), TIMED_LAUNCHES)
+        b2b_ms = events_ms(torch, lambda: core.tiled.tick_injected(timed, one, red, nxt), TIMED_LAUNCHES)
+        core.reduce.reduce_sources(ptimed, c, out=ptables[0])
+        plain_ms = events_ms(torch, lambda: twin_tiled.tick_injected(ptimed, one, ptables[0], ptables[1]), 1)
+        b_ms, b_by = injected_tick_bound(n, players, d, c)
+        print(f"{key}: synctest_tiled_arena == plain_injected_tick after each of 4 launches back to back; "
+              f"{ms:.4f} ms per tick on the card (the tick, the next table and the verdict; {b2b_ms:.4f} ms "
+              f"launched back to back from Python) vs plain {plain_ms:.1f} ms, bound {b_ms:.6f} ms ({b_by}) {tag}")
         entries[("synctest_tiled_arena", key)] = {
             "name": "synctest_tiled_arena", "route": "cuda",
             "source": "ggrs_tpu_torch/csrc/synctest_tiled.cu",
             "replaces": "ggrs_tpu/tpu/pallas_tiled.py:428",
-            "tpu_counterpart": "PallasTiledSyncTestCore._build, external_reduce",
-            "shape": f"Arena({players}, {n}), d={d}, T=1 on red_raw [d+1, {3 * players}]",
-            "max_abs_err": err, "bit_equal": err == 0,
+            "tpu_counterpart": "PallasTiledSyncTestCore._build, external_reduce, with _verdict (:468) and the "
+                              "frontier row (:666) of one ShardedPallasTiledCore tick",
+            "shape": f"Arena({players}, {n}), d={d}, T=1 on red [d+1, {3 * players}], the next table and the verdict",
+            "max_abs_err": max(err, tick_err), "bit_equal": max(err, tick_err) == 0,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "launches": 0, "ms_back_to_back": b2b_ms,
         }
-        parts = core.tiled.run_kernel(timed, one, red_raw=red)
-        vcarry, pcarry = copy_carry(timed), copy_carry(timed)
-        v_ms = queued_ms(torch, lambda: core.tiled.verdict(vcarry, *parts), TIMED_LAUNCHES)
-        v_plain_ms = events_ms(torch, lambda: PlainTiled(ctx).verdict(pcarry, *parts), 1)
-        v_b, v_by = verdict_bound(1, d, ctx.hist_len)
-        entries[("synctest_verdict", key)] = {
-            "name": "synctest_verdict", "route": "cuda",
-            "source": "ggrs_tpu_torch/csrc/synctest_tiled.cu",
-            "replaces": "ggrs_tpu/tpu/pallas_tiled.py:468",
-            "tpu_counterpart": "PallasTiledSyncTestCore._verdict, one tick of the injection route",
-            "shape": f"T=1, d={d} events",
-            "max_abs_err": err, "bit_equal": err == 0,
-            "ms": v_ms, "plain_ms": v_plain_ms, "bound_ms": v_b, "bound_by": v_by,
-            "library_ms": None, "launches": 0,
-        }
-        del timed, ptimed, vcarry, pcarry, dead, kc, pc
+        del timed, ptimed, tables, ptables, dead, kc, pc
     return twin_final, scripts, entries
 
 
@@ -1791,13 +1820,19 @@ def arena_main_path_phase(torch, np, dev, tag, fused_scripts, fused_final, injec
         sess = DeviceSyncTestSession(Arena(players, n), players, d, backend="cuda-tiled-injected", device=dev)
         core = sess.core
         core.tiled.launches = core.tiled.verdict_launches = core.reduce.launches = 0
+        batches = 0
         for start in range(0, ticks, INJECTED_BATCH):
             sess.advance_frames(injected_scripts[key][start:start + INJECTED_BATCH])
+            batches += 1
         sess.block_until_ready()
-        counts = {"synctest_tiled_arena": core.tiled.launches, "synctest_verdict": core.tiled.verdict_launches,
-                  "reduce_table": core.reduce.launches}
-        if min(counts.values()) < 1:
-            fail(f"{key}: the injection route launched no kernel of one kind: {counts}")
+        counts = {"synctest_tiled_arena": core.tiled.launches, "reduce_table": core.reduce.launches}
+        boot = min(d, INJECTED_BATCH - 1)  # ticks below frame d but a batch's last: K5 rebuilds the next table
+        if counts != {"synctest_tiled_arena": ticks, "reduce_table": batches + boot} or core.tiled.verdict_launches:
+            fail(f"{key}: the injection route launched {counts} and {core.tiled.verdict_launches} verdict kernels over "
+                 f"{ticks} ticks, expected one tick kernel a tick and K5 {batches + boot} times "
+                 f"({batches} batches + {boot} boot ticks)")
+        print(f"{key}: the injection route's launches over {ticks} ticks in {batches} batches: {counts}, "
+              f"no verdict launch: one kernel launch a tick past frame d, K5 once a batch and {boot} boot ticks")
         if carry_err(torch, sess.carry, injected_final[key], CARRY_KEYS):
             fail(f"{key}: the injection route's carry differs from the plain twin's")
         sess.check()
@@ -2206,7 +2241,7 @@ def swarm_request_path_phase(torch, np, dev, tag, tick_errs):
 
 def arena_teams_phase(torch, np, dev, tag):
     """Arena past 16 teams on the card: K1 with the cache (and its time) and
-    inline, the injection route (K5 + K2 + the verdict) and K5 alone, K3
+    inline, the injection route (K5 + K2's one-launch tick) and K5 alone, K3
     rows and K4 speculations, each against its plain version, with kill
     probes on K1 and the injection route; then the main path (auto -> K1)
     with its launch count. Returns K1's entries for the kernels line."""
@@ -2327,7 +2362,7 @@ def arena_teams_phase(torch, np, dev, tag):
             fail(f"{key}: the main path launched {launches} K1 kernels or ended apart from the plain version")
         sess.check()
         print(f"{key}: Arena({players}, {n}) past 16 teams: synctest_fused_arena (cached, inline), the injection "
-              f"route (reduce_table + synctest_tiled_arena + verdict), reduce_table, resim_tick_arena and "
+              f"route (reduce_table + the one-launch synctest_tiled_arena tick), reduce_table, resim_tick_arena and "
               f"beam_rollout_arena == plain, kill probes latched on both; main path auto -> K1, {launches} "
               f"launches, carry == plain; K1 {ms:.4f} ms/batch (T={t_ticks}) vs plain {plain_ms:.1f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}) {tag}")

@@ -14,37 +14,44 @@
 // input bytes; ex_game reads the first byte.
 //
 // Design (ex_game and swarm, one template over the model's traits,
-// exg::Model or swarm::Model; arena's body is below). The TPU kernel walks entity
-// tiles in order and carries the per-(member, step) partial checksums
-// across tiles in SMEM. Here blocks run
-// in parallel and in no order, so the grid is 2-D: blockIdx.x an entity
-// tile of 128, blockIdx.y a member. One thread owns one (entity, member):
-// it loads its anchor column once (ex_game: 5 planes, 20 B), steps it L times in
-// registers and, after each step, writes the column to traj[b, l] (each
-// plane a coalesced 512 B row per block). The member axis multiplies the
-// parallelism by B — at 4096 entities one thread per entity would leave
-// 32 blocks for 132 SMs — and each thread's serial chain is L steps, not
-// B·L. Each step's checksum terms are reduced in the block (warp shuffles,
-// one shared-memory row per step, all rows summed after ONE barrier) and
-// added to parts[b, l] with uint32 atomics, exact in any order. The
-// member-0 blocks add one more row, the anchor's terms. The LAST block to
-// finish (a done-counter ticket, as in resim_tick.cu) folds in the frame
-// terms (parts_hi + frame * frame_weight, parts_lo + frame): one launch per
-// speculation, no PyTorch epilogue.
+// exg::Model or swarm::Model; arena's body is below). The TPU kernel walks
+// entity tiles in order and carries the per-(member, step) partial
+// checksums across tiles in SMEM. Here blocks run in parallel and in no
+// order, so the grid is 2-D: blockIdx.x an entity tile of 128, blockIdx.y a
+// member. One thread owns one (entity, member): it loads its anchor column
+// once, steps it L times in registers and after each step writes the
+// column to traj[b, l] with streaming stores (each plane a coalesced 512 B
+// row per block; adoption reads back only part of the trajectory). The
+// member axis multiplies the parallelism by B — at 4096 entities one
+// thread per entity would leave 32 blocks for 132 SMs — and each thread's
+// serial chain is L steps, not B·L. Each step's checksum terms are summed
+// per warp by `redux.sync` (`__reduce_add_sync`), one shared-memory word
+// per (step, warp), all rows summed after ONE block barrier and added to
+// parts[b, l] with uint32 atomics, exact in any order. The member-0 blocks
+// add one more row, the anchor's terms. Each member has a ticket: the LAST
+// of its blocks folds the frame terms into the member's rows (parts_hi +
+// frame * frame_weight, parts_lo + frame; the anchor's row too for member
+// 0) and leaves them and the ticket zero, so the folds spread over the
+// members and the scratch is the core's, zeroed once: a speculation is one
+// launch with no memset and no PyTorch epilogue.
+//
+// Measured on an H100 (PERF.md, Findings): two or four members a thread (the
+// anchor load and the entity weights shared, the members' chains side by
+// side) ran 30% and 94% behind one at 4096 ex_game entities (swarm: 4%
+// ahead, 41% behind) and level and 4% behind at 65536, so a thread steps
+// one member; plain stores instead of streaming ones ran 9% behind at 65536
+// and level at 4096; fencing only the threads that added to parts, not
+// every thread with its trajectory stores in flight, gains 0.5-3%.
 //
 // What bounds it on an H100: per entity the anchor is read once (20 B) and
 // B·L trajectory columns written (20 B each): 14.5 MB at 4096 entities and
 // B·L = 16·11, 0.0043 ms at 3.35 TB/s; its int32 work is 69 ops per step
 // and 15 per checksum, B·L·84 per entity, 0.0036 ms on 16.7 Tops/s. At
-// 4096 entities the grid is 512 blocks of 128 and each thread's chain of
-// L dependent steps sets the time (latency, as for resim_tick at that
-// size); at 65536 entities (B = 12) the 173 MB of trajectory writes should
-// set it. Swarm's columns are 28 B (7 planes), its step 49 ops and its
-// checksum 21: bytes bound it at 4096 as well.
-//
-// Left for later: several members per thread (the anchor load and the
-// entity weights amortised); streaming stores that bypass L2 for the
-// trajectory, which the adoption reads back only in part.
+// 4096 entities each thread's chain of L dependent steps and the launch's
+// fixed costs (the ticket, the fold) set the time; at 65536 entities (B =
+// 12) the 173 MB of trajectory writes should. Swarm's columns are 28 B (7
+// planes), its step 49 ops and its checksum 21: bytes bound it at 4096 as
+// well.
 #include <cuda_runtime.h>
 
 #include "arena_reduce.cuh"
@@ -63,12 +70,21 @@ struct BeamArgs {
   const int* script;        // [B, L, P, 1 + I]
   int* traj;                // [B, L, K, n] out
   int* out;                 // [2*B*L + 3] out: his[B*L], los[B*L], a_hi, a_lo, frame
-  uint32_t* parts_hi;       // [B*L + 1] zeroed before launch; the anchor's row last
+  uint32_t* parts_hi;       // [B*L + 1], the anchor's row last: zero on entry, left zero
   uint32_t* parts_lo;       // [B*L + 1]
-  uint32_t* done;           // last-block ticket, zeroed before launch
+  uint32_t* done;           // [B] the members' tickets: zero on entry, left zero
   int n, num_players, input_size, beam, steps, substeps, disconnect_input;
   Weights cw;
 };
+
+// a column into planes [K, n] with streaming stores (evict first)
+template <class M>
+__device__ __forceinline__ void store_streaming(int* p, size_t n, size_t e, const typename M::State& s) {
+  int col[M::kPlanes];
+  M::store(col, 1, 0, s);
+#pragma unroll
+  for (int k = 0; k < M::kPlanes; ++k) __stcs(p + k * n + e, col[k]);
+}
 
 template <class M>
 __global__ void __launch_bounds__(kBlock) beam_rollout_kernel(BeamArgs<typename M::Weights> a) {
@@ -93,17 +109,21 @@ __global__ void __launch_bounds__(kBlock) beam_rollout_kernel(BeamArgs<typename 
   M::entity_weights(a.cw, (uint32_t)e, ew);
   typename M::State s = active ? M::load(a.anchor, n, e) : typename M::State{};
   const int owner = e % P;
+  // a warp's sums of one row's checksum terms (row L: the anchor's)
+  auto put = [&](int row, uint32_t hi, uint32_t lo) {
+    hi = __reduce_add_sync(0xFFFFFFFFu, hi);
+    lo = __reduce_add_sync(0xFFFFFFFFu, lo);
+    if (lane == 0) {
+      red[row * kWarps + warp] = hi;
+      red[(L + 1 + row) * kWarps + warp] = lo;
+    }
+  };
 
   const bool anchor_row = b == 0;
   if (anchor_row) {
     uint32_t hi = 0, lo = 0;
     if (active) M::checksum_terms(s, ew, hi, lo);
-    hi = warp_sum(hi);
-    lo = warp_sum(lo);
-    if (lane == 0) {
-      red[L * kWarps + warp] = hi;
-      red[(L + 1 + L) * kWarps + warp] = lo;
-    }
+    put(L, hi, lo);
   }
   __syncthreads();  // the staged script
 
@@ -112,20 +132,16 @@ __global__ void __launch_bounds__(kBlock) beam_rollout_kernel(BeamArgs<typename 
     uint32_t hi = 0, lo = 0;
     if (active) {
       M::step(s, inp[l * P + owner], a.substeps);
-      M::store(traj_b + (size_t)l * slot_stride, n, e, s);
+      store_streaming<M>(traj_b + (size_t)l * slot_stride, n, e, s);
       M::checksum_terms(s, ew, hi, lo);
     }
-    hi = warp_sum(hi);
-    lo = warp_sum(lo);
-    if (lane == 0) {
-      red[l * kWarps + warp] = hi;
-      red[(L + 1 + l) * kWarps + warp] = lo;
-    }
+    put(l, hi, lo);
   }
   __syncthreads();
   const int rows = L + (anchor_row ? 1 : 0);
   for (int j = threadIdx.x; j < rows; j += kBlock) {
     uint32_t hi = 0, lo = 0;
+#pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       hi += red[j * kWarps + w];
       lo += red[(L + 1 + j) * kWarps + w];
@@ -135,24 +151,30 @@ __global__ void __launch_bounds__(kBlock) beam_rollout_kernel(BeamArgs<typename 
     atomicAdd(&a.parts_lo[k], lo);
   }
 
-  // last-block-done: every thread fences its own parts atomics, then one
-  // ticket per block; the block that draws the last ticket sees all parts
+  // member b's ticket: the threads that added to parts fence their atomics
+  // (only they: a fence in every thread would wait for its trajectory
+  // stores to drain), then one ticket a block; the block that draws the
+  // member's last sees its parts
   __shared__ bool is_last;
-  __threadfence();
+  if ((int)threadIdx.x < rows) __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(a.done, 1u) == gridDim.x * gridDim.y - 1;
+  if (threadIdx.x == 0) is_last = atomicAdd(&a.done[b], 1u) == gridDim.x - 1;
   __syncthreads();
   if (!is_last) return;
-  __threadfence();
-  // finish (pallas_beam.py:268): fold the frame terms, once per member x step
+  if ((int)threadIdx.x < rows) __threadfence();
+  // finish (pallas_beam.py:268): fold the frame terms into member b's rows
+  // (and the anchor's), and leave them and the ticket zero
   const int frame = *a.anchor_frame;
   const int bl = a.beam * L;
-  for (int k = threadIdx.x; k <= bl; k += kBlock) {
+  for (int j = threadIdx.x; j < rows; j += kBlock) {
+    const size_t k = j < L ? (size_t)b * L + j : (size_t)bl;
     // parts were summed with atomics in L2: read them there
-    const uint32_t f = k < bl ? (uint32_t)(frame + 1 + k % L) : (uint32_t)frame;
+    const uint32_t f = j < L ? (uint32_t)(frame + 1 + j) : (uint32_t)frame;
     const uint32_t hi = __ldcg(&a.parts_hi[k]) + f * a.cw.frame_weight;
     const uint32_t lo = __ldcg(&a.parts_lo[k]) + f;
-    if (k < bl) {
+    a.parts_hi[k] = 0;
+    a.parts_lo[k] = 0;
+    if (j < L) {
       a.out[k] = (int)hi;
       a.out[bl + k] = (int)lo;
     } else {
@@ -161,6 +183,7 @@ __global__ void __launch_bounds__(kBlock) beam_rollout_kernel(BeamArgs<typename 
       a.out[2 * bl + 2] = frame;
     }
   }
+  if (threadIdx.x == 0) a.done[b] = 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -417,16 +440,13 @@ const void* kernel_of(int on_chip) {
 
 namespace {
 
-// The rollout of a model with no reduction. Returns the CUDA error of the
-// scratch reset, the shared-memory attribute or the launch (0 on success).
+// The rollout of a model with no reduction: one launch. Returns the CUDA
+// error of the shared-memory attribute or the launch (0 on success).
 template <class M>
 int launch_beam(const int* ring, int anchor_slot, const int* r_frame, const int* script, int* traj,
                 int* out, uint32_t* scratch, int n, int num_players, int input_size, int beam, int steps,
                 int substeps, const int* disconnect_row, const int* cs, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t rows = (size_t)beam * steps + 1;
-  cudaError_t err = cudaMemsetAsync(scratch, 0, (2 * rows + 1) * sizeof(uint32_t), st);
-  if (err != cudaSuccess) return (int)err;
   BeamArgs<typename M::Weights> a;
   a.anchor = ring + (size_t)anchor_slot * M::kPlanes * (size_t)n;
   a.anchor_frame = r_frame + anchor_slot;
@@ -446,19 +466,20 @@ int launch_beam(const int* ring, int anchor_slot, const int* r_frame, const int*
   a.cw = weights_from<typename M::Weights, M::kPlanes>(cs);
   const size_t smem = ((size_t)steps * num_players + 2 * ((size_t)steps + 1) * kWarps) * sizeof(int);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(beam_rollout_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(beam_rollout_kernel<M>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((n + kBlock - 1) / kBlock, beam);
-  beam_rollout_kernel<M><<<grid, kBlock, smem, st>>>(a);
+  beam_rollout_kernel<M><<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // ring: [slots, K, n]; r_frame: [slots]; scratch: parts_hi [B*L+1],
-// parts_lo [B*L+1], done [1]. disconnect_row: the game's disconnect input, I
+// parts_lo [B*L+1], the members' tickets [B]: zero before the core's first
+// launch, and every launch leaves it so. disconnect_row: the game's disconnect input, I
 // ints in host memory.
 // ex_game. cs: 11 int32 — checksum w[5], base[5], frame weight.
 extern "C" int beam_rollout_launch(const int* ring, int anchor_slot, const int* r_frame,

@@ -27,12 +27,8 @@
 // hidden by the other warps.
 //
 // Arena runs here in the reference's external_reduce mode
-// (pallas_tiled.py:66-106, red_for :285): ONE tick per launch, with the
-// complete raw reduction table red_raw [d+1, 3P] as an input (row i: the
-// resim step of frame base+i; row d: the frontier step), built by K5
-// (reduce_table.cu) from the ring slots and the live state. Each block
-// finalizes the table into shared memory (scalar work for (d+1) x P teams)
-// before its entities step, so blocks stay independent.
+// (pallas_tiled.py:66-106, red_for :285) on a body of its own, one launch a
+// tick of the injection route: see namespace injected_arena below.
 //
 // Arena also runs here as the reference's unsharded whole-world tile
 // (pallas_tiled.py:94-130: external_reduce off, `red_for` None at :285-293,
@@ -70,37 +66,177 @@ __global__ void __launch_bounds__(kBlock) synctest_tiled_kernel(SyncTestArgs<typ
   synctest_entity_batch<M>(a, smem, st);
 }
 
-// arena's step from the injected table: the resim step i (and the frontier
-// step, i = d) reads finalized row i
-struct ArenaTableStepper {
-  const arena::Team* fin;  // shared: [(d+1) * P]
-  int num_players, input_size, team, enemy;
+// ---------------------------------------------------------------------------
+// Arena on an injected reduction table: ONE launch a tick of the injection
+// route (device/injected_core.py), the reference's ShardedPallasTiledCore
+// tick (pallas_tiled.py:870-895) on one device, where its psum is the
+// identity. The launch does what that tick does, in its order:
+//
+//  - the tick on the table red [d+1, 3P] (row i: the raw sums the resim
+//    step of frame base+i reduces from; row d: the frontier step's): load
+//    slot c-d, d resim steps with their re-saves, the frontier save and
+//    step, a thread an entity;
+//  - the NEXT tick's table (`roll`, :858-867): rows 1..d of this one moved
+//    up into next, and next's row d the raw sums of the new live state.
+//    Each block sums its entities' final states by team at O(1) an entity
+//    (arena::warp_team_add) and adds its sums to next's row d with uint32
+//    atomics; the caller leaves that row zero (the last block zeroes red's
+//    row d, and the caller alternates the two tables). Before frame d the
+//    caller rebuilds the next table in full with K5 instead (the
+//    reference's boot branch) and this row goes unused;
+//  - the verdict (`_verdict`, :468), in the LAST block by ticket:
+//    `synctest_verdict` of synctest_body.cuh, as K1's tail runs it; it then
+//    leaves parts and the ticket zero. Block 0 brings the ring-frame tags
+//    and the input ring up to date in place as it starts
+//    (synctest_bookkeeping_block): no block reads the tags, and slot
+//    c % (d+2) of the input ring, the one it writes, holds frame c-d-2,
+//    which no step of this tick reads.
+//
+// So a tick is one launch with no memset, no PyTorch copy and no K5 call.
+// Each block finalizes the whole table into shared memory (the steps read
+// any row), so the blocks stay independent until the ticket. A save that
+// a later tick of the same batch makes again before anything reads it
+// (`later` ticks follow this one) skips its ring store, as K2's inline
+// route does: the ring between two launches of one batch is read only by
+// the rollback loads, and the batch ends with every frame's last save
+// stored. Before frame d every save is stored: K5 reads the ring then.
+//
+// What bounds it on an H100: latency at every size the port runs: each
+// thread's chain of d+1 dependent arena steps (64 int32 ops each, 18 a
+// save), then the block sums, the ticket and the serial tail (bookkeeping
+// and verdict, one block). At 65536 entities a tick that stores every
+// save writes d ring columns of 24 B an entity (12.6 MB at d = 8).
+namespace injected_arena {
 
-  __device__ __forceinline__ void seed(const arena::State&, bool) {}
-  __device__ __forceinline__ void step(arena::State& s, bool, const int* in, int, int i) {
-    const int P = num_players;
-    arena::step(s, in[0], arena::throttle_of(in, input_size), fin[i * P + team], fin[i * P + enemy]);
-  }
-  __device__ __forceinline__ void frontier_done(const arena::State&, bool, int, int) {}
+constexpr int kThreads = 128;  // a block's entities
+
+struct Args {
+  int* state;         // [6, n] live world, in place
+  int* ring;          // [d+2, 6, n] in place
+  int* r_frame;       // [d+2] in place
+  int* iring;         // [d+2, P, I] in place
+  const int* inputs;  // [P, I] this tick's
+  int* meta;          // [3] (c, mismatch, mismatch frame), in place
+  int* h_tag;         // [d+2] the first-seen history, in place
+  int* h_hi;
+  int* h_lo;
+  int* red;         // [d+1, 3P] this tick's raw table; its row d is left zero
+  int* next;        // [d+1, 3P] the next tick's: rows 0..d-1 written, row d summed into (zero on entry)
+  uint32_t* parts;  // [2, d] the events' (hi, lo) sums: zero on entry, left zero
+  uint32_t* done;   // the last-block ticket: zero on entry, left zero
+  int n, num_players, input_size, d, later;
+  arena::Weights cw;
 };
 
-__global__ void __launch_bounds__(kBlock) synctest_tiled_arena_kernel(
-    SyncTestArgs<arena::Weights> a, int* r_frame, int* iring_out, const int* red_raw) {
-  extern __shared__ uint32_t smem[];
-  if (blockIdx.x == 0 && threadIdx.x == 0)
-    synctest_bookkeeping(r_frame, a.iring, iring_out, a.inputs, a.meta[0], a.t_ticks, a.d,
-                         a.num_players * a.input_size);
-  const int P = a.num_players;
-  arena::Team* fin = reinterpret_cast<arena::Team*>(smem + body_smem_words(a.d));
-  for (int k = threadIdx.x; k < (a.d + 1) * P; k += kBlock) {
-    const int* r = red_raw + (size_t)(k / P) * 3 * P + 3 * (k % P);
-    fin[k] = arena::finalize(r[0], r[1], r[2]);
-  }
-  __syncthreads();
-  const int e = blockIdx.x * kBlock + threadIdx.x;
-  ArenaTableStepper st{fin, P, a.input_size, e % P, (e % P + 1) % P};
-  synctest_entity_batch<arena::Model>(a, smem, st);
+// dynamic shared memory, in words: finalized table [(d+1) P] Teams, each
+// warp's event sums [2][d][warps], team rows [nrows][3P], the verdict's
+__host__ __device__ inline size_t tick_smem_words(int d, int P, int warps) {
+  const int nrows = P <= arena::kRowTeams ? warps : 1;
+  return 3 * (size_t)(d + 1) * P + 2 * (size_t)d * warps + (size_t)nrows * 3 * P + verdict_smem_words(d);
 }
+
+__global__ void __launch_bounds__(kThreads) tick_kernel(Args a) {
+  extern __shared__ uint32_t smem[];
+  const int d = a.d, P = a.num_players, I = a.input_size, row = P * I, ring_len = d + 2, words = 3 * P;
+  const int bd = blockDim.x, warps = bd / 32, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool own_row = P <= arena::kRowTeams;
+  const int nrows = own_row ? warps : 1;
+  arena::Team* fin = reinterpret_cast<arena::Team*>(smem);
+  uint32_t* ev = smem + 3 * (d + 1) * P;
+  uint32_t* rows = ev + 2 * d * warps;
+  int* vsh = reinterpret_cast<int*>(rows + nrows * words);
+  const int c0 = a.meta[0];
+  const int c_last = c0 + a.later;
+
+  const int e = blockIdx.x * bd + threadIdx.x;
+  const bool active = e < a.n;
+  const int team = e % P, enemy = team + 1 == P ? 0 : team + 1;
+  const size_t n = (size_t)a.n, slot_stride = (size_t)arena::kPlanes * n;
+  arena::State s{};  // its load in flight while the block finalizes the table
+  if (active) s = arena::load(c0 > d ? a.ring + (size_t)((c0 - d) % ring_len) * slot_stride : a.state, n, e);
+  uint32_t ew[arena::kPlanes];
+  arena::entity_weights(a.cw, (uint32_t)e, ew);
+
+  for (int j = threadIdx.x; j < nrows * words; j += bd) rows[j] = 0;
+  // the next table's rows 0..d-1: this one's rows 1..d, spread over the grid
+  for (int k = blockIdx.x * bd + threadIdx.x; k < d * words; k += gridDim.x * bd) a.next[k] = a.red[words + k];
+  for (int k = threadIdx.x; k < (d + 1) * P; k += bd) {
+    const int* r = a.red + (size_t)(k / P) * words + 3 * (k % P);
+    fin[k] = inline_arena::finalize_sums((uint32_t)r[0], (uint32_t)r[1], (uint32_t)r[2]);
+  }
+  if (blockIdx.x == 0) synctest_bookkeeping_block(a.r_frame, a.iring, a.inputs, c0, 1, d, row);
+  __syncthreads();  // fin and the zeroed rows
+
+  // frame f's inputs: this tick's for f = c, else the input ring (frames c-d-2..c-1)
+  auto step = [&](int f, int i) {
+    const int* own = (f >= c0 ? a.inputs : a.iring + (size_t)(f % ring_len) * row) + team * I;
+    arena::step(s, own[0], arena::throttle_of(own, I), fin[i * P + team], fin[i * P + enemy]);
+  };
+  // the save of frame f as event j: into the ring unless a later tick of
+  // the batch saves f again before anything reads it; its terms per warp
+  auto save = [&](int f, int j) {
+    uint32_t hi = 0, lo = 0;
+    if (active) {
+      if (c0 <= d || min(f + d - 1, c_last) <= c0) arena::store(a.ring + (size_t)(f % ring_len) * slot_stride, n, e, s);
+      arena::checksum_terms(s, ew, hi, lo);
+    }
+    hi = __reduce_add_sync(0xFFFFFFFFu, hi);
+    lo = __reduce_add_sync(0xFFFFFFFFu, lo);
+    if (lane == 0) {
+      ev[j * warps + warp] = hi;
+      ev[(d + j) * warps + warp] = lo;
+    }
+  };
+
+  if (c0 > d) {  // forced rollback
+    const int base = c0 - d;
+    for (int i = 0; i < d; ++i) {
+      if (i > 0) save(base + i, i - 1);
+      if (active) step(base + i, i);
+    }
+  }
+  save(c0, d - 1);
+  uint32_t one = 0, sx = 0, sy = 0;
+  if (active) {
+    step(c0, d);
+    arena::store(a.state, n, e, s);
+    arena::team_terms(s, one, sx, sy);
+  }
+  arena::warp_team_add(one, sx, sy, team, P, true, rows, own_row);
+  __syncthreads();  // the event sums and team rows are in
+
+  // the block's event sums into parts, its team sums into next's row d
+  uint32_t* next_row = reinterpret_cast<uint32_t*>(a.next) + (size_t)d * words;
+  for (int k = threadIdx.x; k < 2 * d + words; k += bd) {
+    uint32_t v = 0;
+    if (k < 2 * d) {
+      const int j = k % d;
+      if (j < d - 1 && c0 <= d) continue;  // no rollback: the re-saves did not happen
+      for (int w = 0; w < warps; ++w) v += ev[k * warps + w];
+      if (v) atomicAdd(a.parts + k, v);
+    } else {
+      v = arena::warp_rows_sum(rows, nrows, words, k - 2 * d);
+      if (v) atomicAdd(next_row + (k - 2 * d), v);
+    }
+  }
+
+  // last-block-done: every thread fences its own atomics, then one ticket
+  // a block; the block that draws the last ticket sees every block's parts
+  __shared__ bool is_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(a.done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  synctest_verdict(a.parts, a.parts + d, 1, d, a.cw.frame_weight, a.h_tag, a.h_hi, a.h_lo, a.meta, vsh);
+  __syncthreads();  // the verdict's reads of parts are done
+  for (int k = threadIdx.x; k < 2 * d; k += bd) a.parts[k] = 0;
+  for (int k = threadIdx.x; k < words; k += bd) a.red[(size_t)d * words + k] = 0;  // every block has read it
+  if (threadIdx.x == 0) *a.done = 0;
+}
+
+}  // namespace injected_arena
 
 // ---------------------------------------------------------------------------
 // K2's inline whole-world arena route: one body on a persistent cooperative
@@ -363,28 +499,26 @@ extern "C" int synctest_tiled_swarm_launch(int* state, int* ring, int* r_frame, 
                                     num_players, input_size, d, t_ticks, 1, cs, stream);
 }
 
-// Arena, one tick (t_ticks must be 1) on the injected red_raw [d+1, 3P].
-// cs: 13 int32 — checksum w[6], base[6], frame weight.
-extern "C" int synctest_tiled_arena_launch(int* state, int* ring, int* r_frame, const int* iring,
-                                           int* iring_out, const int* meta, const int* inputs,
-                                           const int* red_raw, uint32_t* parts, int n,
-                                           int num_players, int input_size, int d, int t_ticks,
-                                           const int* cs, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t events = (size_t)t_ticks * d;
-  cudaError_t err = cudaMemsetAsync(parts, 0, 2 * events * sizeof(uint32_t), st);
-  if (err != cudaSuccess) return (int)err;
-  SyncTestArgs<arena::Weights> a{state, ring, iring, inputs, meta, parts, parts + events,
-                                 n, num_players, input_size, d, t_ticks, 1,
-                                 weights_from<arena::Weights, arena::kPlanes>(cs)};
-  const int blocks = (n + kBlock - 1) / kBlock;
-  const size_t smem = (body_smem_words(d) + 3 * (size_t)(d + 1) * num_players) * sizeof(uint32_t);
+// Arena, one tick of the injection route on the table red [d+1, 3P], the
+// next table into next and the verdict, in one launch. scratch: parts [2d]
+// then the ticket, zero before the core's first launch and left zero by
+// each; next's row d zero on entry; red's row d is left zero. later: the
+// ticks of the same batch after this one. Returns the CUDA error of the
+// launch (0 on success). cs: 13 int32 — checksum w[6], base[6], frame weight.
+extern "C" int synctest_tiled_arena_launch(int* state, int* ring, int* r_frame, int* iring, int* meta,
+                                                    const int* inputs, int* h_tag, int* h_hi, int* h_lo, int* red,
+                                                    int* next, uint32_t* scratch, int n, int num_players,
+                                                    int input_size, int d, int later, const int* cs,
+                                                    void* stream) {
+  using namespace injected_arena;
+  const Args a{state, ring, r_frame, iring, inputs, meta, h_tag, h_hi, h_lo, red, next, scratch, scratch + 2 * d,
+               n, num_players, input_size, d, later, weights_from<arena::Weights, arena::kPlanes>(cs)};
+  const size_t smem = tick_smem_words(d, num_players, kThreads / 32) * sizeof(uint32_t);
   if (smem > 48 * 1024) {  // many teams: the finalized table outgrows the default
-    err = cudaFuncSetAttribute(synctest_tiled_arena_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(tick_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  synctest_tiled_arena_kernel<<<blocks, kBlock, smem, st>>>(a, r_frame, iring_out, red_raw);
+  tick_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -136,9 +136,17 @@ class BeamRollout:
         self.max_steps = max_steps  # the deepest rollout a caller may ask for
         self.launches = 0
         self.plans = {}  # arena's BeamPlan by beam width, made at its first launch
-        # arena's scratch (counters, ticket, parts, raw rows) of `_words`
-        # words: zero when made, and every launch leaves it zero
+        # the kernel's scratch of `_words` words (parts, the ticket, and for
+        # arena the members' counters and raw rows): zero when made, and
+        # every launch leaves it zero
         self._scratch, self._words = None, 0
+
+    def _zeroed(self, words: int, device) -> torch.Tensor:
+        """The scratch, at least `words` words, zero: made again (zeroed)
+        only when it must grow."""
+        if words > self._words:
+            self._scratch, self._words = torch.zeros(words, dtype=torch.int32, device=device), words
+        return self._scratch
 
     def plan(self, lib, beam: int) -> BeamPlan:
         """Arena's plan for `beam` members, made at the first launch of that
@@ -218,11 +226,9 @@ class BeamRollout:
             plan = self.plan(lib, B)
             # the members' arrival counters [B] (u64), the ticket, parts_hi and
             # parts_lo [B*L + 1] (the anchor's row last), the members' raw rows [B, L, R]
-            words = 2 * B + 1 + 2 * (B * L + 1) + B * L * ctx.reduce_len
-            if words > self._words:
-                self._scratch, self._words = torch.zeros(words, dtype=torch.int32, device=device), words
+            scratch = self._zeroed(2 * B + 1 + 2 * (B * L + 1) + B * L * ctx.reduce_len, device)
             fn = launch.declare(lib, entry.symbol, [Pt, It] + [Pt] * 5 + [It] * 11 + [Pt] * 3)
-            rc = fn(*ptrs, self._scratch.data_ptr(), n, P, I, B, L, int(plan.on_chip), plan.group,
+            rc = fn(*ptrs, scratch.data_ptr(), n, P, I, B, L, int(plan.on_chip), plan.group,
                     plan.group * plan.members, plan.threads, plan.per_block, plan.smem_bytes, disconnect,
                     launch.weights_arg(ctx), launch.stream_of(device))
             launch.raise_on(rc, self.kernel)
@@ -230,8 +236,8 @@ class BeamRollout:
             extra = launch.model_ints(entry, ctx)
             fn = launch.declare(lib, entry.symbol, [Pt, It] + [Pt] * 5 + [It] * (5 + len(extra)) + [Pt] * 3)
             # parts_hi [B*L + 1], parts_lo [B*L + 1] (the anchor's row last)
-            # and the last-block ticket
-            scratch = torch.empty(2 * (B * L + 1) + 1, dtype=torch.int32, device=device)
+            # and the members' tickets [B]
+            scratch = self._zeroed(2 * (B * L + 1) + B, device)
             rc = fn(*ptrs, scratch.data_ptr(), n, P, I, B, L, *extra, disconnect, launch.weights_arg(ctx),
                     launch.stream_of(device))
             launch.raise_on(rc, self.kernel)

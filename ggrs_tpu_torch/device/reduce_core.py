@@ -7,7 +7,8 @@ int32 `[S, R]` tables of the adapter's `reduce_partial` sums (arena: per
 team, the living count, Σ px>>6 and Σ py>>6) over S plane sources in one
 launch (`csrc/reduce_table.cu`), which overwrites its output and leaves
 the core's scratch (partial rows and tickets, zeroed once) zero. They feed
-K2's injected-reduction route (`injected_core`).
+the injected-reduction route (`injected_core`): its full tables, at the
+start of every batch and before frame d.
 
 A source is a ring slot or the live state; the kernel takes their slot
 indices (-1 for the state) as a small device array, so a table over d
@@ -108,12 +109,12 @@ class ReduceTableCore:
         """Raw `[S, R]` sums over stacked sources `[S, n_planes, N]`."""
         return self.gather(sources, sources[0], tuple(range(sources.shape[0])))
 
-    def reduce_sources(self, carry, frame: int) -> torch.Tensor:
+    def reduce_sources(self, carry, frame: int, out: torch.Tensor = None) -> torch.Tensor:
         """The `[d+1, R]` table of one tick at carry frame `frame`
         (pallas_tiled.py:642-664): rows 0..d-1 from the ring slots of the
-        resim frames, row d from the live state."""
+        resim frames, row d from the live state; into `out` when given."""
         ctx = self.ctx
-        return self.gather(carry["ring"], carry["state"], source_slots(frame, ctx.d, ctx.ring_len))
+        return self.gather(carry["ring"], carry["state"], source_slots(frame, ctx.d, ctx.ring_len), out)
 
     def frontier(self, carry, out: torch.Tensor = None) -> torch.Tensor:
         """The live state's `[1, R]` row (pallas_tiled.py:666-674)."""

@@ -29,11 +29,13 @@ reference's two modes:
   `inline_plan` picks from the world and the card, with a grid barrier
   per step; nothing else selects it. Its plain version is
   `plain_parts` with `red_of` None, what `plain_scan` runs;
-- `external_reduce`: one tick per launch, with the complete raw reduction
-  table `red_raw [d+1, R]` handed in (row i for the resim step of frame
-  base+i, row d for the frontier step), which the caller builds with K5
-  (`injected_core`). Each block finalizes the table itself, so the entity
-  tiles stay independent.
+- `external_reduce`: one tick per launch (`tick_injected`), with the
+  complete raw reduction table `red [d+1, R]` handed in (row i for the
+  resim step of frame base+i, row d for the frontier step); the same
+  launch writes the next tick's table and runs the verdict in its last
+  block. The caller (`injected_core`) keeps the two tables and builds a
+  full one with K5 where the route rebuilds; its plain version is
+  `plain_injected_tick`.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from ..errors import ConfigError
 from ..kernels import build, launch
 from ..ops import fixed_point as fx
 from .planes import PlaneContext, partial_checksum_planes
+from .reduce_core import plain_reduce_table
 
 # K2's inline arena route (csrc/synctest_tiled.cu, namespace inline_arena)
 INLINE_THREADS = 1024  # kThreads: a block's most (one such block an SM)
@@ -195,7 +198,24 @@ def plain_verdict(carry, parts_hi: torch.Tensor, parts_lo: torch.Tensor, ctx: Pl
     put("meta", [c0 + len(ph), mismatch, mismatch_frame])
 
 
-def check_injected(ctx: PlaneContext, inputs: torch.Tensor, red_raw) -> None:
+def plain_injected_tick(carry, inputs: torch.Tensor, red: torch.Tensor, nxt: torch.Tensor,
+                        ctx: PlaneContext) -> None:
+    """One tick of the injection route in place, what `tick_injected`
+    launches: the tick on the raw table `red` [d+1, R] (`plain_parts` on
+    its finalized rows), its verdict (`plain_verdict`), and the next tick's
+    table into `nxt`: rows 1..d of `red`, then K5's frontier row, the raw
+    sums of the new live state (the reference's `roll`, pallas_tiled.py:
+    858-867). `red`'s row d is left zero, as the kernel leaves it."""
+    rows = [ctx.adapter.reduce_finalize(r) for r in red]
+    parts_hi, parts_lo = plain_parts(carry, inputs, ctx, red_of=lambda f, i: rows[i])
+    plain_verdict(carry, parts_hi, parts_lo, ctx)
+    d = ctx.d
+    nxt[:d] = red[1:]
+    nxt[d] = plain_reduce_table(carry["state"][None], ctx)[0]
+    red[d] = 0
+
+
+def check_injected(ctx: PlaneContext, inputs: torch.Tensor, red: torch.Tensor, nxt: torch.Tensor) -> None:
     """A reduction game runs K2 one tick at a time on an injected table (the
     reference asserts the same, pallas_tiled.py:204-209): tick t+1's
     frontier reduction does not exist when tick t launches."""
@@ -203,13 +223,18 @@ def check_injected(ctx: PlaneContext, inputs: torch.Tensor, red_raw) -> None:
         raise ConfigError(f"{type(ctx.game).__name__} has no cross-entity reduction to inject")
     if inputs.shape[0] != 1:
         raise ConfigError(f"an injected-reduction launch runs one tick, got {inputs.shape[0]}")
-    if tuple(red_raw.shape) != (ctx.d + 1, ctx.reduce_len):
-        raise ConfigError(f"red_raw has shape {tuple(red_raw.shape)}, expected {(ctx.d + 1, ctx.reduce_len)}")
+    want = (ctx.d + 1, ctx.reduce_len)
+    for name, table in (("red", red), ("nxt", nxt)):
+        if tuple(table.shape) != want:
+            raise ConfigError(f"{name} has shape {tuple(table.shape)}, expected {want}")
+    if red.data_ptr() == nxt.data_ptr():
+        raise ConfigError("the next table must be another buffer than the tick's")
 
 
 class TiledSyncTestCore:
     """K2's wrappers for one (game, players, check_distance); counts its
-    launches in `launches` (the tiled kernel) and `verdict_launches`."""
+    launches in `launches` (the tiled kernel, or the injection route's
+    tick) and `verdict_launches`."""
 
     kernel = "synctest_tiled"
 
@@ -219,6 +244,7 @@ class TiledSyncTestCore:
         self.verdict_launches = 0
         self.plan = None  # the inline route's InlinePlan, made at its first launch
         self._scratch = None  # its grid barrier and raw rows: zero when made, kept so by the kernel
+        self._tick_scratch = None  # the injected tick's parts and ticket: zero when made, left so by each launch
 
     def _inline_plan(self, lib, device) -> InlinePlan:
         """The inline route's plan, made at its first launch from the card's
@@ -243,19 +269,13 @@ class TiledSyncTestCore:
         self._scratch = torch.zeros(2 + 3 * self.ctx.reduce_len, dtype=torch.int32, device=device)
         self.plan = plan
 
-    def run_kernel(self, carry, inputs: torch.Tensor, red_raw=None):
+    def run_kernel(self, carry, inputs: torch.Tensor):
         """T ticks in place; returns (parts_hi, parts_lo) [T, d] int32. A
-        game with a reduction reduces inline at every step, or takes one
-        tick on its injected table `red_raw` int32 [d+1, R]."""
+        game with a reduction reduces inline at every step."""
         ctx = self.ctx
-        if red_raw is not None:
-            check_injected(ctx, inputs, red_raw)
         if carry["state"].device.type == "cpu":
-            if red_raw is None:
-                return plain_parts(carry, inputs, ctx)
-            rows = [ctx.adapter.reduce_finalize(r) for r in red_raw]
-            return plain_parts(carry, inputs, ctx, red_of=lambda f, i: rows[i])
-        inline = ctx.reduce_len and red_raw is None
+            return plain_parts(carry, inputs, ctx)
+        inline = bool(ctx.reduce_len)
         entry = launch.require_adapter(ctx, "synctest_tiled_inline" if inline else self.kernel)
         launch.check_carry(carry, ctx, inputs)
         lib = build.load(self.kernel)
@@ -273,11 +293,6 @@ class TiledSyncTestCore:
             rc = fn(*ptrs, parts.data_ptr(), self._scratch.data_ptr(), ctx.n, ctx.num_players, ctx.input_size,
                     ctx.d, t_ticks, int(plan.regime == "grid-shared"), plan.blocks, plan.threads, plan.per_block,
                     plan.smem_bytes, launch.weights_arg(ctx), launch.stream_of(device))
-        elif entry.reduces:
-            launch.check_tensors(device, red_raw=(red_raw, (ctx.d + 1, ctx.reduce_len)))
-            fn = launch.declare(lib, entry.symbol, [P] * 9 + [I] * 5 + [P, P])
-            rc = fn(*ptrs, red_raw.data_ptr(), parts.data_ptr(), ctx.n, ctx.num_players, ctx.input_size,
-                    ctx.d, t_ticks, launch.weights_arg(ctx), launch.stream_of(device))
         else:
             extra = launch.model_ints(entry, ctx)
             fn = launch.declare(lib, entry.symbol, [P] * 8 + [I] * (5 + len(extra)) + [P, P])
@@ -287,6 +302,39 @@ class TiledSyncTestCore:
         self.launches += 1
         carry["iring"] = iring_out
         return parts[0], parts[1]
+
+    def tick_injected(self, carry, inputs: torch.Tensor, red: torch.Tensor, nxt: torch.Tensor,
+                      later: int = 0) -> None:
+        """One tick of the injection route in place, in one launch: the tick
+        on the raw table `red` int32 [d+1, R], the next tick's table into
+        `nxt` (rows 1..d of `red`, then the new live state's raw sums; its
+        row d must be zero on entry), and the verdict; `red`'s row d is
+        left zero. `later`: the ticks of the same batch after this one; a
+        save that one of them makes again before anything reads it skips
+        its ring store, so the ring is whole again only after the batch's
+        last tick (with `later` 0 every save is stored). On a CPU carry
+        `plain_injected_tick`, which stores every save."""
+        ctx = self.ctx
+        check_injected(ctx, inputs, red, nxt)
+        if carry["state"].device.type == "cpu":
+            return plain_injected_tick(carry, inputs, red, nxt, ctx)
+        entry = launch.require_adapter(ctx, self.kernel)
+        launch.check_carry(carry, ctx, inputs)
+        device = carry["state"].device
+        want = (ctx.d + 1, ctx.reduce_len)
+        launch.check_tensors(device, red=(red, want), nxt=(nxt, want))
+        lib = build.load(self.kernel)
+        if self._tick_scratch is None:
+            self._tick_scratch = torch.zeros(2 * ctx.d + 1, dtype=torch.int32, device=device)
+        P, I = launch.P, launch.I
+        fn = launch.declare(lib, entry.symbol, [P] * 12 + [I] * 5 + [P, P])
+        rc = fn(carry["state"].data_ptr(), carry["ring"].data_ptr(), carry["r_frame"].data_ptr(),
+                carry["iring"].data_ptr(), carry["meta"].data_ptr(), inputs.data_ptr(), carry["h_tag"].data_ptr(),
+                carry["h_hi"].data_ptr(), carry["h_lo"].data_ptr(), red.data_ptr(), nxt.data_ptr(),
+                self._tick_scratch.data_ptr(), ctx.n, ctx.num_players, ctx.input_size, ctx.d, later,
+                launch.weights_arg(ctx), launch.stream_of(device))
+        launch.raise_on(rc, self.kernel)
+        self.launches += 1
 
     def verdict(self, carry, parts_hi: torch.Tensor, parts_lo: torch.Tensor) -> None:
         """The history post-pass over run_kernel's parts, in place."""

@@ -80,6 +80,7 @@ ENTRIES: Dict[str, Dict[type, Entry]] = {
     "synctest_tiled": {
         ExGamePlanes: Entry("synctest_tiled_launch", True, False),
         SwarmPlanes: Entry("synctest_tiled_swarm_launch", False, False),
+        # arena: the injection route's one-launch tick on a table
         ArenaPlanes: Entry("synctest_tiled_arena_launch", False, True),
     },
     # K2's inline whole-world route, in the synctest_tiled library: arena only

@@ -36,11 +36,17 @@ equal the first tree's after every launch (K1/K2: the full carry after
 every batch, a corrupted slot included; K3: his/los and the whole core
 after every dispatch, a corrupted slot included; K4: the trajectory, its
 checksums and the anchor's, a killed or corrupted anchor included; the
-verdict: history and meta), and each build's ms per round. Batches of more
+verdict: history and meta; the injection route: the full carry after every
+batch, a killed slot included), and each build's ms per round. Batches of more
 than one tick and K2 are timed back to back with CUDA events; single-tick
 batches, K3 dispatches, K4 launches and the verdict queued behind a spin
 kernel (chip_smoke.queued_ms), since they are shorter than their Python
-wrappers. Imports no jax.
+wrappers. The injection route's tick is the difference of two batches
+queued the same way, of 1 + ROUTE_TICKS ticks and of 1, over ROUTE_TICKS:
+its device time whatever operations a tree's route runs a tick; a tree
+whose route still runs K2, the verdict and the next table as separate
+operations (K5's frontier row and a roll) also has each of them timed
+alone. Imports no jax.
 """
 
 from __future__ import annotations
@@ -62,6 +68,8 @@ sys.path.insert(0, str(ROOT))
 # K3: ("resim_tick", model, players, entities, max_prediction, rows a dispatch); the rows are
 #     SyncTest ticks at check distance 8 (load frame c-8, 9 advances, 9 saves), as bench.py:1275's
 # K4: ("beam_rollout", model, players, entities, members, steps), from a ring slot of a primed core
+# the injection route: ("injected", model, players, entities, check distance, ticks a batch), a whole
+#     route tick (K2 on the table, its verdict and the next table) from a carry past frame d
 CELLS = {
     "k1_4096": ("synctest_fused", "ExGame", 2, 4096, 8, 60),
     "k1_65536": ("synctest_fused", "ExGame", 2, 65536, 16, 60),
@@ -92,12 +100,19 @@ CELLS = {
     "ar2_65536_t8": ("resim_tick", "Arena", 2, 65536, 9, 8),
     "ar4_l16": ("resim_tick", "Arena", 4, 4096, 9, 16),
     "b16_4096": ("beam_rollout", "ExGame", 2, 4096, 16, 11),
+    "b12_65536": ("beam_rollout", "ExGame", 2, 65536, 12, 11),
     "sb16_4096": ("beam_rollout", "Swarm", 2, 4096, 16, 11),
     "ab16_4096": ("beam_rollout", "Arena", 2, 4096, 16, 11),
     "ab16_65536": ("beam_rollout", "Arena", 2, 65536, 16, 11),
+    "ai_4096": ("injected", "Arena", 2, 4096, 8, 30),
+    "ai_65536": ("injected", "Arena", 2, 65536, 8, 30),
 }
 BATCHES, CORRUPT_AT, TIMED = 6, 4, 20  # equality batches, the one after a corrupted slot, timed batches
 SPIN_REPS = 200  # queued launches a timing
+# the injection route: extra ticks a timed batch, and batches a timing (a route of 5 operations a
+# tick fills the card's launch queue past ~4 batches, and the host then waits behind the spin)
+ROUTE_TICKS, ROUTE_REPS = 30, 3
+ROUTE_SPIN = 40_000_000  # spin cycles queued a route batch (~20 ms: several times its host enqueue time)
 MODS = {"ExGame": 16, "Arena": 64, "Swarm": 128}  # inputs below these
 PROBE_PLANE = {"ExGame": 4, "Arena": 4, "Swarm": 0}  # rot, hp, px: a plane the step never clamps back
 
@@ -228,7 +243,8 @@ def main() -> None:
         old, new = patch.split("=>", 1)
         builds[name] = (trees[tree], (fname, old.replace("\\n", "\n"), new.replace("\\n", "\n")))
     cells = [c.strip() for c in args.cells.split(",") if c.strip()]
-    kinds = sorted({"synctest_tiled" if CELLS[c][0] == "verdict" else CELLS[c][0] for c in cells})
+    source = {"verdict": ("synctest_tiled",), "injected": ("synctest_tiled", "reduce_table")}
+    kinds = sorted({k for c in cells for k in source.get(CELLS[c][0], (CELLS[c][0],))})
     tmp = Path(tempfile.mkdtemp(prefix="kernel_ab_"))
     pkgs = {name: import_copy(name, root, patch, tmp) for name, (root, patch) in builds.items()}
     first = next(iter(pkgs.values()))
@@ -253,7 +269,7 @@ def main() -> None:
     order = list(pkgs)
     for cell in cells:
         kind = CELLS[cell][0]
-        run = {"resim_tick": tick_cell, "beam_rollout": beam_cell}.get(kind, synctest_cell)
+        run = {"resim_tick": tick_cell, "beam_rollout": beam_cell, "injected": injected_cell}.get(kind, synctest_cell)
         equal, times = run(torch, np, dev, pkgs, order, cell, args.rounds, chip_smoke)
         same = ", ".join(f"{name} {'==' if equal[name] else '!='} {order[0]}" for name in order[1:])
         print(f"{cell}: {same}; ms {json.dumps(times)}", flush=True)
@@ -427,6 +443,81 @@ def beam_cell(torch, np, dev, pkgs, order, cell, rounds, cs):
         ms = cs.queued_ms(torch, lambda: br.rollout(core.carry["ring"], core.carry["r_frame"], slot, script),
                           SPIN_REPS)
         times.setdefault(name, []).append(round(ms, 5))
+    return equal, times
+
+
+def injected_cell(torch, np, dev, pkgs, order, cell, rounds, cs):
+    """The injection route (`InjectedReduceCore.batch`): each build runs the
+    same batches from a fresh carry across frame d, 64 entities killed in
+    the slot the batch after CORRUPT_AT loads first, its full carry held to
+    the first build's after every batch; then each build's route tick is
+    timed from one carry past frame d (see the module's docstring), and the
+    separate operations of a route that has them."""
+    _, model, players, n, d, t_ticks = CELLS[cell]
+    rng = np.random.default_rng(n + d)
+    scripts = [torch.from_numpy(rng.integers(0, MODS[model], size=(t_ticks, players, 1)).astype(np.int32)).to(dev)
+               for _ in range(BATCHES)]
+
+    def use(name):
+        pkg = pkgs[name]
+        ctx = pkg.device.planes.PlaneContext(getattr(pkg, model)(players, n), players, d, dev)
+        return pkg, ctx, pkg.device.injected_core.InjectedReduceCore(ctx)
+
+    keys = pkgs[order[0]].convert.CARRY_KEYS
+    equal, hist = {}, {}
+    for name in order:
+        pkg, ctx, core = use(name)
+        carry = pkg.device.sync_test.initial_carry(ctx)
+        hist[name] = []
+        for b, inputs in enumerate(scripts):
+            c = b * t_ticks
+            if b == CORRUPT_AT:
+                carry["ring"][(c - d) % ctx.ring_len, PROBE_PLANE[model], :64] = 0
+            core.batch(carry, inputs, frame=c)
+            torch.cuda.synchronize()
+            hist[name].append({k: carry[k].clone() for k in keys})
+        equal[name] = all(torch.equal(hist[name][b][k], hist[order[0]][b][k]) for b in range(BATCHES) for k in keys)
+    base = hist[order[0]][CORRUPT_AT - 1]
+    c0 = CORRUPT_AT * t_ticks
+    long = torch.cat([scripts[0]] * -(-(1 + ROUTE_TICKS) // t_ticks))[: 1 + ROUTE_TICKS]
+    times = {}
+    for name in in_turns(order, rounds):
+        pkg, ctx, core = use(name)
+        carry = {k: v.clone() for k, v in base.items()}
+        frame = [c0]
+
+        def batch(inputs):
+            core.batch(carry, inputs, frame=frame[0])
+            frame[0] += inputs.shape[0]
+
+        batch(long)
+        torch.cuda.synchronize()
+        one = cs.queued_ms(torch, lambda: batch(long[:1]), ROUTE_REPS, spin=ROUTE_SPIN)
+        many = cs.queued_ms(torch, lambda: batch(long), ROUTE_REPS, spin=ROUTE_SPIN)
+        got = {"tick": round((many - one) / ROUTE_TICKS, 5), "batch_of_1": round(one, 5)}
+        if hasattr(core.tiled, "tick_injected"):  # the one-launch tick alone, every save stored
+            red = core.reduce.reduce_sources(carry, frame[0])
+            nxt = torch.zeros_like(red)
+            got["tick_alone"] = round(cs.queued_ms(
+                torch, lambda: core.tiled.tick_injected(carry, long[:1], red, nxt), SPIN_REPS), 5)
+        else:  # K2, the verdict and the next table apart
+            red = core.reduce.reduce_sources(carry, frame[0])
+            parts = core.tiled.run_kernel(carry, long[:1], red_raw=red)
+            rolled = torch.empty_like(red)
+
+            def roll():
+                out = torch.empty_like(red)
+                out[:d] = red[1:]
+
+            ops = {"k2": lambda: core.tiled.run_kernel(carry, long[:1], red_raw=red),
+                   "verdict": lambda: core.tiled.verdict(carry, *parts),
+                   "k5_frontier": lambda: core.reduce.frontier(carry, out=rolled[d:]),
+                   "roll": roll}
+            for op, fn in ops.items():
+                got[op] = round(cs.queued_ms(torch, fn, SPIN_REPS), 5)
+        got["k5_table"] = round(cs.queued_ms(torch, lambda: core.reduce.reduce_sources(carry, frame[0]), SPIN_REPS), 5)
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(got)
     return equal, times
 
 

@@ -158,8 +158,8 @@ def test_injected_twin_matches_reference_one_device_mesh(xla_probe_carry):
 def test_wrappers_take_cpu_carries():
     """K1's, K2's and the injection route's wrappers on a CPU carry run
     their plain twins and count no launch: K2 without a table is the inline
-    route, the plain scan's bits; K2 refuses an injected table for more
-    than one tick."""
+    route, the plain scan's bits; K2's injected tick refuses more than one
+    tick."""
     ctx = PlaneContext(Arena(2, 256), 2, D, "cpu")
     inputs = torch.from_numpy(script(12, 2, 1, seed=3).astype(np.int32))
     want = sync_test.initial_carry(ctx)
@@ -181,7 +181,8 @@ def test_wrappers_take_cpu_carries():
         assert torch.equal(carry[k], scanned[k]), k
     assert fused.launches == injected.tiled.launches == injected.reduce.launches == inline.launches == 0
     with pytest.raises(ValueError, match="one tick"):
-        TiledSyncTestCore(ctx).run_kernel(carry, inputs[:2], red_raw=torch.zeros((D + 1, 6), dtype=torch.int32))
+        TiledSyncTestCore(ctx).tick_injected(carry, inputs[:2], torch.zeros((D + 1, 6), dtype=torch.int32),
+                                             torch.zeros((D + 1, 6), dtype=torch.int32))
 
 
 # (game, check distance, the reference's `_pick_backend` on a TPU with no

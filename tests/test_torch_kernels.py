@@ -29,7 +29,7 @@ from ggrs_tpu_torch.device.reduce_core import ReduceTableCore, plain_reduce_tabl
 from ggrs_tpu_torch.device.planes import PlaneContext
 from ggrs_tpu_torch.device.resim import RESIM_KEYS, ResimCore
 from ggrs_tpu_torch.device.tick_core import arena_tick_plan, plain_tick_multi
-from ggrs_tpu_torch.device.tiled_core import TiledSyncTestCore, plain_parts, plain_verdict
+from ggrs_tpu_torch.device.tiled_core import TiledSyncTestCore, plain_injected_tick, plain_parts, plain_verdict
 from ggrs_tpu_torch.kernels import build
 
 
@@ -310,9 +310,10 @@ def test_reduce_table_matches_plain_on_card(cuda_card, n):
 
 @pytest.mark.cuda
 def test_arena_injected_route_matches_plain_on_card(cuda_card):
-    """The injected-reduction route (K5 tables, K2 one tick per launch, the
-    verdict) on the card equals the same route on a CPU copy of the carry
-    (its plain twin) after every batch, across the frame-d boundary."""
+    """The injected-reduction route (K5 tables, K2's one-launch tick: the
+    tick, the next table and the verdict) on the card equals the same route
+    on a CPU copy of the carry (its plain twin) after every batch, across
+    the frame-d boundary, and launches one kernel a steady-state tick."""
     ctx = PlaneContext(Arena(2, 4096), 2, 8, torch.device("cuda"))
     cpu_ctx = PlaneContext(Arena(2, 4096), 2, 8, "cpu")
     core, twin = InjectedReduceCore(ctx), InjectedReduceCore(cpu_ctx)
@@ -326,8 +327,10 @@ def test_arena_injected_route_matches_plain_on_card(cuda_card):
         torch.cuda.synchronize()
         for k in CARRY_KEYS:
             assert torch.equal(kernel[k].cpu(), plain[k]), (b, k)
-    assert core.tiled.launches == 21 and core.tiled.verdict_launches == 21
-    assert core.reduce.launches == 3 + 18
+    # one launch a tick, the verdict in it; K5 at each batch's first tick and
+    # for each boot tick (frames 0..6 before d = 8 but a batch's last)
+    assert core.tiled.launches == 21 and core.tiled.verdict_launches == 0
+    assert core.reduce.launches == 3 + 7
 
 
 def sms():
@@ -663,6 +666,84 @@ def test_swarm_beam_kernel_matches_plain_on_card(cuda_card):
         for k, a, b in zip(spec._fields, spec, plain):
             assert torch.equal(a, b), (slot, k)
     assert core.beam_rollout.launches == core.ring_len
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("game", [ExGame(2, 4096), ExGame(2, 4096, substeps=2), Swarm(2, 4096)],
+                         ids=["ex_game", "ex_game_substeps2", "swarm"])
+def test_beam_back_to_back_launches_match_plain_on_card(cuda_card, game):
+    """K4's per-entity body launched back to back into the scratch the
+    previous launch left (zeroed once, never again), at widths that grow
+    and shrink: every speculation equals plain_rollout's, also from a
+    corrupted anchor, which changes every checksum."""
+    mod = 128 if isinstance(game, Swarm) else 16
+    core = ResimCore(game, 12, 2, device="cuda")
+    core.tick_multi(random_tick_rows(core, 20, seed=5, mod=mod))
+    ring, r_frame = core.carry["ring"], core.carry["r_frame"]
+    rng = np.random.default_rng(8)
+    plane = 0 if isinstance(game, Swarm) else 4
+    clean = None
+    for k, (B, L) in enumerate([(16, 11), (16, 11), (5, 3), (16, 11), (12, 12), (1, 1), (16, 11)]):
+        slot = (2 * k + 1) % core.ring_len
+        inputs = rng.integers(0, mod, size=(B, L, 2, 1), dtype=np.uint8)
+        statuses = np.where(rng.random((B, L, 2)) < 0.1, 2, 0).astype(np.int32)
+        corrupt = k == 3
+        if corrupt:
+            clean = core.speculate(slot, inputs, statuses)
+            ring[slot, plane, :64] += 7
+        spec = core.speculate(slot, inputs, statuses)
+        plain = plain_rollout(ring[slot], r_frame[slot], torch.from_numpy(inputs).cuda(),
+                              torch.from_numpy(statuses).cuda(), core.ctx)
+        torch.cuda.synchronize()
+        for name, a, b in zip(spec._fields, spec, plain):
+            assert torch.equal(a, b), (k, name)
+        if corrupt:
+            assert not torch.equal(spec.his, clean.his) and not torch.equal(spec.a_hi, clean.a_hi)
+            ring[slot, plane, :64] -= 7
+    assert core.beam_rollout.launches == 8
+    assert not core.beam_rollout._scratch.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("players", [2, 17])
+def test_injected_tick_back_to_back_matches_plain_on_card(cuda_card, players):
+    """K2's injected tick launched back to back on alternating tables into
+    the scratch the previous launch left, across frame d, from a fresh
+    carry: after every launch the carry, the table it ran on (row d left
+    zero) and the next table equal plain_injected_tick's on a CPU copy; the
+    scratch stays zero; then a kill probe in the slot the next launch
+    loads latches the same frame."""
+    d = 8
+    n = 4096 + (256 if players == 17 else 0)
+    ctx = PlaneContext(Arena(players, n), players, d, torch.device("cuda"))
+    cpu_ctx = PlaneContext(Arena(players, n), players, d, "cpu")
+    core, k5 = TiledSyncTestCore(ctx), ReduceTableCore(ctx)
+    kernel = sync_test.initial_carry(ctx)
+    plain = {k: v.cpu() for k, v in kernel.items()}
+    tables = torch.zeros((2, d + 1, 3 * players), dtype=torch.int32, device="cuda")
+    cpu_tables = tables.cpu()
+    rng = np.random.default_rng(players)
+    k5.reduce_sources(kernel, 0, out=tables[0])
+    cpu_tables[0] = tables[0].cpu()
+    cur = 0
+    for c in range(2 * d + 4):
+        if c == 2 * d + 2:  # the probe: hp = 0 in the slot this tick loads
+            for carry in (kernel, plain):
+                carry["ring"][(c - d) % ctx.ring_len, 4, :64] = 0
+        inputs = arena_script(rng, 1, players, 1)
+        core.tick_injected(kernel, inputs, tables[cur], tables[1 - cur])
+        plain_injected_tick(plain, inputs.cpu(), cpu_tables[cur], cpu_tables[1 - cur], cpu_ctx)
+        torch.cuda.synchronize()
+        for k in CARRY_KEYS:
+            assert torch.equal(kernel[k].cpu(), plain[k]), (c, k)
+        assert torch.equal(tables.cpu(), cpu_tables), c
+        assert not tables[cur][d].any() and not core._tick_scratch.any(), c
+        cur = 1 - cur
+        if c < d:  # the boot branch: the next table in full
+            k5.reduce_sources(kernel, c + 1, out=tables[cur])
+            cpu_tables[cur] = tables[cur].cpu()
+    assert kernel["meta"].tolist()[1:] == [1, d + 3] == plain["meta"].tolist()[1:]
+    assert core.launches == 2 * d + 4 and core.verdict_launches == 0
 
 
 @pytest.mark.cuda
