@@ -176,7 +176,29 @@ NVIDIA card (written for an H100). Run from the repository root:
    (device verification, lazy_ticks=8) saved mid-run, restored, driven on
    by the same host session and equal to its uninterrupted twin. Prints
    each file's size and the save and restore ms.
-19. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
+19. The P2P path at BASELINE.json configs[3]'s width (p2p4_4096): four
+   port P2P sessions, ExGame(4, 4096), max_prediction 12, desync detection
+   on(10), each on its own DeviceRollbackBackend on the card, over one
+   InMemoryNetwork (latency 40 ms, jitter 15, loss 0.05, seed 33) on a fake
+   clock advanced 16 ms a tick, 300 ticks; peer 3 leaves at tick 200 and
+   the other three disconnect it, so DISCONNECTED inputs reach K3; a
+   spectator of peer 0 on a backend of its own. Every backend's K3 launch
+   count is set to 0 just before the match and must be above 0 after; no
+   DesyncDetected, and the peers' confirmed checksums agree. Peer 0's
+   recorded stream replayed on the plain K3 gives the same checksum of
+   every save, state and ring; the spectator ends on peer 0's state of its
+   last frame; the stream on a beam_width=16 backend (K4 launches above 0)
+   equals a beam-off twin bit for bit, and so does the stream of a match
+   whose players hold their inputs (a change a tick with probability
+   0.1). A further match with ring slots of
+   peer 1 corrupted must report DesyncDetected. Prints per peer the ms a
+   tick of advance_frame and handle_requests (p50, p90), K3's time over the
+   peer's host time (launches x the median row's K3 ms, a derived ratio and
+   not a trace: K3 runs while the host goes on),
+   the K3 launches, loads and the deepest rollback, the beam's adopted share
+   and beam-on against beam-off ms a tick; K3 (the match's median row) and
+   K4 (the beam's last speculation) against their plain versions, timed.
+20. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
    as the last line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the result lines. Without a CUDA device,
@@ -2658,6 +2680,391 @@ def checkpoint_phase(torch, np, dev, tag):
     return results
 
 
+# -- the P2P phase: BASELINE.json configs[3] (a 4-player P2PSession, a
+# 12-frame rollback window) at the flagship world, every peer on its own
+# backend on the card, over one in-memory network on a fake clock
+P2P_KEY = "p2p4_4096"
+P2P_PLAYERS, P2P_N, P2P_MP = 4, 4096, 12
+P2P_TICKS, P2P_LEAVE = 300, (200, 3)  # peer 3 leaves at tick 200
+P2P_NET = dict(latency_ms=40, jitter_ms=15, loss=0.05, seed=33)
+P2P_TICK_MS = 16  # the fake clock's advance a tick
+P2P_DESYNC_INTERVAL = 10
+P2P_DRAIN_TICKS = 40  # ticks of polling after the match, the spectator still advancing
+P2P_BEAM = 16
+P2P_PROBE_TICKS, P2P_PROBE_AT = 100, 60  # the corruption probe's match
+P2P_TIMED_DISPATCHES = 200
+
+
+def p2p_match(np, players, n, mp, ticks, dev, *, lazy=0, leave=None, spectator=False, corrupt_at=None,
+              seed=5, script=None):
+    """One P2P match of `players` port sessions, peer i holding handle i,
+    each on its own DeviceRollbackBackend on `dev`, desync detection on, on
+    an InMemoryNetwork (P2P_NET) and a FakeClock advanced P2P_TICK_MS a
+    tick; `script[t, i]` is peer i's input at tick t (seeded below 16 when
+    not given). Every backend's K3 launch count is set to
+    0 just before the first tick. `leave = (tick, handle)`: from that tick
+    the peer stops advancing but keeps polling, and once every other peer
+    holds its last frame they all call disconnect_player(handle), so each
+    disconnects it at the same frame. `spectator`: a spectator of peer 0
+    on a backend of its own advances every tick, and through
+    P2P_DRAIN_TICKS ticks of polling after the match. `corrupt_at`: at that
+    tick the ring slots of peer 1 that its next rollback may load (every
+    frame after its confirmed one) are corrupted. Returns a namespace: the
+    sessions and backends, peer 0's recorded stream (each tick's requests
+    as (kind, frame, cell key) or ("AdvanceFrame", inputs)) and its saves'
+    checksum getters, host ms a tick per peer, events, loads and rollback
+    depths."""
+    import random
+    from types import SimpleNamespace
+
+    from ggrs_tpu_torch import (DesyncDetection, DeviceRollbackBackend, ExGame, PlayerType, PredictionThreshold,
+                                SessionBuilder, SessionState)
+    from ggrs_tpu_torch.network.sockets import InMemoryNetwork
+    from ggrs_tpu_torch.utils.clock import FakeClock
+
+    clock = FakeClock()
+    net = InMemoryNetwork(clock, **P2P_NET)
+    addrs = [f"peer{i}" for i in range(players)]
+    sessions, backends = [], []
+    for i in range(players):
+        b = (SessionBuilder(input_size=1).with_num_players(players).with_max_prediction_window(mp)
+             .with_desync_detection_mode(DesyncDetection.on(P2P_DESYNC_INTERVAL)).with_clock(clock)
+             .with_rng(random.Random(100 + i)))
+        for h, addr in enumerate(addrs):
+            b = b.add_player(PlayerType.local() if h == i else PlayerType.remote(addr), h)
+        if spectator and i == 0:
+            b = b.add_player(PlayerType.spectator("spectator"), players)
+        sessions.append(b.start_p2p_session(net.socket(addrs[i])))
+        backends.append(DeviceRollbackBackend(ExGame(players, n), mp, players, lazy_ticks=lazy, device=dev))
+    spec = spec_backend = None
+    if spectator:
+        spec = (SessionBuilder(input_size=1).with_num_players(players).with_clock(clock)
+                .with_rng(random.Random(99)).start_spectator_session(addrs[0], net.socket("spectator")))
+        spec_backend = DeviceRollbackBackend(ExGame(players, n), mp, players, device=dev)
+    everyone = sessions + ([spec] if spec else [])
+    for _ in range(400):
+        for s in everyone:
+            s.poll_remote_clients()
+            s.events()
+        clock.advance(20)
+        if all(s.current_state() == SessionState.RUNNING for s in everyone):
+            break
+    else:
+        fail("p2p: the peers did not synchronize")
+
+    if script is None:
+        script = np.random.default_rng(seed).integers(0, 16, size=(ticks, players))
+    out = SimpleNamespace(sessions=sessions, backends=backends, spectator=spec, spec_backend=spec_backend,
+                          stream=[], saves0=[], adv_ms=[[] for _ in sessions], handle_ms=[[] for _ in sessions],
+                          events=[[] for _ in sessions], loads=0, depths=[], thresholds=0,
+                          disconnected_at=None, dead_inputs=0, spec_frames=0, wall_s=0.0)
+
+    def spectate():
+        try:
+            requests = spec.advance_frame()
+        except PredictionThreshold:
+            return
+        spec_backend.handle_requests(requests)
+        out.spec_frames += len(requests)
+
+    for backend in backends + ([spec_backend] if spec else []):
+        backend.core.tick_core.launches = 0
+    gone = None
+    started = time.perf_counter()
+    for t in range(ticks):
+        if leave is not None and t == leave[0]:
+            gone = leave[1]
+        if gone is not None and out.disconnected_at is None:
+            sessions[gone].poll_remote_clients()
+            sessions[gone].events()
+            last = sessions[gone].local_connect_status[gone].last_frame
+            rest = [i for i in range(players) if i != gone]
+            if all(sessions[i].local_connect_status[gone].last_frame == last for i in rest):
+                for i in rest:
+                    sessions[i].disconnect_player(gone)
+                out.disconnected_at = t
+        if t == corrupt_at:
+            sess, core = sessions[1], backends[1].core
+            backends[1].flush()
+            for f in range(max(sess.confirmed_frame() + 1, sess.current_frame - mp), sess.current_frame):
+                core.carry["ring"][f % core.ring_len, 4, 0] += 7  # the heading plane: never clamped
+        for i, sess in enumerate(sessions):
+            if i == gone:
+                continue
+            sess.add_local_input(i, bytes([int(script[t, i])]))
+            before = sess.current_frame
+            t0 = time.perf_counter()
+            try:
+                requests = sess.advance_frame()
+            except PredictionThreshold:
+                out.thresholds += 1
+                continue
+            t1 = time.perf_counter()
+            backends[i].handle_requests(requests)
+            t2 = time.perf_counter()
+            out.adv_ms[i].append((t1 - t0) * 1e3)
+            out.handle_ms[i].append((t2 - t1) * 1e3)
+            out.events[i] += sess.events()
+            for r in requests:
+                kind = type(r).__name__
+                if kind == "LoadGameState":
+                    out.loads += 1
+                    out.depths.append(before - r.frame)
+                elif kind == "AdvanceFrame":
+                    out.dead_inputs += sum(int(s) == 2 for _, s in r.inputs)
+            if i == 0:
+                out.stream.append([("AdvanceFrame", list(r.inputs)) if type(r).__name__ == "AdvanceFrame"
+                                   else (type(r).__name__, r.frame, id(r.cell)) for r in requests])
+                out.saves0 += [(r.frame, r.cell.checksum_getter()) for r in requests
+                               if type(r).__name__ == "SaveGameState"]
+        if spec is not None:
+            spectate()
+        clock.advance(P2P_TICK_MS)
+    out.wall_s = time.perf_counter() - started
+    if leave is not None and out.disconnected_at is None:
+        fail("p2p: the leaving peer was never disconnected")
+    for _ in range(P2P_DRAIN_TICKS if spec is not None else 0):
+        for i, sess in enumerate(sessions):
+            if i != gone:
+                sess.poll_remote_clients()
+                out.events[i] += sess.events()
+        spec.poll_remote_clients()
+        spectate()
+        clock.advance(P2P_TICK_MS)
+    return out
+
+
+def p2p_replay(stream, backend):
+    """Fulfil a recorded stream tick by tick with `backend`, on cells of its
+    own; returns (every save's (frame, checksum getter), host ms a tick)."""
+    from ggrs_tpu_torch import AdvanceFrame, GameStateCell, LoadGameState, SaveGameState
+
+    cells, saves, host_ms = {}, [], []
+    for tick in stream:
+        requests = []
+        for kind, *rest in tick:
+            if kind == "AdvanceFrame":
+                requests.append(AdvanceFrame(inputs=rest[0]))
+            else:
+                frame, key = rest
+                cls = SaveGameState if kind == "SaveGameState" else LoadGameState
+                requests.append(cls(cell=cells.setdefault(key, GameStateCell()), frame=frame))
+        t0 = time.perf_counter()
+        backend.handle_requests(requests)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        saves += [(r.frame, r.cell.checksum_getter()) for r in requests if isinstance(r, SaveGameState)]
+    return saves, host_ms
+
+
+def held_script(np, ticks, players, seed=6):
+    """Inputs a player holds: each changes with probability 0.1 a tick to a
+    value below 16, else repeats (buttons held over several frames)."""
+    rng = np.random.default_rng(seed)
+    change = rng.random((ticks, players)) < 0.1
+    values = rng.integers(0, 16, size=(ticks, players))
+    script = np.empty((ticks, players), dtype=np.int64)
+    script[0] = values[0]
+    for t in range(1, ticks):
+        script[t] = np.where(change[t], values[t], script[t - 1])
+    return script
+
+
+def p2p_beam(torch, np, m, saves0, players, n, mp, dev, key, what, tag):
+    """Peer 0's recorded stream of match `m` on a beam_width=P2P_BEAM
+    backend and on a beam-off twin: both must give peer 0's save checksums
+    and the same final core. Returns (the beam backend, its summary)."""
+    from ggrs_tpu_torch import DeviceRollbackBackend, ExGame
+
+    def pct(v, q):
+        v = sorted(v)
+        return v[min(len(v) - 1, (len(v) * q) // 100)]
+
+    beam = DeviceRollbackBackend(ExGame(players, n), mp, players, beam_width=P2P_BEAM, device=dev)
+    off = DeviceRollbackBackend(ExGame(players, n), mp, players, device=dev)
+    beam_saves, beam_ms = p2p_replay(m.stream, beam)
+    off_saves, off_ms = p2p_replay(m.stream, off)
+    torch.cuda.synchronize()
+    keys = tuple(off.core.carry)
+    k4 = beam.core.beam_rollout.launches
+    if ([(f, g()) for f, g in beam_saves] != saves0 or [(f, g()) for f, g in off_saves] != saves0
+            or carry_err(torch, beam.core.carry, off.core.carry, keys)
+            or carry_err(torch, beam.core.carry, m.backends[0].core.carry, keys)):
+        fail(f"{key} {what}: the beam differs from its beam-off twin")
+    if k4 < 1:
+        fail(f"{key} {what}: the beam launched no K4 kernel")
+    summary = {
+        "inputs": what, "k4_launches": k4, "adopted_share": beam.rollback_frames_adopted / max(beam.rollback_frames, 1),
+        "rollback_frames": beam.rollback_frames, "rollback_frames_adopted": beam.rollback_frames_adopted,
+        "beam_hits": beam.beam_hits, "beam_partial_hits": beam.beam_partial_hits, "beam_misses": beam.beam_misses,
+        "beam_on_ms_p50": pct(beam_ms, 50), "beam_on_ms_p90": pct(beam_ms, 90),
+        "beam_off_ms_p50": pct(off_ms, 50), "beam_off_ms_p90": pct(off_ms, 90),
+    }
+    print(f"{key}: beam {P2P_BEAM} on peer 0's stream ({what} inputs): {k4} K4 launches, hits {beam.beam_hits}, "
+          f"partial {beam.beam_partial_hits}, misses {beam.beam_misses}; adopted {beam.rollback_frames_adopted}/"
+          f"{beam.rollback_frames} rollback frames ({summary['adopted_share']:.3f}); handle_requests host p50 "
+          f"{summary['beam_on_ms_p50']:.4f} ms (p90 {summary['beam_on_ms_p90']:.4f}) beam on vs "
+          f"{summary['beam_off_ms_p50']:.4f} (p90 {summary['beam_off_ms_p90']:.4f}) off; saves and core equal "
+          f"to the beam-off twin's {tag}")
+    return beam, summary
+
+
+def p2p_phase(torch, np, dev, tag):
+    """The P2P path at configs[3]'s width (the module docstring's phase 19).
+    Returns (the run's summary, the K3 and K4 entries of the kernels line)."""
+    from ggrs_tpu_torch import DeviceRollbackBackend, ExGame
+    from ggrs_tpu_torch.device.beam_core import plain_rollout
+    from ggrs_tpu_torch.device.tick_core import plain_tick_multi
+
+    players, n, mp, key = P2P_PLAYERS, P2P_N, P2P_MP, P2P_KEY
+
+    def pct(v, q):
+        v = sorted(v)
+        return v[min(len(v) - 1, (len(v) * q) // 100)]
+
+    def resolved(saves):
+        return [(f, g()) for f, g in saves]
+
+    torch.cuda.synchronize()
+    m = p2p_match(np, players, n, mp, P2P_TICKS, dev, leave=P2P_LEAVE, spectator=True)
+    torch.cuda.synchronize()
+    launches = [b.core.tick_core.launches for b in m.backends] + [m.spec_backend.core.tick_core.launches]
+    if min(launches) < 1:
+        fail(f"{key}: a backend launched no K3 kernel in the match: {launches} (peers, then the spectator)")
+    desyncs = sum(type(e).__name__ == "DesyncDetected" for ev in m.events for e in ev)
+    if desyncs:
+        fail(f"{key}: {desyncs} DesyncDetected events in a clean match")
+    if m.dead_inputs < 1:
+        fail(f"{key}: no DISCONNECTED input reached a backend after the disconnect")
+    # the peers that played on checksummed their shared confirmed frames alike
+    stayed = [i for i in range(players) if i != P2P_LEAVE[1]]
+    histories = [m.sessions[i].local_checksum_history for i in stayed]
+    shared = set.intersection(*(set(h) for h in histories))
+    if len(shared) < 3 or any(h[f] != histories[0][f] for h in histories for f in shared):
+        fail(f"{key}: the peers' confirmed checksums disagree or too few are shared ({sorted(shared)})")
+    peer0 = m.backends[0]
+    keys = tuple(peer0.core.carry)  # no verify history: P2P rollbacks re-save corrected frames
+    saves0 = resolved(m.saves0)
+    print(f"{key}: {players} peers (ExGame({players}, {n}), max_prediction {mp}, desync detection "
+          f"on({P2P_DESYNC_INTERVAL}), latency {P2P_NET['latency_ms']} ms, jitter {P2P_NET['jitter_ms']}, loss "
+          f"{P2P_NET['loss']}), {P2P_TICKS} ticks, peer {P2P_LEAVE[1]} disconnected at tick {m.disconnected_at}: "
+          f"K3 launches {launches} (peers, spectator), {m.loads} loads, deepest rollback {max(m.depths)} frames, "
+          f"{m.dead_inputs} DISCONNECTED inputs, {m.thresholds} PredictionThreshold, 0 desyncs, "
+          f"{len(shared)} confirmed checksums agreeing across peers {stayed} {tag}")
+
+    # peer 0's stream replayed on the plain versions: every save's checksum,
+    # the final state and ring
+    plain = DeviceRollbackBackend(ExGame(players, n), mp, players, device=dev)
+    plain.core.tick_core = PlainTick(plain.core)
+    plain_saves, _ = p2p_replay(m.stream, plain)
+    plain.block_until_ready()
+    if resolved(plain_saves) != saves0 or carry_err(torch, plain.core.carry, peer0.core.carry, keys):
+        fail(f"{key}: peer 0's stream on the plain versions differs from the kernel's run")
+    print(f"{key}: peer 0's {len(m.stream)} ticks replayed on the plain K3: {len(saves0)} save checksums, "
+          f"the final state and ring equal to the kernel's {tag}")
+
+    # the spectator ends on peer 0's confirmed state
+    frame = m.spec_backend.current_frame
+    slot = peer0.core.fetch_ring_slot(frame % peer0.core.ring_len)
+    watched = m.spec_backend.state_numpy()
+    if int(slot["frame"]) != frame or frame < P2P_TICKS - 20 or any(
+            not np.array_equal(np.asarray(watched[k]), np.asarray(slot[k])) for k in watched):
+        fail(f"{key}: the spectator's state at frame {frame} differs from peer 0's (its slot holds frame "
+             f"{int(slot['frame'])})")
+    print(f"{key}: the spectator advanced {m.spec_frames} frames and ends on peer 0's state of frame {frame}")
+
+    # the beam: peer 0's stream on a beam_width=16 backend and a beam-off
+    # twin; then the same on a match whose players hold their inputs
+    beam, beam_random = p2p_beam(torch, np, m, saves0, players, n, mp, dev, key, "random", tag)
+    held = p2p_match(np, players, n, mp, P2P_TICKS, dev, script=held_script(np, P2P_TICKS, players))
+    _, beam_held = p2p_beam(torch, np, held, [(f, g()) for f, g in held.saves0], players, n, mp, dev, key,
+                            "held", tag)
+    k4 = beam_random["k4_launches"]
+
+    # a corrupted slot on peer 1 is reported as a desync
+    probe = p2p_match(np, players, n, mp, P2P_PROBE_TICKS, dev, corrupt_at=P2P_PROBE_AT)
+    reported = [sum(type(e).__name__ == "DesyncDetected" for e in ev) for ev in probe.events]
+    if not any(reported):
+        fail(f"{key}: a corrupted ring slot on peer 1 was reported by no peer")
+    print(f"{key}: corrupted ring slots on peer 1 at tick {P2P_PROBE_AT}: DesyncDetected per peer {reported}")
+
+    # K3 on a row of this match (the median rollback), then K4 on the
+    # beam's last speculation, each against its plain version, and timed
+    core, tc = peer0.core, peer0.core.tick_core
+    recorded = sorted(plain.core.tick_core.rows[1], key=lambda r: int(r[0, 2]))
+    rows = recorded[len(recorded) // 2]
+    timed = {k: v.clone() for k, v in core.carry.items()}
+    ptimed = {k: v.clone() for k, v in core.carry.items()}
+    his, los = tc.tick_multi(timed, rows)
+    p_his, p_los = plain_tick_multi(ptimed, rows, core)
+    err = max(carry_err(torch, {"h": his, "l": los}, {"h": p_his, "l": p_los}, "hl"),
+              carry_err(torch, timed, ptimed, keys))
+    if err:
+        fail(f"{key}: K3 and its plain version differ on the match's median row")
+    ms = queued_ms(torch, lambda: tc.tick_multi(timed, rows), P2P_TIMED_DISPATCHES)
+    plain_ms = events_ms(torch, lambda: plain_tick_multi(ptimed, rows, core), 1)
+    b_ms, b_by = tick_bound(rows.cpu().numpy(), n, core)
+    if beam._spec is None:
+        fail(f"{key}: the beam holds no speculation after the replay")
+    anchor, beam_inputs, _ = beam._spec
+    statuses = np.zeros(beam_inputs.shape[:3], dtype=np.int32)
+    br, bring, b_rf = beam.core.beam_rollout, beam.core.carry["ring"], beam.core.carry["r_frame"]
+    a_slot = anchor % beam.core.ring_len
+    script = br.script(beam_inputs, statuses)
+    t_in, t_st = torch.from_numpy(beam_inputs).to(dev), torch.from_numpy(statuses).to(dev)
+    k4_err = spec_err(torch, br.rollout(bring, b_rf, a_slot, script),
+                      plain_rollout(bring[a_slot], b_rf[a_slot], t_in, t_st, beam.core.ctx))
+    if k4_err:
+        fail(f"{key}: K4 and plain_rollout differ on the beam's last speculation")
+    k4_ms = queued_ms(torch, lambda: br.rollout(bring, b_rf, a_slot, script), P2P_TIMED_DISPATCHES)
+    k4_plain_ms = events_ms(torch, lambda: plain_rollout(bring[a_slot], b_rf[a_slot], t_in, t_st,
+                                                         beam.core.ctx), 1)
+    width, steps = beam_inputs.shape[:2]
+    k4_b_ms, k4_b_by = beam_bound(n, width, steps, players, 1)
+    print(f"{key}: K3 {ms:.4f} ms on the median row ({int(rows[0, 2])} advances) vs plain "
+          f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); K4 {k4_ms:.4f} ms a speculation "
+          f"(B={width} x L={steps}) vs plain {k4_plain_ms:.1f} ms, bound {k4_b_ms:.4f} ms ({k4_b_by}) {tag}")
+
+    run = {"key": key, "ticks": P2P_TICKS, "players": players, "k3_launches": launches, "loads": m.loads,
+           "deepest_rollback": max(m.depths), "dead_inputs": m.dead_inputs, "thresholds": m.thresholds,
+           "match_wall_s": m.wall_s, "k3_ms": ms, "peers": []}
+    for i in stayed + [P2P_LEAVE[1]]:
+        adv, hr = m.adv_ms[i], m.handle_ms[i]
+        busy = launches[i] * ms
+        run["peers"].append({
+            "peer": i, "ticks": len(adv),
+            "advance_frame_ms_p50": pct(adv, 50), "advance_frame_ms_p90": pct(adv, 90),
+            "handle_requests_ms_p50": pct(hr, 50), "handle_requests_ms_p90": pct(hr, 90),
+            # derived, not a trace: K3's device time (launches x the median
+            # row's time) over the peer's host time in advance_frame and
+            # handle_requests; K3 overlaps that host time
+            "k3_time_over_host_time": busy / max(sum(adv) + sum(hr), 1e-9),
+        })
+        p = run["peers"][-1]
+        print(f"{key} peer {i}: {p['ticks']} ticks; advance_frame p50 {p['advance_frame_ms_p50']:.4f} ms "
+              f"(p90 {p['advance_frame_ms_p90']:.4f}), handle_requests p50 {p['handle_requests_ms_p50']:.4f} ms "
+              f"(p90 {p['handle_requests_ms_p90']:.4f}); K3 time over host time "
+              f"{p['k3_time_over_host_time']:.4f} "
+              f"({launches[i]} K3 launches) {tag}")
+    run.update({"beam_width": P2P_BEAM, "beam": [beam_random, beam_held], "probe_desyncs": reported})
+    entries = [{
+        "name": "resim_tick", "route": "cuda", "source": "ggrs_tpu_torch/csrc/resim_tick.cu",
+        "replaces": "ggrs_tpu/tpu/pallas_resim.py:324",
+        "tpu_counterpart": "PallasTickCore._build + _scalar_pass",
+        "shape": f"ExGame({players}, {n}), max_prediction {mp}, the median P2P row ({int(rows[0, 2])} advances, "
+                 f"{key})",
+        "max_abs_err": err, "bit_equal": err == 0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "launches": sum(launches),
+    }, {
+        "name": "beam_rollout", "route": "cuda", "source": "ggrs_tpu_torch/csrc/beam_rollout.cu",
+        "replaces": "ggrs_tpu/tpu/pallas_beam.py:226",
+        "tpu_counterpart": "PallasBeamRollout._build + run_kernel + finish",
+        "shape": f"{n} entities, P={players}, B={width} x L={steps} ({key} peer 0's beam)",
+        "max_abs_err": k4_err, "bit_equal": k4_err == 0, "ms": k4_ms, "plain_ms": k4_plain_ms,
+        "bound_ms": k4_b_ms, "bound_by": k4_b_by, "library_ms": None, "launches": k4,
+    }]
+    return run, entries
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2908,11 +3315,15 @@ def main() -> None:
     checkpoints = checkpoint_phase(torch, np, dev, tag)
     mark("18")
 
+    # -- phase 19: the P2P path, configs[3] (K3 on every dispatch, K4 with the beam)
+    p2p_path, p2p_entries = p2p_phase(torch, np, dev, tag)
+    mark("19")
+
     for e in entries:
         e.pop("key")
     entries += tick_entries + beam_entries + arena_entries + arena_tick_entries + arena_beam_entries
     entries += list(swarm_fused.values()) + swarm_tick_entries + swarm_beam_entries + team_entries
-    entries += inline_entries
+    entries += inline_entries + p2p_entries
     print("chip_smoke: seconds a phase: " + ", ".join(f"{name} {t - marks[i][1]:.1f}"
                                                        for i, (name, t) in enumerate(marks[1:])))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s")
@@ -2921,7 +3332,7 @@ def main() -> None:
                       "arena_request_path": arena_request_path, "arena_beam_path": arena_beam_path,
                       "swarm_path": swarm_path, "swarm_request_path": swarm_request_path,
                       "swarm_beam_path": swarm_beam_path, "arena_inline_path": arena_inline_path,
-                      "inline_layout_ms": layouts, "checkpoints": checkpoints}))
+                      "inline_layout_ms": layouts, "checkpoints": checkpoints, "p2p_path": p2p_path}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

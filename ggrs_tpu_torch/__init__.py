@@ -17,8 +17,14 @@ kernels' 16-player cap. Slice 7 adds K2's inline whole-world arena route
 estimate) and durable checkpoints: `DeviceSyncTestSession.save`/`restore`
 and `DeviceRollbackBackend.save`/`restore` write and read the reference's
 .npz format (`utils/checkpoint.py`), so either stack resumes the other's
-files. The package imports torch and numpy, never jax and nothing of `ggrs_tpu`; its
-entry points run on CUDA unless the caller passes device="cpu".
+files. Slice 12 adds the P2P and spectator sessions with their network
+stack (`network/`: the wire codec, UDP and in-memory sockets, the per-peer
+protocol endpoint): `SessionBuilder().start_p2p_session(socket)` and
+`.start_spectator_session(host_addr, socket)` emit the reference's request
+streams and wire bytes, and a `DeviceRollbackBackend` fulfils them (K3 on
+every dispatch, K4 with the beam). The package imports torch and numpy,
+never jax and nothing of `ggrs_tpu`; its entry points run on CUDA unless
+the caller passes device="cpu".
 """
 
 from .device.backend import DeviceRollbackBackend, SnapshotRef
@@ -32,39 +38,82 @@ from .errors import (
     InvalidRequest,
     KernelError,
     MismatchedChecksum,
+    NotSynchronized,
     PredictionThreshold,
     RegistryMiss,
+    SpectatorTooFarBehind,
+    StatsWindowTooYoung,
     TypeContractError,
 )
+from .frame_info import GameState, PlayerInput
 from .models.arena import Arena
 from .models.ex_game import ExGame
 from .models.swarm import Swarm
 from .sessions.builder import SessionBuilder
 from .sessions.sync_test_session import SyncTestSession
-from .types import AdvanceFrame, InputStatus, LoadGameState, SaveGameState
+from .sync_layer import ConnectionStatus, GameStateCell
+from .types import (
+    NULL_FRAME,
+    AdvanceFrame,
+    DesyncDetected,
+    DesyncDetection,
+    Disconnected,
+    Frame,
+    InputStatus,
+    LoadGameState,
+    NetworkInterrupted,
+    NetworkResumed,
+    PlayerHandle,
+    PlayerType,
+    SaveGameState,
+    SessionState,
+    Synchronized,
+    Synchronizing,
+    WaitRecommendation,
+)
 
 __all__ = [
+    "NULL_FRAME",
     "AdvanceFrame",
     "Arena",
     "CheckpointIncompatible",
     "ConfigError",
+    "ConnectionStatus",
     "ContractViolation",
+    "DesyncDetected",
+    "DesyncDetection",
     "DeviceRollbackBackend",
     "DeviceSyncTestSession",
+    "Disconnected",
     "ExGame",
+    "Frame",
     "GGRSError",
+    "GameState",
+    "GameStateCell",
     "InputStatus",
     "InvalidRequest",
     "KernelError",
     "LoadGameState",
     "MismatchedChecksum",
+    "NetworkInterrupted",
+    "NetworkResumed",
+    "NotSynchronized",
+    "PlayerHandle",
+    "PlayerInput",
+    "PlayerType",
     "PredictionThreshold",
     "RegistryMiss",
     "ResimCore",
     "SaveGameState",
     "SessionBuilder",
+    "SessionState",
     "SnapshotRef",
+    "SpectatorTooFarBehind",
+    "StatsWindowTooYoung",
     "Swarm",
     "SyncTestSession",
+    "Synchronized",
+    "Synchronizing",
     "TypeContractError",
+    "WaitRecommendation",
 ]

@@ -31,11 +31,19 @@ bit-equal to a beam-off backend. `speculation_gate="adaptive"` chooses the
 launch width per tick from the measured idle time, the speculation cost
 `warmup()` measures and the trail of frames each launch served.
 
+The P2P session's desync detection asks each checksum getter whether
+reading it now would wait on the card (`ready`): True once its batch is on
+the host, on the CPU, and on CUDA when the current stream has no work left
+(a read goes through the ledger's flush, which copies every pending batch,
+the ones dispatched after this getter's too). A getter that is not ready
+is prefetched and read on a later pump pass; the report interval forces
+the read, and then it may wait.
+
 Left out (still to port, ROADMAP.md): `async_dispatch` with its in-flight
-fence, `save`/`restore`, meshes (and the sharded beam), the depth routing
-and the dispatch-signature plan cache (one kernel covers every depth, so
-nothing reads them yet), telemetry spans, and what only the P2P session
-reads (the ledger's non-blocking drain, the checksum getters' `ready` and
+fence, meshes (and the sharded beam), the depth routing and the
+dispatch-signature plan cache (one kernel covers every depth, so nothing
+reads them yet), telemetry spans, and what only the async pipeline and the
+serve host read (the ledger's non-blocking `drain_ready`, the getters'
 `dispatch_pending`).
 """
 
@@ -96,6 +104,17 @@ class _ChecksumBatch:
         self._event.record()
         self._host = host
 
+    @property
+    def ready(self) -> bool:
+        """True when resolve() will not wait on the card: the values are on
+        the host, or the current stream, which every pending batch of the
+        ledger's flush was dispatched on, has finished its work."""
+        return (
+            self._np is not None
+            or self._his.device.type != "cuda"
+            or torch.cuda.current_stream(self._his.device).query()
+        )
+
     def resolve(self, idx: int) -> int:
         if self._np is None and self._host is not None:
             # consume the prefetched copy directly
@@ -146,8 +165,8 @@ class ChecksumLedger:
 
 
 class _LazyChecksum:
-    """Zero-arg callable stored in a GameStateCell; supports background
-    prefetch."""
+    """Zero-arg callable stored in a GameStateCell; supports non-blocking
+    readiness checks and background prefetch."""
 
     __slots__ = ("_batch", "_idx")
 
@@ -160,6 +179,10 @@ class _LazyChecksum:
 
     def prefetch(self) -> None:
         self._batch.prefetch()
+
+    @property
+    def ready(self) -> bool:
+        return self._batch.ready
 
 
 class _FutureChecksumBatch:
@@ -187,6 +210,10 @@ class _FutureChecksumBatch:
         # dispatching the buffer is non-blocking, so an early prefetch can
         # force it: the copy then overlaps device execution
         self._ensure().prefetch()
+
+    @property
+    def ready(self) -> bool:
+        return self.batch is not None and self.batch.ready
 
 
 def parse_request_segment(

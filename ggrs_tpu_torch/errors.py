@@ -1,5 +1,7 @@
 """The typed errors of the port. `GGRSError`, `PredictionThreshold`,
-`InvalidRequest`, `MismatchedChecksum`, `ConfigError`, `TypeContractError`,
+`InvalidRequest`, `MismatchedChecksum`, `NotSynchronized`,
+`StatsWindowTooYoung`, `SpectatorTooFarBehind`, `ConfigError`,
+`DataFormatError`, `TypeContractError`,
 `ContractViolation`, `RegistryMiss`, `CheckpointIncompatible` and
 `ModelIncompatible` mirror the reference's classes, each with its stdlib
 base kept; `KernelError` is the port's own, for a CUDA kernel that does not
@@ -38,11 +40,33 @@ class MismatchedChecksum(GGRSError):
         self.expected = expected
 
 
+class NotSynchronized(GGRSError):
+    """The session has not finished synchronizing with all remotes."""
+
+
+class StatsWindowTooYoung(NotSynchronized):
+    """network_stats() was called before the first full second of the stats
+    window elapsed — the kbps figures would divide by zero. A subclass of
+    NotSynchronized so catch-all callers keep working, but
+    distinguishable: the endpoint IS synchronized, just too fresh to
+    report rates."""
+
+
+class SpectatorTooFarBehind(GGRSError):
+    """The spectator fell further behind the host than its input buffer can
+    cover; catching up is impossible."""
+
+
 class ConfigError(GGRSError, ValueError):
     """Invalid configuration or argument value at a construction/setup
     seam (no CUDA device where one is required, an unknown backend, a
     tensor of the wrong device, dtype or shape). The ValueError face keeps
     stdlib-style callers working."""
+
+
+class DataFormatError(GGRSError, ValueError):
+    """Malformed bytes at a decode seam (a truncated varint, a bad RLE
+    run). ValueError face preserved."""
 
 
 class TypeContractError(GGRSError, TypeError):

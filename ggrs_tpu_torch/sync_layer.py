@@ -1,6 +1,7 @@
-"""Rollback bookkeeping: snapshot ring + per-player input queues (the
-reference's `sync_layer.py`, copied without its telemetry, its native input
-queues and the P2P-only pending checksum reports).
+"""Rollback bookkeeping: snapshot ring + per-player input queues, and the
+P2P session's deferred desync-detection reports (the reference's
+`sync_layer.py`, copied without its telemetry, its native input queues and
+the pickling hooks its fleet tickets use).
 
 The snapshot ring holds ``max_prediction + 2`` cells addressed by
 ``frame % len``; save/load are *requests* fulfilled by the caller, so state
@@ -11,6 +12,7 @@ on the device backend (`ggrs_tpu_torch.device.backend`).
 from __future__ import annotations
 
 import threading
+from collections import deque
 from typing import Any, List, Optional, Sequence, Tuple
 
 from .errors import PredictionThreshold
@@ -102,6 +104,94 @@ class GameStateCell:
                 return self._checksum_fn
             value = self._state.checksum
             return lambda: value
+
+
+class PendingChecksumReport:
+    """Deferred desync-detection reports of a P2P session.
+
+    Capture the *cell* at tick t; bind its checksum getter on the first
+    flush attempt — one tick later at the earliest, once the capturing
+    tick's requests are fulfilled and the cell holds the converged value
+    (reading it in the same tick can publish a mid-correction checksum and
+    raise false desyncs); then keep the getter, because getters are stable
+    across later overwrites of the reused ring slot
+    (GameStateCell.checksum_getter) while the cell itself is not.
+
+    Several reports can be outstanding at once (a queue): they drain in
+    capture (frame) order, emitting every host-ready value in one pass; a
+    not-yet-ready head starts a background prefetch and stops the drain —
+    nothing forces a device wait until `force` bounds the delay to one
+    desync interval. Reports whose ring slot was reused before the first
+    read are dropped."""
+
+    # outstanding-report bound: ~two ring rotations of observations
+    MAX_PENDING = 16
+
+    __slots__ = ("_pending",)
+
+    def __init__(self) -> None:
+        self._pending = deque()
+
+    def __len__(self) -> int:
+        return len(self._pending)
+
+    def capture(self, frame: Frame, cell: GameStateCell, serial: int = 0) -> None:
+        """`serial` stamps the capturing tick (a monotonic advance
+        counter): non-forced flushes can then skip entries whose
+        capturing tick's requests may not be fulfilled yet (see
+        `max_serial` below)."""
+        self._pending.append([frame, cell, None, serial])
+        while len(self._pending) > self.MAX_PENDING:
+            self._pending.popleft()
+
+    def _bind(self, max_serial: Optional[int]) -> None:
+        """Bind a getter for every queued old-enough report (binding is
+        cheap and non-blocking, and a younger report's slot can be
+        overwritten while an older value is still in flight), dropping
+        entries whose ring slot was reused before the first read."""
+        bound = deque()
+        for entry in self._pending:
+            frame, cell, getter, serial = entry
+            if getter is None:
+                if max_serial is not None and serial > max_serial:
+                    bound.append(entry)  # too fresh to bind yet
+                    continue
+                if cell.frame != frame:  # ring slot reused before read
+                    continue
+                entry[2] = cell.checksum_getter()
+            bound.append(entry)
+        self._pending = bound
+
+    def flush(self, force: bool, emit, max_serial: Optional[int] = None) -> int:
+        """emit(frame, checksum) is called at most once per captured report,
+        in capture order. Returns the number of reports that were resolved
+        while NOT host-ready — forced resolutions that waited on a device
+        transfer.
+
+        `max_serial` (pump-side, non-forced drains): only entries whose
+        capture serial is <= it are bound/resolved — a report captured at
+        tick t covers a frame whose *correcting* rollback may still sit
+        in tick t's unfulfilled request list, so an opportunistic mid-run
+        flush stays a couple of advances behind the capture frontier; the
+        interval-forced flush passes None and drains everything."""
+        self._bind(max_serial)
+        blocked = 0
+        while self._pending:
+            frame, _cell, getter, serial = self._pending[0]
+            if getter is None:  # still inside the serial guard
+                return blocked
+            if not getattr(getter, "ready", True):
+                if not force:
+                    prefetch = getattr(getter, "prefetch", None)
+                    if callable(prefetch):
+                        prefetch()
+                    return blocked
+                blocked += 1
+            self._pending.popleft()
+            checksum = getter()
+            if checksum is not None:
+                emit(frame, checksum)
+        return blocked
 
 
 class SavedStates:

@@ -1,19 +1,29 @@
 """Core types the port needs, copied from the reference's session layer
-(the port keeps its own copies and imports nothing of `ggrs_tpu`): the
-per-input status enum, frames and player handles, and the three requests
-a session emits for its rollback backend to fulfil in order."""
+(the port keeps its own copies and imports nothing of `ggrs_tpu`): session
+states, player types, the desync-detection config, the per-input status
+enum, frames and player handles, the events a P2P or spectator session
+reports, and the three requests a session emits for its rollback backend
+to fulfil in order. Left out: the events' flight-recorder mixin
+(`SessionEvent.kind`/`to_dict`), as the port has no telemetry."""
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Any, Sequence, Tuple
+from typing import Any, Sequence, Tuple, Union
 
 # -1 represents no frame / an invalid frame.
 NULL_FRAME: int = -1
 
 Frame = int
 PlayerHandle = int
+
+
+class SessionState(enum.Enum):
+    """State of a session."""
+
+    SYNCHRONIZING = "synchronizing"
+    RUNNING = "running"
 
 
 class InputStatus(enum.IntEnum):
@@ -25,6 +35,109 @@ class InputStatus(enum.IntEnum):
     CONFIRMED = 0
     PREDICTED = 1
     DISCONNECTED = 2
+
+
+class PlayerTypeKind(enum.Enum):
+    LOCAL = "local"
+    REMOTE = "remote"
+    SPECTATOR = "spectator"
+
+
+@dataclass(frozen=True)
+class PlayerType:
+    """Local player, remote player or spectator.
+
+    ``addr`` is the opaque, hashable transport address for remote
+    players/spectators; it is None for local players.
+    """
+
+    kind: PlayerTypeKind
+    addr: Any = None
+
+    @staticmethod
+    def local() -> "PlayerType":
+        return PlayerType(PlayerTypeKind.LOCAL)
+
+    @staticmethod
+    def remote(addr: Any) -> "PlayerType":
+        return PlayerType(PlayerTypeKind.REMOTE, addr)
+
+    @staticmethod
+    def spectator(addr: Any) -> "PlayerType":
+        return PlayerType(PlayerTypeKind.SPECTATOR, addr)
+
+
+@dataclass(frozen=True)
+class DesyncDetection:
+    """Checksum-exchange desync detection config."""
+
+    enabled: bool = False
+    interval: int = 0
+
+    @staticmethod
+    def off() -> "DesyncDetection":
+        return DesyncDetection(False, 0)
+
+    @staticmethod
+    def on(interval: int) -> "DesyncDetection":
+        return DesyncDetection(True, interval)
+
+
+# ---------------------------------------------------------------------------
+# Events a P2P or spectator session reports (read with `session.events()`)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Synchronizing:
+    addr: Any
+    total: int
+    count: int
+
+
+@dataclass(frozen=True)
+class Synchronized:
+    addr: Any
+
+
+@dataclass(frozen=True)
+class Disconnected:
+    addr: Any
+
+
+@dataclass(frozen=True)
+class NetworkInterrupted:
+    addr: Any
+    disconnect_timeout_ms: int
+
+
+@dataclass(frozen=True)
+class NetworkResumed:
+    addr: Any
+
+
+@dataclass(frozen=True)
+class WaitRecommendation:
+    skip_frames: int
+
+
+@dataclass(frozen=True)
+class DesyncDetected:
+    frame: Frame
+    local_checksum: int
+    remote_checksum: int
+    addr: Any
+
+
+Event = Union[
+    Synchronizing,
+    Synchronized,
+    Disconnected,
+    NetworkInterrupted,
+    NetworkResumed,
+    WaitRecommendation,
+    DesyncDetected,
+]
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 raises a typed error, and, on a card only, each kernel equals its plain
 PyTorch version bit for bit after every batch (K1, K2), dispatch (K3),
 speculation (K4) or table (K5), for ex_game, arena (past 16 teams too)
-and swarm.
+and swarm; and a P2P match on the card equals its replay on the plain
+versions.
 
 This file imports no jax, so on a machine with a card and no jax it runs
 without the suite's conftest:
@@ -14,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import TICK_STREAMS, VERDICT_STREAMS, prime_row, random_tick_rows, tick_stream, verdict_stream
+from chip_smoke import (
+    TICK_STREAMS, VERDICT_STREAMS, p2p_match, p2p_replay, prime_row, random_tick_rows, tick_stream, verdict_stream,
+)
 from ggrs_tpu_torch import (
     Arena, DeviceRollbackBackend, DeviceSyncTestSession, ExGame, KernelError, SaveGameState, SessionBuilder,
     Swarm,
@@ -782,3 +785,24 @@ def test_swarm_paths_match_cpu_on_card(cuda_card):
     assert runs[0][1] + runs[0][2] > 0
     for k in ("frame", "pos", "vel", "charge"):
         assert np.array_equal(runs[0][4][k], runs[1][4][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lazy", [0, 5])
+def test_p2p_match_matches_plain_on_card(cuda_card, lazy):
+    """A short 2-player P2P match (port sessions on an in-memory network with
+    latency, jitter and loss) with both peers on the card: peer 0's
+    recorded stream replayed on the plain versions on the CPU gives every
+    save's checksum, the state and the ring; no desync is reported."""
+    m = p2p_match(np, 2, 1024, 8, 80, "cuda", lazy=lazy)
+    for b in m.backends:
+        b.block_until_ready()
+    assert m.loads > 10 and all(b.core.tick_core.launches > 0 for b in m.backends)
+    assert not any(type(e).__name__ == "DesyncDetected" for ev in m.events for e in ev)
+    cpu = DeviceRollbackBackend(ExGame(2, 1024), 8, 2, lazy_ticks=lazy, device="cpu")
+    saves, _ = p2p_replay(m.stream, cpu)
+    cpu.flush()
+    assert [(f, g()) for f, g in saves] == [(f, g()) for f, g in m.saves0]
+    card = m.backends[0].core.carry
+    for k, v in cpu.core.carry.items():
+        assert torch.equal(v, card[k].cpu()), k
