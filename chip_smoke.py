@@ -198,7 +198,37 @@ NVIDIA card (written for an H100). Run from the repository root:
    the K3 launches, loads and the deepest rollback, the beam's adopted share
    and beam-on against beam-off ms a tick; K3 (the match's median row) and
    K4 (the beam's last speculation) against their plain versions, timed.
-20. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
+   Then the async arm: the match again with every session publishing
+   checksums at the interval (`checksum_publish = "interval"`), every peer
+   eager and then every peer on `DeviceRollbackBackend(async_dispatch=
+   True)`: the same request streams, every save's checksum and the
+   confirmed checksums equal (and equal to the first match's on the frames
+   both hold), 0 desyncs; host ms a tick of `advance_frame` and
+   `handle_requests` for both arms, the fence's stalls, the card's idle
+   share of each arm from a torch.profiler trace of a second run, and
+   peer 0's host tick under cProfile (the top functions by cumulative
+   time) in a third.
+20. The cross-session megabatch core (mb64_4096): the request streams of 16
+   four-peer P2P matches of 140 ticks (ExGame(4, 4096), max_prediction 8,
+   P2P_NET with a seed a match; bench.py:1785's 64 sessions) on one
+   `MultiSessionDeviceCore` of 64 slots: each host tick every session's
+   requests parsed (`parse_request_segment`) into packed rows, the fast
+   rows as one megabatch, then one megabatch per occupied depth bucket, a
+   session's second row in the next round; each megabatch one launch of
+   K3's stacked entry, whose launch count is set to 0 before and must equal
+   the megabatches after. Every 24th host tick's megabatches (and each
+   kind's first) against plain_megabatch on a clone of the stack; every
+   save's checksum and the final stacked rings and states against each
+   session's solo `DeviceRollbackBackend` replay and its live match; at
+   tick 120 every slot exported into another slot of a second core, and
+   the last 20 ticks on both, equal. Prints the megabatches, rows and
+   launches, device ms a megabatch by kind (each recorded megabatch
+   replayed alone, queued behind a spin; p50, p90), and session-ticks per
+   second over the first 120 ticks beside the same ticks through 64 solo
+   backends. Then, parity only, 8 slots of Swarm(4, 4096) through the
+   stacked swarm entry and 8 of Arena(4, 4096) through a K3-arena launch a
+   row, every megabatch against plain_megabatch.
+21. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
    as the last line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the result lines. Without a CUDA device,
@@ -603,7 +633,22 @@ def carry_err(torch, a, b, keys) -> int:
 
 
 def tick_bound(rows, n, core):
-    """Least ms of one K3 dispatch of these rows, vs 69 int32 ops per
+    """Least ms of one K3 dispatch of these rows (`tick_work` over the
+    rates)."""
+    return least(*tick_work(rows, n, core))
+
+
+def megabatch_bound(rows, n, core, nslots):
+    """Least ms of one megabatch: every row on its own world, cut to
+    `nslots` window slots (`tick_work` of each, summed)."""
+    from ggrs_tpu_torch.device.tick_core import windowed_row
+
+    work = [tick_work(windowed_row(r, nslots, core)[None], n, core) for r in rows]
+    return least(sum(b for b, _ in work), sum(o for _, o in work))
+
+
+def tick_work(rows, n, core):
+    """(bytes, int32 ops) of one K3 dispatch of these rows, vs 69 int32 ops per
     entity-advance and 15 per entity-save for ex_game, 64 + 6 per
     entity-advance (the step and its reduction) and 18 per entity-save for
     arena (over the int32 peak). Bytes (over the HBM rate) count only what
@@ -633,8 +678,7 @@ def tick_bound(rows, n, core):
     else:
         _, step_ops, save_ops = MODEL_COST[body_suffix(type(core.game))]
         ops = n * (advances * getattr(core.game, "substeps", 1) * step_ops + saves * save_ops)
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+    return nbytes, ops
 
 
 # crafted event streams for the first-seen verdict (K2's verdict kernel and
@@ -881,6 +925,28 @@ def prime_row(core):
     W, P, I = core.window, core.num_players, core.game.input_size
     return core.pack_tick_row(False, 0, np.zeros((W, P, I), np.uint8), np.zeros((W, P), np.int32),
                               np.arange(W, dtype=np.int32), 0)
+
+
+def row_last_active(core, row) -> int:
+    """A packed row's 1-based last active slot: its advances and its
+    highest real save (what `parse_request_segment` returns)."""
+    saves = [i for i in range(core.window) if int(row[core.off_save + i]) < core.ring_len]
+    return max(int(row[2]), 1, saves[-1] + 1 if saves else 0)
+
+
+def megabatch_ticks(mcore, n_ticks: int, seed: int, mod: int = 16, prime: bool = False):
+    """Seeded session-shaped host ticks for a MultiSessionDeviceCore: slot s
+    plays `random_tick_args` with seed + s (spin-up, rollbacks of random
+    depth, skipped and trailing saves, DISCONNECTED slots), one row a slot
+    a tick; `prime` puts a `prime_row` first (arena: every slot then holds
+    a living world). Returns [[(slot, row, last_active)] a tick]."""
+    core = mcore.core
+    per_slot = []
+    for s in range(mcore.capacity):
+        rows = list(random_tick_rows(core, n_ticks - int(prime), seed + s, mod))
+        per_slot.append(([prime_row(core)] if prime else []) + rows)
+    return [[(s, per_slot[s][t], row_last_active(core, per_slot[s][t])) for s in range(mcore.capacity)]
+            for t in range(n_ticks)]
 
 
 class PlainTick:
@@ -2693,10 +2759,13 @@ P2P_DRAIN_TICKS = 40  # ticks of polling after the match, the spectator still ad
 P2P_BEAM = 16
 P2P_PROBE_TICKS, P2P_PROBE_AT = 100, 60  # the corruption probe's match
 P2P_TIMED_DISPATCHES = 200
+P2P_RANGE = "p2p_ticks"  # the profiler range around a match's tick loop
+P2P_PROFILE_TOP = 14  # functions of peer 0's host tick printed by cumulative time
 
 
 def p2p_match(np, players, n, mp, ticks, dev, *, lazy=0, leave=None, spectator=False, corrupt_at=None,
-              seed=5, script=None):
+              seed=5, script=None, async_dispatch=False, publish="ready", net_seed=None, record_all=False,
+              profile=None, mark=False):
     """One P2P match of `players` port sessions, peer i holding handle i,
     each on its own DeviceRollbackBackend on `dev`, desync detection on, on
     an InMemoryNetwork (P2P_NET) and a FakeClock advanced P2P_TICK_MS a
@@ -2713,7 +2782,14 @@ def p2p_match(np, players, n, mp, ticks, dev, *, lazy=0, leave=None, spectator=F
     sessions and backends, peer 0's recorded stream (each tick's requests
     as (kind, frame, cell key) or ("AdvanceFrame", inputs)) and its saves'
     checksum getters, host ms a tick per peer, events, loads and rollback
-    depths."""
+    depths. `async_dispatch`: every peer's backend runs the async pipeline;
+    `publish`: every session's `checksum_publish` ("interval" makes the
+    wire bytes independent of when checksums become ready); `net_seed`:
+    the network's seed in place of P2P_NET's; `record_all`: every peer's
+    stream and save getters (`streams`, `saves`), not only peer 0's;
+    `profile`: a cProfile.Profile enabled around peer 0's advance_frame and
+    handle_requests; `mark`: the tick loop runs inside a torch.profiler
+    range named P2P_RANGE."""
     import random
     from types import SimpleNamespace
 
@@ -2723,7 +2799,7 @@ def p2p_match(np, players, n, mp, ticks, dev, *, lazy=0, leave=None, spectator=F
     from ggrs_tpu_torch.utils.clock import FakeClock
 
     clock = FakeClock()
-    net = InMemoryNetwork(clock, **P2P_NET)
+    net = InMemoryNetwork(clock, **dict(P2P_NET, **({} if net_seed is None else {"seed": net_seed})))
     addrs = [f"peer{i}" for i in range(players)]
     sessions, backends = [], []
     for i in range(players):
@@ -2735,7 +2811,9 @@ def p2p_match(np, players, n, mp, ticks, dev, *, lazy=0, leave=None, spectator=F
         if spectator and i == 0:
             b = b.add_player(PlayerType.spectator("spectator"), players)
         sessions.append(b.start_p2p_session(net.socket(addrs[i])))
-        backends.append(DeviceRollbackBackend(ExGame(players, n), mp, players, lazy_ticks=lazy, device=dev))
+        sessions[-1].checksum_publish = publish
+        backends.append(DeviceRollbackBackend(ExGame(players, n), mp, players, lazy_ticks=lazy,
+                                              async_dispatch=async_dispatch, device=dev))
     spec = spec_backend = None
     if spectator:
         spec = (SessionBuilder(input_size=1).with_num_players(players).with_clock(clock)
@@ -2757,7 +2835,8 @@ def p2p_match(np, players, n, mp, ticks, dev, *, lazy=0, leave=None, spectator=F
     out = SimpleNamespace(sessions=sessions, backends=backends, spectator=spec, spec_backend=spec_backend,
                           stream=[], saves0=[], adv_ms=[[] for _ in sessions], handle_ms=[[] for _ in sessions],
                           events=[[] for _ in sessions], loads=0, depths=[], thresholds=0,
-                          disconnected_at=None, dead_inputs=0, spec_frames=0, wall_s=0.0)
+                          disconnected_at=None, dead_inputs=0, spec_frames=0, wall_s=0.0,
+                          streams=[[] for _ in sessions], saves=[[] for _ in sessions])
 
     def spectate():
         try:
@@ -2770,6 +2849,12 @@ def p2p_match(np, players, n, mp, ticks, dev, *, lazy=0, leave=None, spectator=F
     for backend in backends + ([spec_backend] if spec else []):
         backend.core.tick_core.launches = 0
     gone = None
+    span = None
+    if mark:
+        import torch
+
+        span = torch.profiler.record_function(P2P_RANGE)
+        span.__enter__()
     started = time.perf_counter()
     for t in range(ticks):
         if leave is not None and t == leave[0]:
@@ -2793,15 +2878,22 @@ def p2p_match(np, players, n, mp, ticks, dev, *, lazy=0, leave=None, spectator=F
                 continue
             sess.add_local_input(i, bytes([int(script[t, i])]))
             before = sess.current_frame
+            profiled = profile is not None and i == 0
+            if profiled:
+                profile.enable()
             t0 = time.perf_counter()
             try:
                 requests = sess.advance_frame()
             except PredictionThreshold:
                 out.thresholds += 1
+                if profiled:
+                    profile.disable()
                 continue
             t1 = time.perf_counter()
             backends[i].handle_requests(requests)
             t2 = time.perf_counter()
+            if profiled:
+                profile.disable()
             out.adv_ms[i].append((t1 - t0) * 1e3)
             out.handle_ms[i].append((t2 - t1) * 1e3)
             out.events[i] += sess.events()
@@ -2812,15 +2904,18 @@ def p2p_match(np, players, n, mp, ticks, dev, *, lazy=0, leave=None, spectator=F
                     out.depths.append(before - r.frame)
                 elif kind == "AdvanceFrame":
                     out.dead_inputs += sum(int(s) == 2 for _, s in r.inputs)
-            if i == 0:
-                out.stream.append([("AdvanceFrame", list(r.inputs)) if type(r).__name__ == "AdvanceFrame"
-                                   else (type(r).__name__, r.frame, id(r.cell)) for r in requests])
-                out.saves0 += [(r.frame, r.cell.checksum_getter()) for r in requests
-                               if type(r).__name__ == "SaveGameState"]
+            if i == 0 or record_all:
+                out.streams[i].append([("AdvanceFrame", list(r.inputs)) if type(r).__name__ == "AdvanceFrame"
+                                       else (type(r).__name__, r.frame, id(r.cell)) for r in requests])
+                out.saves[i] += [(r.frame, r.cell.checksum_getter()) for r in requests
+                                 if type(r).__name__ == "SaveGameState"]
         if spec is not None:
             spectate()
         clock.advance(P2P_TICK_MS)
     out.wall_s = time.perf_counter() - started
+    if span is not None:
+        span.__exit__(None, None, None)
+    out.stream, out.saves0 = out.streams[0], out.saves[0]
     if leave is not None and out.disconnected_at is None:
         fail("p2p: the leaving peer was never disconnected")
     for _ in range(P2P_DRAIN_TICKS if spec is not None else 0):
@@ -2834,21 +2929,30 @@ def p2p_match(np, players, n, mp, ticks, dev, *, lazy=0, leave=None, spectator=F
     return out
 
 
+def stream_requests(tick, cells):
+    """One recorded tick of a P2P stream as request objects, on the cells
+    of `cells` (cell key -> GameStateCell, filled as keys appear)."""
+    from ggrs_tpu_torch import AdvanceFrame, GameStateCell, LoadGameState, SaveGameState
+
+    requests = []
+    for kind, *rest in tick:
+        if kind == "AdvanceFrame":
+            requests.append(AdvanceFrame(inputs=rest[0]))
+        else:
+            frame, key = rest
+            cls = SaveGameState if kind == "SaveGameState" else LoadGameState
+            requests.append(cls(cell=cells.setdefault(key, GameStateCell()), frame=frame))
+    return requests
+
+
 def p2p_replay(stream, backend):
     """Fulfil a recorded stream tick by tick with `backend`, on cells of its
     own; returns (every save's (frame, checksum getter), host ms a tick)."""
-    from ggrs_tpu_torch import AdvanceFrame, GameStateCell, LoadGameState, SaveGameState
+    from ggrs_tpu_torch import SaveGameState
 
     cells, saves, host_ms = {}, [], []
     for tick in stream:
-        requests = []
-        for kind, *rest in tick:
-            if kind == "AdvanceFrame":
-                requests.append(AdvanceFrame(inputs=rest[0]))
-            else:
-                frame, key = rest
-                cls = SaveGameState if kind == "SaveGameState" else LoadGameState
-                requests.append(cls(cell=cells.setdefault(key, GameStateCell()), frame=frame))
+        requests = stream_requests(tick, cells)
         t0 = time.perf_counter()
         backend.handle_requests(requests)
         host_ms.append((time.perf_counter() - t0) * 1e3)
@@ -2906,6 +3010,138 @@ def p2p_beam(torch, np, m, saves0, players, n, mp, dev, key, what, tag):
           f"{summary['beam_off_ms_p50']:.4f} (p90 {summary['beam_off_ms_p90']:.4f}) off; saves and core equal "
           f"to the beam-off twin's {tag}")
     return beam, summary
+
+
+def idle_share(torch, prof, name=P2P_RANGE):
+    """(the card's idle share, busy ms, window ms, device events) over the
+    profiler range `name`: 1 - the union of the device-side events
+    (kernels, copies, memsets) inside it over its length; the range's own
+    device-side annotation, which spans it whole, is not device work. None
+    for the share when the trace holds no device event."""
+    events = prof.events()
+
+    def on_device(e):
+        return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+    window = [e for e in events if e.name == name and not on_device(e)]
+    if not window:
+        return None, 0.0, 0.0, 0
+    w0, w1 = window[0].time_range.start, window[0].time_range.end
+    spans = sorted((max(e.time_range.start, w0), min(e.time_range.end, w1)) for e in events
+                   if on_device(e) and e.name != name and e.time_range.end > w0 and e.time_range.start < w1)
+    busy, end = 0.0, w0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if not spans:
+        return None, 0.0, (w1 - w0) / 1e3, 0
+    return 1.0 - busy / (w1 - w0), busy / 1e3, (w1 - w0) / 1e3, len(spans)
+
+
+def p2p_async_arm(torch, np, dev, tag, ready):
+    """The P2P phase's async arm: the match of the P2P phase with every
+    session publishing checksums at the interval (`checksum_publish =
+    "interval"`, so the wire bytes do not depend on when values are ready),
+    once with every peer eager and once with every peer on the async
+    pipeline: the same request streams, every save's checksum and the
+    confirmed checksums equal (and equal to the `ready` match's on the
+    frames both hold), no desync; host ms a tick of each, the fence's
+    stalls; the card's idle share of each from a torch.profiler trace of a
+    second run; and a cProfile of peer 0's host tick in a third."""
+    import cProfile
+    import io
+    import pstats
+
+    players, n, mp = P2P_PLAYERS, P2P_N, P2P_MP
+    stayed = [i for i in range(players) if i != P2P_LEAVE[1]]
+
+    def pct(v, q):
+        v = sorted(v)
+        return v[min(len(v) - 1, (len(v) * q) // 100)]
+
+    def run(asynch, **kw):
+        torch.cuda.synchronize()
+        m = p2p_match(np, players, n, mp, P2P_TICKS, dev, leave=P2P_LEAVE, publish="interval",
+                      async_dispatch=asynch, record_all=True, **kw)
+        for b in m.backends:
+            b.block_until_ready()
+        return m
+
+    def kinds(stream):
+        return [[r if r[0] == "AdvanceFrame" else r[:2] for r in tick] for tick in stream]
+
+    arms = {"eager": run(False), "async": run(True)}
+    e, a = arms["eager"], arms["async"]
+    for name, m in arms.items():
+        desyncs = sum(type(ev).__name__ == "DesyncDetected" for evs in m.events for ev in evs)
+        launches = [b.core.tick_core.launches for b in m.backends]
+        if desyncs or min(launches) < 1:
+            fail(f"{P2P_KEY} {name} arm: {desyncs} desyncs, K3 launches {launches}")
+    if any(kinds(x) != kinds(y) for x, y in zip(e.streams, a.streams)):
+        fail(f"{P2P_KEY}: the async arm's request streams differ from the eager arm's")
+    if any([(f, g()) for f, g in x] != [(f, g()) for f, g in y] for x, y in zip(e.saves, a.saves)):
+        fail(f"{P2P_KEY}: the async arm's save checksums differ from the eager arm's")
+    eh = [e.sessions[i].local_checksum_history for i in stayed]
+    ah = [a.sessions[i].local_checksum_history for i in stayed]
+    shared = set.intersection(*(set(h) for h in eh))
+    if eh != ah or len(shared) < 3 or any(h[f] != eh[0][f] for h in eh for f in shared):
+        fail(f"{P2P_KEY}: the arms' confirmed checksums differ, or the peers disagree")
+    rh = [ready.sessions[i].local_checksum_history for i in stayed]
+    common = sum(len(set(x) & set(y)) for x, y in zip(eh, rh))
+    if common < 3 or any(x[f] != y[f] for x, y in zip(eh, rh) for f in set(x) & set(y)):
+        fail(f"{P2P_KEY}: the interval-published confirmed checksums differ from the ready-published match's")
+    histories = eh
+    fence = [b.fence for b in a.backends]
+    out = {"ticks": P2P_TICKS, "confirmed_checksums": sum(map(len, histories)), "common_with_ready": common,
+           "fence_stalls": sum(f.stalls for f in fence), "fence_stall_ms": sum(f.stall_s for f in fence) * 1e3,
+           "async_launches": [b.core.tick_core.launches for b in a.backends],
+           "eager_launches": [b.core.tick_core.launches for b in e.backends], "arms": {}}
+    for name, m in arms.items():
+        adv = [x for i in stayed for x in m.adv_ms[i]]
+        hr = [x for i in stayed for x in m.handle_ms[i]]
+        out["arms"][name] = {"advance_frame_ms_p50": pct(adv, 50), "advance_frame_ms_p90": pct(adv, 90),
+                             "handle_requests_ms_p50": pct(hr, 50), "handle_requests_ms_p90": pct(hr, 90),
+                             "wall_s": m.wall_s}
+    del arms, e, a
+
+    # the idle share, from a trace of each arm
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, asynch in (("eager", False), ("async", True)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            m = run(asynch, mark=True)
+        share, busy, window, count = idle_share(torch, prof)
+        out["arms"][name].update(idle_share=share, device_busy_ms=busy, traced_window_ms=window,
+                                 device_events=count, traced_wall_s=m.wall_s)
+        del prof, m
+
+    # where peer 0's host tick goes
+    for name, asynch in (("eager", False), ("async", True)):
+        pr = cProfile.Profile()
+        run(asynch, profile=pr)
+        text = io.StringIO()
+        pstats.Stats(pr, stream=text).strip_dirs().sort_stats("cumulative").print_stats(P2P_PROFILE_TOP)
+        lines = [ln for ln in text.getvalue().splitlines() if ln.strip()]
+        start = next((k for k, ln in enumerate(lines) if ln.lstrip().startswith("ncalls")), 0)
+        print(f"{P2P_KEY} {name} arm, peer 0's advance_frame + handle_requests under cProfile, top "
+              f"{P2P_PROFILE_TOP} by cumulative time:")
+        for ln in lines[start : start + P2P_PROFILE_TOP + 1]:
+            print(f"  {ln}")
+
+    for name in ("eager", "async"):
+        x = out["arms"][name]
+        share = "not measured (no device event in the trace)" if x["idle_share"] is None else \
+            (f"{x['idle_share']:.4f} ({x['device_events']} device events, {x['device_busy_ms']:.3f} ms busy in "
+             f"{x['traced_window_ms']:.1f} ms traced)")
+        print(f"{P2P_KEY} {name} arm (checksum_publish interval): advance_frame p50 {x['advance_frame_ms_p50']:.4f} "
+              f"ms (p90 {x['advance_frame_ms_p90']:.4f}), handle_requests p50 {x['handle_requests_ms_p50']:.4f} ms "
+              f"(p90 {x['handle_requests_ms_p90']:.4f}) over peers {stayed}; the card's idle share {share} {tag}")
+    print(f"{P2P_KEY}: the async arm equals the eager arm (request streams, every save's checksum, "
+          f"{out['confirmed_checksums']} confirmed checksums; {out['common_with_ready']} of them equal to the ready "
+          f"match's), 0 desyncs; K3 launches {out['async_launches']} async vs {out['eager_launches']} eager; fence "
+          f"stalls {out['fence_stalls']} ({out['fence_stall_ms']:.3f} ms) {tag}")
+    return out
 
 
 def p2p_phase(torch, np, dev, tag):
@@ -3046,6 +3282,7 @@ def p2p_phase(torch, np, dev, tag):
               f"{p['k3_time_over_host_time']:.4f} "
               f"({launches[i]} K3 launches) {tag}")
     run.update({"beam_width": P2P_BEAM, "beam": [beam_random, beam_held], "probe_desyncs": reported})
+    run["async_arm"] = p2p_async_arm(torch, np, dev, tag, m)
     entries = [{
         "name": "resim_tick", "route": "cuda", "source": "ggrs_tpu_torch/csrc/resim_tick.cu",
         "replaces": "ggrs_tpu/tpu/pallas_resim.py:324",
@@ -3063,6 +3300,353 @@ def p2p_phase(torch, np, dev, tag):
         "bound_ms": k4_b_ms, "bound_by": k4_b_by, "library_ms": None, "launches": k4,
     }]
     return run, entries
+
+
+# -- the cross-session megabatch core (MultiSessionDeviceCore) ------------
+
+MB_KEY = "mb64_4096"
+# bench.py:1785 bench_serve_host: 64 sessions, max_prediction 8, the 4-player
+# host layout; BASELINE.json configs[1]'s 4096-entity world, configs[3]'s 4
+# players; the P2P phase's network (P2P_NET), a seed a match
+MB_MATCHES, MB_PLAYERS, MB_N, MB_MP = 16, 4, 4096, 8
+MB_TICKS, MB_MIGRATE_AT = 140, 120  # host ticks recorded; the slots migrate to a second core at 120
+MB_PLAIN_EVERY = 24  # every 24th host tick's megabatches (and each kind's first) held against plain_megabatch
+MB_TIMED = 40  # recorded megabatches of each kind timed alone, queued behind a spin
+MB_SLICES = [("mb8_swarm", "Swarm", 128), ("mb8_arena", "Arena", 64)]  # parity only: 8 slots, 20 host ticks
+MB_SLICE_TICKS = 20
+
+
+class MegabatchRecorder:
+    """Stands in for a MultiSessionDeviceCore's StackedTickCore: keeps each
+    launch's arguments (and the megabatch's depth key, set by `mb_drive`)
+    so the recorded megabatches can be timed alone afterwards."""
+
+    def __init__(self, tick_core):
+        self.tick_core = tick_core
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self.tick_core, name)
+
+    def tick(self, stack, idx, rows, nslots, b_rows, slots=None):
+        # copies: on the CPU the staged words are the pool's own buffer
+        self.calls.append([idx.clone(), rows.clone(), nslots, b_rows, slots, None])
+        return self.tick_core.tick(stack, idx, rows, nslots, b_rows, slots=slots)
+
+
+def mb_drive(torch, np, mcore, streams, t0, t1, cells, frames, saves, *, slot_of=None, plain_every=None,
+             errs=None, recorder=None):
+    """Host ticks [t0, t1) of the recorded per-session streams through
+    `mcore` as the reference host runs them: each session's tick split at
+    its loads into segments, each parsed (`parse_request_segment`) into a
+    packed row; a session's first rows grouped (fast rows, then a
+    megabatch per occupied depth bucket), its second rows in the next
+    round of megabatches. `slot_of[s]`: the slot session s lives in (the
+    identity by default). Every save's (frame, batch, flat index) goes to
+    saves[s]. With `plain_every`, every plain_every-th tick's megabatches
+    and each kind's first are also run by plain_megabatch on a clone of
+    the stack taken just before, and his/los and the whole stack compared
+    (the largest difference into errs[kind])."""
+    from ggrs_tpu_torch import LoadGameState
+    from ggrs_tpu_torch.device.backend import parse_request_segment
+    from ggrs_tpu_torch.device.tick_core import plain_megabatch
+
+    core = mcore.core
+    W, P, I = core.window, core.num_players, core.game.input_size
+    inputs = np.zeros((W, P, I), np.uint8)
+    statuses = np.zeros((W, P), np.int32)
+    save_slots = np.zeros((W,), np.int32)
+    slot_of = slot_of or list(range(len(streams)))
+    session_of = {slot: s for s, slot in enumerate(slot_of)}
+    for t in range(t0, t1):
+        rounds = []
+        for s, stream in enumerate(streams):
+            if t >= len(stream):
+                continue
+            segments, seg = [], []
+            for r in stream_requests(stream[t], cells[s]):
+                if isinstance(r, LoadGameState) and seg:
+                    segments.append(seg)
+                    seg = []
+                seg.append(r)
+            if seg:
+                segments.append(seg)
+            for k, seg in enumerate(segments):
+                inputs.fill(0)
+                statuses.fill(0)
+                save_slots.fill(core.scratch_slot)
+                load, start, count, _, la, _ = parse_request_segment(
+                    seg, window=W, ring_len=core.ring_len, max_prediction=core.max_prediction,
+                    current_frame=frames[s], inputs=inputs, statuses=statuses, save_slots=save_slots)
+                row = core.pack_tick_row(load is not None, load.frame % core.ring_len if load is not None else 0,
+                                         inputs, statuses, save_slots, count, start_frame=start)
+                frames[s] = start + count
+                while len(rounds) <= k:
+                    rounds.append([])
+                # every save request, a first-frame double save twice (as a
+                # solo replay records them): window slot frame - start
+                rounds[k].append((slot_of[s], row, la, [(r.frame - start, r.frame) for r in seg
+                                                         if type(r).__name__ == "SaveGameState"]))
+        for entries in rounds:
+            bound_saves = {slot: sv for slot, _, _, sv in entries}
+            for key, group, la in mcore.group([(slot, row, la) for slot, row, la, _ in entries]):
+                check = plain_every is not None and (t % plain_every == 0 or key not in errs)
+                if check:
+                    twin = {k: v.clone() for k, v in mcore.stack.items()}
+                batch, bucket = mcore.dispatch(group, fast=key == "fast", last_active=la)
+                if recorder is not None:
+                    recorder.calls[-1][5] = key
+                if check:
+                    p_his, p_los = plain_megabatch(twin, [slot for slot, _ in group], np.stack([r for _, r in group]),
+                                                   mcore.group_depth(key), core, bucket)
+                    err = max(carry_err(torch, {"h": batch._his, "l": batch._los}, {"h": p_his, "l": p_los}, "hl"),
+                              carry_err(torch, mcore.stack, twin, tuple(twin)))
+                    errs[key] = max(errs.get(key, 0), err)
+                    if err:
+                        fail(f"{MB_KEY}: megabatch {key} at host tick {t} differs from plain_megabatch (max abs "
+                             f"err {err})")
+                for k, (slot, _) in enumerate(group):
+                    saves[session_of[slot]] += [(frame, batch, k * W + i) for i, frame in bound_saves[slot]]
+
+
+def mb_kind_times(torch, np, mcore, recorder, n):
+    """Each recorded kind (fast, each depth bucket): up to MB_TIMED of its
+    megabatches replayed alone on a scratch copy of the stack, each
+    queued behind a spin (device ms, p50 and p90), its launches and rows,
+    and for the median-sized one the plain ms and the bound."""
+    from ggrs_tpu_torch.device.tick_core import plain_megabatch
+
+    def pct(v, q):
+        v = sorted(v)
+        return v[min(len(v) - 1, (len(v) * q) // 100)]
+
+    scratch = {k: v.clone() for k, v in mcore.stack.items()}
+    tc = recorder.tick_core
+    kinds = {}
+    for call in recorder.calls:
+        kinds.setdefault(call[5], []).append(call)
+    out = {}
+    for key in (["fast"] if "fast" in kinds else []) + sorted(k for k in kinds if k != "fast"):
+        calls = kinds[key]
+        sample = calls[:: max(1, len(calls) // MB_TIMED)][:MB_TIMED]
+        ms = [queued_ms(torch, lambda c=c: tc.tick(scratch, c[0], c[1], c[2], c[3], slots=c[4]), 4)
+              for c in sample]
+        median = sorted(calls, key=lambda c: c[1].shape[0])[len(calls) // 2]
+        idx, rows, nslots, bucket, slots, _ = median
+        rows_np = rows.cpu().numpy()
+        plain_ms = events_ms(torch, lambda: plain_megabatch(scratch, slots, rows_np, nslots, mcore.core, bucket), 1)
+        b_ms, b_by = megabatch_bound(rows_np, n, mcore.core, nslots)
+        out[str(key)] = {"megabatches": len(calls), "rows_mean": sum(c[1].shape[0] for c in calls) / len(calls),
+                         "nslots": nslots, "ms_p50": pct(ms, 50), "ms_p90": pct(ms, 90), "timed": len(ms),
+                         "median_rows": int(rows.shape[0]), "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by}
+    return out
+
+
+def megabatch_slice(torch, np, dev, tag, key, game_cls, mod):
+    """Parity only: 8 slots of game_cls(4, 4096), MB_SLICE_TICKS host ticks of
+    seeded session-shaped rows (`megabatch_ticks`; arena's first row primes
+    every ring slot) as the host groups them, every megabatch against
+    plain_megabatch on a twin stack. Returns (launches, max abs err, the
+    kernels-line entry's timing of the median megabatch)."""
+    from ggrs_tpu_torch import MultiSessionDeviceCore
+    from ggrs_tpu_torch.device.tick_core import plain_megabatch
+
+    m = MultiSessionDeviceCore(game_cls(MB_PLAYERS, MB_N), MB_MP, MB_PLAYERS, 8, device=dev)
+    twin = {k: v.clone() for k, v in m.stack.items()}
+    wrapper = m.tick_core if m.tick_core.stacked else m.core.tick_core
+    wrapper.launches = 0
+    err, kinds, timed = 0, set(), None
+    for entries in megabatch_ticks(m, MB_SLICE_TICKS, seed=60, mod=mod, prime=not m.tick_core.stacked):
+        for gkey, group, la in m.group(entries):
+            kinds.add(gkey)
+            batch, bucket = m.dispatch(group, fast=gkey == "fast", last_active=la)
+            idx, rows = [slot for slot, _ in group], np.stack([r for _, r in group])
+            p_his, p_los = plain_megabatch(twin, idx, rows, m.group_depth(gkey), m.core, bucket)
+            err = max(err, carry_err(torch, {"h": batch._his, "l": batch._los}, {"h": p_his, "l": p_los}, "hl"),
+                      carry_err(torch, m.stack, twin, tuple(twin)))
+            if err:
+                fail(f"{key}: megabatch {gkey} differs from plain_megabatch (max abs err {err})")
+            if gkey != "fast" and (timed is None or len(idx) > len(timed[1])):
+                timed = (gkey, idx, rows, bucket)
+    torch.cuda.synchronize()
+    launches = wrapper.launches
+    expected = m.megabatches if m.tick_core.stacked else m.rows_dispatched
+    if launches != expected or len(kinds) < 3:
+        fail(f"{key}: {launches} launches for {m.megabatches} megabatches of {m.rows_dispatched} rows, kinds {kinds}")
+    gkey, idx, rows, bucket = timed
+    nslots = m.group_depth(gkey)
+    scratch = {k: v.clone() for k, v in m.stack.items()}
+    idx_t = torch.tensor(idx, dtype=torch.int32, device=dev)
+    rows_t = torch.from_numpy(np.stack([r for r in rows])).to(dev)
+    if not m.tick_core.stacked:
+        from ggrs_tpu_torch.device.tick_core import windowed_row
+        rows_t = torch.from_numpy(np.stack([windowed_row(r, nslots, m.core) for r in rows])).to(dev)
+    # arena enqueues a launch a row from Python: a longer spin a megabatch
+    spin = 1_000_000 if m.tick_core.stacked else 2_000_000 * len(idx)
+    ms = queued_ms(torch, lambda: m.tick_core.tick(scratch, idx_t, rows_t, nslots, bucket, slots=idx), 20, spin)
+    plain_ms = events_ms(torch, lambda: plain_megabatch(scratch, idx, rows, nslots, m.core, bucket), 1)
+    b_ms, b_by = megabatch_bound(rows, MB_N, m.core, nslots)
+    route = "K3's stacked swarm entry" if m.tick_core.stacked else "a K3-arena launch a row"
+    print(f"{key}: 8 slots of {game_cls.__name__}({MB_PLAYERS}, {MB_N}), {MB_SLICE_TICKS} host ticks, "
+          f"{m.megabatches} megabatches ({m.rows_dispatched} rows, kinds {sorted(map(str, kinds))}) through "
+          f"{route}: {launches} launches, every megabatch == plain_megabatch; a {len(idx)}-row depth-{gkey} "
+          f"megabatch {ms:.4f} ms vs plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}) {tag}")
+    return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "rows": len(idx), "depth": gkey, "megabatches": m.megabatches, "rows_dispatched": m.rows_dispatched}
+
+
+def megabatch_phase(torch, np, dev, tag):
+    """The cross-session megabatch core on the card (the module docstring's
+    phase 20). Returns (the run's summary, its kernels-line entries)."""
+    from ggrs_tpu_torch import Arena, DeviceRollbackBackend, ExGame, MultiSessionDeviceCore, Swarm
+
+    S, W = MB_MATCHES * MB_PLAYERS, MB_MP + 2
+    started = time.perf_counter()
+    # 1. the request streams of 16 four-peer P2P matches
+    streams, live_saves = [], []
+    for j in range(MB_MATCHES):
+        m = p2p_match(np, MB_PLAYERS, MB_N, MB_MP, MB_TICKS, dev, seed=500 + j, net_seed=700 + j, record_all=True)
+        if any(type(e).__name__ == "DesyncDetected" for ev in m.events for e in ev):
+            fail(f"{MB_KEY}: match {j} reported a desync")
+        streams += m.streams
+        live_saves += [[(f, g()) for f, g in sv] for sv in m.saves]
+        del m
+    recorded_s = time.perf_counter() - started
+    counted = sum(min(len(st), MB_MIGRATE_AT) for st in streams)
+
+    def fresh(recorder=False):
+        mcore = MultiSessionDeviceCore(ExGame(MB_PLAYERS, MB_N), MB_MP, MB_PLAYERS, S, device=dev)
+        mcore.warmup()
+        rec = None
+        if recorder:
+            rec = mcore.tick_core = MegabatchRecorder(mcore.tick_core)
+        return mcore, rec, [dict() for _ in range(S)], [0] * S, [[] for _ in range(S)]
+
+    # 2. the main path, checked: the megabatch drive (its launches counted)
+    # with plain_megabatch on sampled megabatches, then every slot exported
+    # and imported into a second core under another slot, and both run on
+    main, rec, cells, frames, saves = fresh(recorder=True)
+    main.tick_core.tick_core.launches = 0
+    main.core.tick_core.launches = 0
+    errs = {}
+    mb_drive(torch, np, main, streams, 0, MB_MIGRATE_AT, cells, frames, saves, plain_every=MB_PLAIN_EVERY,
+             errs=errs, recorder=rec)
+    torch.cuda.synchronize()
+    at_migration = {k: v.clone() for k, v in main.stack.items()}
+    moved, moved_rec, _, _, _ = fresh()
+    perm = [(s * 7 + 3) % S for s in range(S)]
+    for s in range(S):
+        moved.import_slot(perm[s], main.export_slot(s))
+    moved_cells = [dict(c) for c in cells]
+    moved_frames, moved_saves = list(frames), [[] for _ in range(S)]
+    mb_drive(torch, np, main, streams, MB_MIGRATE_AT, MB_TICKS, cells, frames, saves, recorder=rec)
+    main_launches = main.tick_core.tick_core.launches
+    mb_drive(torch, np, moved, streams, MB_MIGRATE_AT, MB_TICKS, moved_cells, moved_frames, moved_saves,
+             slot_of=perm)
+    torch.cuda.synchronize()
+    if main.core.tick_core.launches or main_launches != main.megabatches or main_launches < 1:
+        fail(f"{MB_KEY}: {main_launches} stacked K3 launches for {main.megabatches} megabatches")
+    resolved = [[(f, b.resolve(i)) for f, b, i in sv] for sv in saves]
+    for s in range(S):
+        tail = [(f, b.resolve(i)) for f, b, i in moved_saves[s]]
+        if tail != resolved[s][len(resolved[s]) - len(tail):] or frames[s] != moved_frames[s]:
+            fail(f"{MB_KEY}: session {s} migrated to slot {perm[s]} of a second core differs from the unmigrated run")
+        for k in main.stack:
+            if not torch.equal(main.stack[k][s], moved.stack[k][perm[s]]):
+                fail(f"{MB_KEY}: session {s}'s {k} after the migration differs")
+
+    # 3. the same 120 host ticks timed on a fresh core, no checks
+    timed, _, t_cells, t_frames, t_saves = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mb_drive(torch, np, timed, streams, 0, MB_MIGRATE_AT, t_cells, t_frames, t_saves)
+    torch.cuda.synchronize()
+    mb_s = time.perf_counter() - t0
+    for k, v in at_migration.items():
+        if not torch.equal(v, timed.stack[k]):
+            fail(f"{MB_KEY}: the timed run's {k} differs from the checked run's")
+
+    # 4. each session's stream on its own solo backend, the same host-tick
+    # order (timed over the same 120 ticks)
+    solos = [DeviceRollbackBackend(ExGame(MB_PLAYERS, MB_N), MB_MP, MB_PLAYERS, device=dev) for _ in range(S)]
+    solo_cells = [dict() for _ in range(S)]
+    solo_saves = [[] for _ in range(S)]
+    launches0 = [b.core.tick_core.launches for b in solos]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(MB_TICKS):
+        if t == MB_MIGRATE_AT:
+            torch.cuda.synchronize()
+            solo_s = time.perf_counter() - t0
+        for s, stream in enumerate(streams):
+            if t < len(stream):
+                requests = stream_requests(stream[t], solo_cells[s])
+                solos[s].handle_requests(requests)
+                solo_saves[s] += [(r.frame, r.cell.checksum_getter()) for r in requests
+                                  if type(r).__name__ == "SaveGameState"]
+    torch.cuda.synchronize()
+    solo_launches = sum(b.core.tick_core.launches for b in solos) - sum(launches0)
+    for s in range(S):
+        got = [(f, g()) for f, g in solo_saves[s]]
+        if got != resolved[s] or got != live_saves[s]:
+            fail(f"{MB_KEY}: session {s}'s save checksums differ between the megabatch core, its solo replay and "
+                 "its live match")
+        carry = solos[s].core.carry
+        if solos[s].current_frame != frames[s] or any(not torch.equal(main.stack[k][s], carry[k]) for k in main.stack):
+            fail(f"{MB_KEY}: session {s}'s final world and ring differ from its solo replay's")
+
+    kinds = mb_kind_times(torch, np, main, rec, MB_N)
+    n_saves = sum(len(r) for r in resolved)
+    rate, solo_rate = counted / mb_s, counted / solo_s
+    print(f"{MB_KEY}: {MB_MATCHES} four-peer P2P matches of {MB_TICKS} ticks recorded ({recorded_s:.1f} s, "
+          f"ExGame({MB_PLAYERS}, {MB_N}), max_prediction {MB_MP}, P2P_NET with a seed a match); {S} sessions on "
+          f"one MultiSessionDeviceCore: {main.megabatches} megabatches, {main.rows_dispatched} rows, "
+          f"{main_launches} stacked K3 launches; {n_saves} save checksums, the final stacked rings and states "
+          f"equal to the {S} solo replays and the live matches; sampled megabatches == plain_megabatch "
+          f"(max abs err {max(errs.values())}, kinds {sorted(map(str, errs))}); export -> import of every slot "
+          f"into a second core at tick {MB_MIGRATE_AT}, {MB_TICKS - MB_MIGRATE_AT} ticks on, equal {tag}")
+    for key, k in kinds.items():
+        print(f"{MB_KEY} megabatch {key}: {k['megabatches']} megabatches, {k['rows_mean']:.1f} rows on average, "
+              f"{k['nslots']} window slots; device ms p50 {k['ms_p50']:.4f} (p90 {k['ms_p90']:.4f}, {k['timed']} "
+              f"timed alone, queued); the median ({k['median_rows']} rows) plain {k['plain_ms']:.1f} ms, bound "
+              f"{k['bound_ms']:.4f} ms ({k['bound_by']}) {tag}")
+    print(f"{MB_KEY}: {counted} session-ticks in {mb_s:.3f} s through the megabatch core ({rate:.1f} session-ticks/s, "
+          f"{main.megabatches / MB_TICKS:.2f} megabatches a host tick) vs "
+          f"{solo_s:.3f} s through {S} solo backends ({solo_rate:.1f} session-ticks/s, {solo_launches} K3 launches "
+          f"over {MB_TICKS} ticks) {tag}")
+    slices = {key: megabatch_slice(torch, np, dev, tag, key, {"Swarm": Swarm, "Arena": Arena}[g], mod)
+              for key, g, mod in MB_SLICES}
+    summary = {"key": MB_KEY, "sessions": S, "ticks": MB_TICKS, "megabatches": main.megabatches,
+               "rows": main.rows_dispatched, "stacked_launches": main_launches, "saves": n_saves,
+               "session_ticks": counted, "megabatch_s": mb_s, "session_ticks_per_s": rate, "solo_s": solo_s,
+               "solo_session_ticks_per_s": solo_rate, "solo_launches": solo_launches, "kinds": kinds,
+               "plain_err": errs, "slices": slices, "phase_s": time.perf_counter() - started}
+    entries = []
+    for key, k in kinds.items():
+        entries.append({
+            "name": "resim_tick_stacked", "route": "cuda", "source": "ggrs_tpu_torch/csrc/resim_tick.cu",
+            "replaces": "ggrs_tpu/tpu/pallas_resim.py:324",
+            "tpu_counterpart": "K3's function a row of MultiSessionDeviceCore's vmapped megabatch "
+                               "(ggrs_tpu/tpu/backend.py:2058-2152)",
+            "shape": f"{MB_KEY}: {k['median_rows']} rows of ExGame({MB_PLAYERS}, {MB_N}), megabatch {key} "
+                     f"({k['nslots']} window slots)",
+            "max_abs_err": errs.get(key if key == "fast" else int(key), 0), "ms": k["ms_p50"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
+            "launches": k["megabatches"],
+        })
+    for key, g, _ in MB_SLICES:
+        sl = slices[key]
+        entries.append({
+            "name": "resim_tick_stacked" if g == "Swarm" else "resim_tick_arena_per_row", "route": "cuda",
+            "source": "ggrs_tpu_torch/csrc/resim_tick.cu", "replaces": "ggrs_tpu/tpu/pallas_resim.py:324",
+            "tpu_counterpart": "K3's function a row of MultiSessionDeviceCore's vmapped megabatch",
+            "shape": f"{key}: {sl['rows']} rows of {g}({MB_PLAYERS}, {MB_N}), depth {sl['depth']}"
+                     + ("" if g == "Swarm" else f", {sl['rows']} K3-arena launches"),
+            "max_abs_err": sl["err"], "ms": sl["ms"], "plain_ms": sl["plain_ms"], "bound_ms": sl["bound_ms"],
+            "bound_by": sl["bound_by"], "library_ms": None, "launches": sl["launches"],
+        })
+    return summary, entries
 
 
 def main() -> None:
@@ -3315,15 +3899,19 @@ def main() -> None:
     checkpoints = checkpoint_phase(torch, np, dev, tag)
     mark("18")
 
-    # -- phase 19: the P2P path, configs[3] (K3 on every dispatch, K4 with the beam)
+    # -- phase 19: the P2P path, configs[3] (K3 on every dispatch, K4 with the beam), and its async arm
     p2p_path, p2p_entries = p2p_phase(torch, np, dev, tag)
     mark("19")
+
+    # -- phase 20: the cross-session megabatch core (K3's stacked entry, K3-arena a row)
+    megabatch_path, megabatch_entries = megabatch_phase(torch, np, dev, tag)
+    mark("20")
 
     for e in entries:
         e.pop("key")
     entries += tick_entries + beam_entries + arena_entries + arena_tick_entries + arena_beam_entries
     entries += list(swarm_fused.values()) + swarm_tick_entries + swarm_beam_entries + team_entries
-    entries += inline_entries + p2p_entries
+    entries += inline_entries + p2p_entries + megabatch_entries
     print("chip_smoke: seconds a phase: " + ", ".join(f"{name} {t - marks[i][1]:.1f}"
                                                        for i, (name, t) in enumerate(marks[1:])))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s")
@@ -3332,7 +3920,8 @@ def main() -> None:
                       "arena_request_path": arena_request_path, "arena_beam_path": arena_beam_path,
                       "swarm_path": swarm_path, "swarm_request_path": swarm_request_path,
                       "swarm_beam_path": swarm_beam_path, "arena_inline_path": arena_inline_path,
-                      "inline_layout_ms": layouts, "checkpoints": checkpoints, "p2p_path": p2p_path}))
+                      "inline_layout_ms": layouts, "checkpoints": checkpoints, "p2p_path": p2p_path,
+                      "megabatch_path": megabatch_path}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -22,12 +22,18 @@ stack (`network/`: the wire codec, UDP and in-memory sockets, the per-peer
 protocol endpoint): `SessionBuilder().start_p2p_session(socket)` and
 `.start_spectator_session(host_addr, socket)` emit the reference's request
 streams and wire bytes, and a `DeviceRollbackBackend` fulfils them (K3 on
-every dispatch, K4 with the beam). The package imports torch and numpy,
+every dispatch, K4 with the beam). Slice 13 adds the cross-session
+megabatch core, `MultiSessionDeviceCore` (N session worlds stacked on the
+card, each megabatch one launch of K3's stacked entry), and the solo
+backend's async pipeline (`DeviceRollbackBackend(async_dispatch=True)`:
+pooled pinned staging behind a CUDA-event fence, `DispatchPlanCache`,
+`InflightFence`). The package imports torch and numpy,
 never jax and nothing of `ggrs_tpu`; its entry points run on CUDA unless
 the caller passes device="cpu".
 """
 
-from .device.backend import DeviceRollbackBackend, SnapshotRef
+from .device.backend import DeviceRollbackBackend, DispatchPlanCache, InflightFence, SnapshotRef
+from .device.multi_session import MultiSessionDeviceCore
 from .device.resim import ResimCore
 from .device.sync_test import DeviceSyncTestSession
 from .errors import (
@@ -37,6 +43,7 @@ from .errors import (
     GGRSError,
     InvalidRequest,
     KernelError,
+    MigrationIncompatible,
     MismatchedChecksum,
     NotSynchronized,
     PredictionThreshold,
@@ -84,17 +91,21 @@ __all__ = [
     "DesyncDetection",
     "DeviceRollbackBackend",
     "DeviceSyncTestSession",
+    "DispatchPlanCache",
     "Disconnected",
     "ExGame",
     "Frame",
     "GGRSError",
     "GameState",
     "GameStateCell",
+    "InflightFence",
     "InputStatus",
     "InvalidRequest",
     "KernelError",
     "LoadGameState",
+    "MigrationIncompatible",
     "MismatchedChecksum",
+    "MultiSessionDeviceCore",
     "NetworkInterrupted",
     "NetworkResumed",
     "NotSynchronized",

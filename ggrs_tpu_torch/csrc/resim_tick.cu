@@ -15,6 +15,13 @@
 // scratch slot, index W) means "no save"; the ring has W+1 slots and the
 // scratch slot is never written. W == ring_len == max_prediction + 2.
 //
+// The megabatch entry (resim_tick_stacked_launch, resim_tick_swarm_stacked_
+// launch) replaces the reference's vmapped XLA megabatch (ggrs_tpu/tpu/
+// backend.py:2058-2152, `MultiSessionDeviceCore._dispatch_impl` and its
+// zero-rollback fast program): the same per-entity template on a grid of
+// (entity tiles x live rows), each row on its own slot of the stacked
+// worlds in place (no gather, no scatter), bounded by the depth bucket.
+//
 // Design (ex_game and swarm, one template over the model's traits,
 // exg::Model or swarm::Model; arena's body is below): one thread owns one
 // entity for all T rows, as in the SyncTest kernels (synctest_body.cuh): its state
@@ -112,9 +119,12 @@ __device__ __forceinline__ int floor_mod(int x, int m) {
 // state frame (a load takes the loaded slot's frame) drives each save's
 // frame term, frame_i = state_frame + min(i, advance_count); the history
 // keys on start_frame + i; a skipped save outputs (0, 0) and touches
-// nothing. `sm` holds scalar_smem_words(W) words. Leaves the parts zero.
+// nothing. Only the first `nslots` slots of a row run (the windowed
+// program of the reference's megabatch): a save past them is skipped and
+// the advance count is clamped to them; nslots == W is the whole row.
+// `sm` holds scalar_smem_words(W) words. Leaves the parts zero.
 template <class Args>
-__device__ void tick_scalar_pass(const Args& a, int* sm) {
+__device__ void tick_scalar_pass(const Args& a, int* sm, int nslots) {
   const int W = a.window, L = row_len(W, a.num_players, a.input_size), C = 4 + W;
   const int TC = scalar_rows(W), E = TC * W;
   const int tid = threadIdx.x, bd = blockDim.x;
@@ -151,7 +161,10 @@ __device__ void tick_scalar_pass(const Args& a, int* sm) {
   }
   for (int t0 = 0; t0 < a.t_rows; t0 += TC) {
     const int tc = min(TC, a.t_rows - t0), events = tc * W;
-    for (int k = tid; k < tc * C; k += bd) ctl[k] = a.rows[(size_t)(t0 + k / C) * L + k % C];
+    for (int k = tid; k < tc * C; k += bd) {
+      const int c = k % C, v = a.rows[(size_t)(t0 + k / C) * L + c];
+      ctl[k] = c == 2 ? min(v, nslots) : c >= 4 + nslots ? W : v;
+    }
     for (int s = tid; s <= W; s += bd) last_slot[s] = -1;
     for (int h = tid; h < W; h += bd) last_key[h] = -1;
     if (tid == 0) misc[0] = INT_MAX;
@@ -272,26 +285,29 @@ __device__ void tick_scalar_pass(const Args& a, int* sm) {
   }
 }
 
-// Every block: fence its parts atomics and draw a ticket. The block that
-// draws the last one sees all parts; it resets the ticket and runs the
-// scalar pass. `sm`: the dynamic shared memory, free again.
+// Every block: fence its parts atomics and draw a ticket (one of gridDim.x
+// a ticket word). The block that draws the last one sees all parts; it
+// resets the ticket and runs the scalar pass, and returns true. `sm`: the
+// dynamic shared memory, free again.
 template <class Args>
-__device__ __forceinline__ void last_block_scalar_pass(const Args& a, int* sm) {
+__device__ __forceinline__ bool last_block_scalar_pass(const Args& a, int* sm, int nslots) {
   __shared__ bool is_last;
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) is_last = atomicAdd(a.done, 1u) == gridDim.x - 1;
   __syncthreads();
-  if (!is_last) return;
+  if (!is_last) return false;
   __threadfence();
   if (threadIdx.x == 0) *a.done = 0;
-  tick_scalar_pass(a, sm);
+  tick_scalar_pass(a, sm, nslots);
+  return true;
 }
 
+// One block's entity tile (blockIdx.x) through the rows of `a`, the first
+// `nslots` slots of each (advances clamped to them): loads, saves into the
+// ring, steps, and each save's block sums added to the parts.
 template <class M>
-__global__ void __launch_bounds__(kBlock) resim_tick_kernel(TickArgs<typename M::Weights> a) {
-  extern __shared__ int smem_words[];
-  int* smem = smem_words;
+__device__ __forceinline__ void tick_tile(const TickArgs<typename M::Weights>& a, int nslots, int* smem) {
   const int W = a.window, P = a.num_players, I = a.input_size;
   const int off_save = 4, off_status = 4 + W, off_input = off_status + W * P;
   const int L = row_len(W, P, I);
@@ -316,8 +332,8 @@ __global__ void __launch_bounds__(kBlock) resim_tick_kernel(TickArgs<typename M:
     __syncthreads();
 
     if (row[0] != 0 && active) s = M::load(a.ring + (size_t)row[1] * slot_stride, n, e);
-    const int adv = row[2];
-    for (int i = 0; i < W; ++i) {
+    const int adv = min(row[2], nslots);
+    for (int i = 0; i < nslots; ++i) {
       const int slot = row[off_save + i];
       if (slot < W) {  // save-then-advance: slot i snapshots the pre-advance state
         uint32_t hi = 0, lo = 0;
@@ -344,7 +360,7 @@ __global__ void __launch_bounds__(kBlock) resim_tick_kernel(TickArgs<typename M:
     // red is rewritten only after the next row's first barrier, which every
     // thread reaches after finishing this reduction
     __syncthreads();
-    for (int j = threadIdx.x; j < W; j += kBlock) {
+    for (int j = threadIdx.x; j < nslots; j += kBlock) {
       if (row[off_save + j] < W) {
         uint32_t hi = 0, lo = 0;
         for (int w = 0; w < kWarps; ++w) {
@@ -357,7 +373,47 @@ __global__ void __launch_bounds__(kBlock) resim_tick_kernel(TickArgs<typename M:
     }
   }
   if (active) M::store(a.state, n, e, s);
-  last_block_scalar_pass(a, smem);
+}
+
+template <class M>
+__global__ void __launch_bounds__(kBlock) resim_tick_kernel(TickArgs<typename M::Weights> a) {
+  extern __shared__ int smem_words[];
+  tick_tile<M>(a, a.window, smem_words);
+  last_block_scalar_pass(a, smem_words, a.window);
+}
+
+// The megabatch (MultiSessionDeviceCore): row r of the launch (blockIdx.y)
+// ticks the world of slot idx[r] in place — its state, state frame, ring
+// and ring-frame tags at that slot's stride in the stacked tensors — with
+// the first `nslots` slots of the row, and has its own ticket and parts,
+// so the last tile of row r runs row r's scalar pass. Rows must name
+// distinct slots. `a` holds the stacked bases, t_rows the live rows; pad
+// rows [t_rows, b_rows) are not launched, and their his/los read (0, 0).
+template <class M>
+__global__ void __launch_bounds__(kBlock) resim_tick_stacked_kernel(TickArgs<typename M::Weights> a, const int* idx,
+                                                                     int nslots, int b_rows) {
+  extern __shared__ int smem_words[];
+  const int r = blockIdx.y, slot = idx[r], W = a.window;
+  const size_t world = (size_t)M::kPlanes * a.n;
+  TickArgs<typename M::Weights> ra = a;
+  ra.state = a.state + (size_t)slot * world;
+  ra.state_frame = a.state_frame + slot;
+  ra.ring = a.ring + (size_t)slot * (W + 1) * world;
+  ra.r_frame = a.r_frame + (size_t)slot * (W + 1);
+  ra.rows = a.rows + (size_t)r * row_len(W, a.num_players, a.input_size);
+  ra.his = a.his + (size_t)r * W;
+  ra.los = a.los + (size_t)r * W;
+  ra.parts_hi = a.parts_hi + (size_t)r * W;
+  ra.parts_lo = a.parts_lo + (size_t)r * W;
+  ra.done = a.done + r;
+  ra.t_rows = 1;
+  tick_tile<M>(ra, nslots, smem_words);
+  if (!last_block_scalar_pass(ra, smem_words, nslots)) return;
+  for (int p = a.t_rows + r; p < b_rows; p += a.t_rows)
+    for (int j = threadIdx.x; j < W; j += blockDim.x) {
+      a.his[(size_t)p * W + j] = 0;
+      a.los[(size_t)p * W + j] = 0;
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -624,21 +680,24 @@ __global__ void __launch_bounds__(inline_arena::kThreads, 1) resim_tick_arena_ke
   // no block of this launch can have passed its first barrier yet
   const GridReduce rd{scratch + 2, arrived, ld_acquire(arrived) / gridDim.x};
   tick_arena::tick_rows<kOnChip>(a, sh, rd, per_block, stage, pend);
-  last_block_scalar_pass(a, smem_words);
+  last_block_scalar_pass(a, smem_words, a.window);
 }
 
 }  // namespace
 
 namespace {
 
-// The tick of a model with no reduction. Returns the CUDA error of the
-// shared-memory attribute or the launch (0 on success).
+// The tick of a model with no reduction: the T rows in order on one world,
+// or, with `idx` (device memory, T distinct slots), row r on the world of
+// slot idx[r] of the stacked tensors, the first `nslots` slots of each
+// (the megabatch). Returns the CUDA error of the shared-memory attribute or
+// the launch (0 on success).
 template <class M>
 int launch_tick(int* state, int* state_frame, int* ring, int* r_frame, int* h_tag, int* h_hi, int* h_lo,
-                int* flag, const int* rows, int* his, int* los, uint32_t* scratch, int n, int num_players,
-                int input_size, int window, int t_rows, int substeps, const int* disconnect_row,
-                const int* cs, void* stream) {
-  const size_t events = (size_t)t_rows * window;
+                int* flag, const int* idx, const int* rows, int* his, int* los, uint32_t* scratch, int n,
+                int num_players, int input_size, int window, int t_rows, int nslots, int b_rows, int substeps,
+                const int* disconnect_row, const int* cs, void* stream) {
+  const size_t events = (size_t)t_rows * window, tickets = idx != nullptr ? t_rows : 1;
   TickArgs<typename M::Weights> a;
   a.state = state;
   a.state_frame = state_frame;
@@ -652,8 +711,8 @@ int launch_tick(int* state, int* state_frame, int* ring, int* r_frame, int* h_ta
   a.his = his;
   a.los = los;
   a.done = scratch;
-  a.parts_hi = scratch + 1;
-  a.parts_lo = scratch + 1 + events;
+  a.parts_hi = scratch + tickets;
+  a.parts_lo = scratch + tickets + events;
   a.n = n;
   a.num_players = num_players;
   a.input_size = input_size;
@@ -665,13 +724,17 @@ int launch_tick(int* state, int* state_frame, int* ring, int* r_frame, int* h_ta
   const size_t body = 2 * (size_t)row_len(window, num_players, input_size) + 2 * (size_t)window * kWarps;
   const size_t words = body > scalar_smem_words(window) ? body : scalar_smem_words(window);
   const size_t smem = words * sizeof(int);
+  const void* kernel = idx != nullptr ? (const void*)resim_tick_stacked_kernel<M> : (const void*)resim_tick_kernel<M>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(resim_tick_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (n + kBlock - 1) / kBlock;
-  resim_tick_kernel<M><<<blocks, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (idx != nullptr)
+    resim_tick_stacked_kernel<M><<<dim3(blocks, t_rows), kBlock, smem, st>>>(a, idx, nslots, b_rows);
+  else
+    resim_tick_kernel<M><<<blocks, kBlock, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -691,9 +754,9 @@ extern "C" int resim_tick_launch(int* state, int* state_frame, int* ring, int* r
                                  int* los, uint32_t* scratch, int n, int num_players,
                                  int input_size, int window, int t_rows, int substeps,
                                  const int* disconnect_row, const int* cs, void* stream) {
-  return launch_tick<exg::Model>(state, state_frame, ring, r_frame, h_tag, h_hi, h_lo, flag, rows, his,
-                                 los, scratch, n, num_players, input_size, window, t_rows, substeps,
-                                 disconnect_row, cs, stream);
+  return launch_tick<exg::Model>(state, state_frame, ring, r_frame, h_tag, h_hi, h_lo, flag, nullptr, rows, his,
+                                 los, scratch, n, num_players, input_size, window, t_rows, window, t_rows,
+                                 substeps, disconnect_row, cs, stream);
 }
 
 // swarm. cs: 15 int32 — checksum w[7], base[7], frame weight.
@@ -702,9 +765,44 @@ extern "C" int resim_tick_swarm_launch(int* state, int* state_frame, int* ring, 
                                        int* los, uint32_t* scratch, int n, int num_players,
                                        int input_size, int window, int t_rows,
                                        const int* disconnect_row, const int* cs, void* stream) {
-  return launch_tick<swarm::Model>(state, state_frame, ring, r_frame, h_tag, h_hi, h_lo, flag, rows, his,
-                                   los, scratch, n, num_players, input_size, window, t_rows, 1,
-                                   disconnect_row, cs, stream);
+  return launch_tick<swarm::Model>(state, state_frame, ring, r_frame, h_tag, h_hi, h_lo, flag, nullptr, rows,
+                                   his, los, scratch, n, num_players, input_size, window, t_rows, window,
+                                   t_rows, 1, disconnect_row, cs, stream);
+}
+
+// The megabatch of MultiSessionDeviceCore (K3's stacked entry): one launch
+// ticks n_rows session worlds of the stacked tensors in place — states
+// [S, K, n], state_frames [S], rings [S, W+1, K, n], r_frames [S, W+1] —
+// row r (rows [n_rows, L]) on slot idx[r] (idx: n_rows distinct slots, in
+// device memory), through the first `nslots` window slots of each row (the
+// depth bucket; the fast zero-rollback rows at 2). No device verification.
+// his/los [b_rows, W] out, the pad rows past n_rows (0, 0). scratch: a
+// ticket per row, then parts_hi [n_rows*W], parts_lo [n_rows*W]; zero
+// before the core's first launch, and every launch leaves it so.
+// ex_game. cs: 11 int32 — checksum w[5], base[5], frame weight.
+extern "C" int resim_tick_stacked_launch(int* states, int* state_frames, int* rings, int* r_frames,
+                                         const int* idx, const int* rows, int* his, int* los,
+                                         uint32_t* scratch, int n, int num_players, int input_size,
+                                         int window, int n_rows, int nslots, int b_rows, int substeps,
+                                         const int* disconnect_row, const int* cs, void* stream) {
+  if (nslots < 1 || nslots > window || n_rows < 1 || n_rows > 65535 || b_rows < n_rows)
+    return (int)cudaErrorInvalidValue;  // a row a grid row: gridDim.y is at most 65535
+  return launch_tick<exg::Model>(states, state_frames, rings, r_frames, nullptr, nullptr, nullptr, nullptr, idx,
+                                 rows, his, los, scratch, n, num_players, input_size, window, n_rows, nslots,
+                                 b_rows, substeps, disconnect_row, cs, stream);
+}
+
+// swarm's megabatch. cs: 15 int32 — checksum w[7], base[7], frame weight.
+extern "C" int resim_tick_swarm_stacked_launch(int* states, int* state_frames, int* rings, int* r_frames,
+                                               const int* idx, const int* rows, int* his, int* los,
+                                               uint32_t* scratch, int n, int num_players, int input_size,
+                                               int window, int n_rows, int nslots, int b_rows,
+                                               const int* disconnect_row, const int* cs, void* stream) {
+  if (nslots < 1 || nslots > window || n_rows < 1 || n_rows > 65535 || b_rows < n_rows)
+    return (int)cudaErrorInvalidValue;
+  return launch_tick<swarm::Model>(states, state_frames, rings, r_frames, nullptr, nullptr, nullptr, nullptr, idx,
+                                   rows, his, los, scratch, n, num_players, input_size, window, n_rows, nslots,
+                                   b_rows, 1, disconnect_row, cs, stream);
 }
 
 // The card's limits the arena tick's plan is made from: out[0] the SM

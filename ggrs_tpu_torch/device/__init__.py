@@ -1,3 +1,3 @@
 """The device side of the port: the fused SyncTest session, the request
-path's rollback backend and ResimCore, the kernels' wrappers with their
-plain versions, and the plane scaffold."""
+path's rollback backend and ResimCore, the cross-session megabatch core,
+the kernels' wrappers with their plain versions, and the plane scaffold."""

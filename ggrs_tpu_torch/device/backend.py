@@ -1,6 +1,6 @@
 """DeviceRollbackBackend: fulfils a session's ordered request list on the
-device — the port of `ggrs_tpu/tpu/backend.py` `TpuRollbackBackend`, eager
-and lazy request path.
+device — the port of `ggrs_tpu/tpu/backend.py` `TpuRollbackBackend`, eager,
+lazy and async request path.
 
 Sessions (the port's `SyncTestSession`) emit Save/Load/Advance requests;
 this backend parses each tick's request grammar
@@ -11,13 +11,26 @@ into ONE packed control-word row and runs it as one device dispatch of
 `ResimCore` (on CUDA: one launch of K3). Snapshot data never leaves the
 device; cells are filled with lightweight `SnapshotRef` handles and lazy
 checksums that only move device bytes to the host when read — and then
-every pending batch at once, in one copy (`ChecksumLedger`).
+every pending batch at once, in one copy (`ChecksumLedger`). Each parsed
+segment's canonical shape (has_load, advance_count, last_active,
+trailing save) is tallied in a `DispatchPlanCache` (`dispatch_signatures`).
 
-With `lazy_ticks > 0`, ticks (rollbacks included) accumulate as packed rows
-on the host and dispatch as ONE multi-row launch when the buffer fills or
-when any device result is needed (a checksum read, `state_numpy()`,
-`check()`, `flush()`); a partial buffer is padded with no-op rows to the
-configured depth.
+With `lazy_ticks > 0`, ticks (rollbacks included) are packed straight into
+a [lazy_ticks, L] host buffer of a `StagingPool` and dispatch as ONE
+multi-row launch when the buffer fills or when any device result is needed
+(a checksum read, `state_numpy()`, `check()`, `flush()`); a partial buffer
+is padded with no-op rows to the configured depth. Without
+`async_dispatch` the pool holds one plain buffer, uploaded through a fresh
+pinned copy (`launch.stage`), so it can be refilled at once.
+
+With `async_dispatch=True` (the reference's async device-resident
+pipeline, bit-identical to the eager path): `lazy_ticks` defaults to
+ASYNC_DEFAULT_LAZY_TICKS, the pool holds `async_inflight + 1` pinned
+buffers uploaded without waiting, and every dispatch is admitted to an
+`InflightFence` — a CUDA event recorded after it — so the host runs up to
+`async_inflight` dispatches ahead of the card and waits on the oldest only
+past that; a buffer comes round again only once the dispatch that read it
+has retired. The eager path records no event per dispatch.
 
 With `beam_width > 0` the backend speculates (north star: the rollback
 becomes a select): after each tick it rolls `beam_width` candidate input
@@ -33,18 +46,20 @@ launch width per tick from the measured idle time, the speculation cost
 
 The P2P session's desync detection asks each checksum getter whether
 reading it now would wait on the card (`ready`): True once its batch is on
-the host, on the CPU, and on CUDA when the current stream has no work left
-(a read goes through the ledger's flush, which copies every pending batch,
-the ones dispatched after this getter's too). A getter that is not ready
-is prefetched and read on a later pump pass; the report interval forces
-the read, and then it may wait.
+the host, on the CPU, when its background copy (`prefetch`) has landed,
+and on CUDA when the current stream has no work left (a read goes through
+the ledger's flush, which copies every pending batch, the ones dispatched
+after this getter's too). A getter that is not ready is prefetched and
+read on a later pump pass; the report interval forces the read, and then
+it may wait. `dispatch_pending` says a getter's batch still sits in the
+lazy buffer (the deterministic-publish mode does not prefetch those), and
+`ChecksumLedger.drain_ready` stores what is ready without waiting (the
+serve host's pump pass calls it).
 
-Left out (still to port, ROADMAP.md): `async_dispatch` with its in-flight
-fence, meshes (and the sharded beam), the depth routing and the
-dispatch-signature plan cache (one kernel covers every depth, so nothing
-reads them yet), telemetry spans, and what only the async pipeline and the
-serve host read (the ledger's non-blocking `drain_ready`, the getters'
-`dispatch_pending`).
+Left out (still to port, ROADMAP.md): meshes (and the sharded beam), the
+per-depth routing of the lazy flush (one kernel covers every depth, so
+the `depth_routing` knob is only carried through checkpoints), and
+telemetry spans.
 """
 
 from __future__ import annotations
@@ -52,7 +67,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -107,24 +122,33 @@ class _ChecksumBatch:
     @property
     def ready(self) -> bool:
         """True when resolve() will not wait on the card: the values are on
-        the host, or the current stream, which every pending batch of the
-        ledger's flush was dispatched on, has finished its work."""
+        the host, the background copy `prefetch` started has landed, or the
+        current stream, which every pending batch of the ledger's flush was
+        dispatched on, has finished its work."""
         return (
             self._np is not None
             or self._his.device.type != "cuda"
+            or (self._event is not None and self._event.query())
             or torch.cuda.current_stream(self._his.device).query()
         )
 
     def resolve(self, idx: int) -> int:
         if self._np is None and self._host is not None:
-            # consume the prefetched copy directly
-            self._event.synchronize()
-            self._store(self._host[0], self._host[1])
+            self.take()
         if self._np is None:
             self._ledger.flush()
         if self._np is None:  # evicted from the ledger before this read
             self._store(self._his, self._los)
         return combine_checksum(self._np[0][idx], self._np[1][idx])
+
+    def take(self) -> None:
+        """Store the values: the prefetched copy (waiting for it if it is
+        still in flight), else a read of the device tensors."""
+        if self._host is not None:
+            self._event.synchronize()
+            self._store(self._host[0], self._host[1])
+        else:
+            self._store(self._his, self._los)
 
     def _store(self, his: torch.Tensor, los: torch.Tensor) -> None:
         # flat row-major: multi-tick [T, W] batches index as j*W + i
@@ -149,6 +173,26 @@ class ChecksumLedger:
         self._pending.append(batch)
         if len(self._pending) > self.MAX_PENDING:
             del self._pending[: -self.MAX_PENDING]
+
+    def drain_ready(self) -> int:
+        """Non-blocking drain (the serve host's pump pass): store every
+        pending batch that is `ready` — from its landed background copy, or
+        read while the stream is idle, so no read waits on the card — and
+        start a background copy of the oldest batch still in flight, so a
+        later pass or a forced flush finds its bytes moved. Returns the
+        number of batches still pending."""
+        still: List[_ChecksumBatch] = []
+        for b in self._pending:
+            if b._np is not None:
+                continue
+            if b.ready:
+                b.take()
+            else:
+                still.append(b)
+        self._pending = still
+        if still:
+            still[0].prefetch()
+        return len(still)
 
     def flush(self) -> None:
         todo = [b for b in self._pending if b._np is None]
@@ -184,6 +228,14 @@ class _LazyChecksum:
     def ready(self) -> bool:
         return self._batch.ready
 
+    @property
+    def dispatch_pending(self) -> bool:
+        """True while the batch's dispatch has not happened yet (its ticks
+        still sit in the lazy buffer): prefetching such a getter would
+        force the dispatch, which the deterministic-publish binding
+        (`PendingChecksumReport.bind_and_prefetch`) avoids."""
+        return getattr(self._batch, "dispatch_pending", False)
+
 
 class _FutureChecksumBatch:
     """Checksum-batch stand-in for ticks still sitting in the lazy tick
@@ -215,6 +267,106 @@ class _FutureChecksumBatch:
     def ready(self) -> bool:
         return self.batch is not None and self.batch.ready
 
+    @property
+    def dispatch_pending(self) -> bool:
+        return self.batch is None
+
+
+class DispatchPlanCache:
+    """Canonical dispatch-signature tally: signature -> dispatch count. A
+    DeviceRollbackBackend tallies (has_load, advance_count, last_active,
+    trailing save?) per request segment; a MultiSessionDeviceCore tallies
+    ("megabatch", row bucket, depth bucket) per megabatch (depth 0 the
+    zero-rollback fast dispatch, None the full window). The request
+    grammar admits O(window^2) segment shapes, the megabatch grid
+    (row buckets x (depth buckets + 1)) programs. The reference's
+    telemetry counters are not ported."""
+
+    def __init__(self):
+        self.signatures: Dict[tuple, int] = {}
+
+    def note(self, sig) -> None:
+        """Tally one dispatch of `sig`."""
+        self.signatures[sig] = self.signatures.get(sig, 0) + 1
+
+    def clear(self) -> None:
+        self.signatures.clear()
+
+
+class InflightFence:
+    """The in-flight fence of the async pipeline: a CUDA event recorded on
+    the current stream after each admitted dispatch, with the dispatch's
+    live row count. Once more than `depth` dispatches are outstanding the
+    host waits on the OLDEST (a stall when its event has not completed),
+    so it runs up to `depth` dispatches ahead of the card instead of
+    running unboundedly ahead or draining after every dispatch. `poll`
+    drops retired dispatches without waiting (`event.query()`). On the CPU
+    a dispatch has finished when its call returns: nothing is held, and
+    the counters read as after retirement."""
+
+    def __init__(self, depth: int, device: torch.device):
+        if depth < 1:
+            raise ConfigError(f"async_inflight must be >= 1, got {depth}")
+        self.depth = depth
+        self.device = device
+        self._held: deque = deque()  # (event, rows), oldest first
+        self.rows = 0  # live rows of the held dispatches
+        self.stalls = 0  # waits on an event that had not completed
+        self.stall_s = 0.0
+
+    def __len__(self) -> int:
+        return len(self._held)
+
+    def note(self, rows: int = 0) -> None:
+        if self.device.type != "cuda":
+            return
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self._held.append((event, rows))
+        self.rows += rows
+        while len(self._held) > self.depth:
+            oldest, n = self._held.popleft()
+            if not oldest.query():
+                t0 = time.perf_counter()
+                oldest.synchronize()
+                self.stalls += 1
+                self.stall_s += time.perf_counter() - t0
+            self.rows -= n
+
+    def poll(self) -> int:
+        """Drop the retired dispatches; returns the rows still in flight."""
+        while self._held and self._held[0][0].query():
+            _, n = self._held.popleft()
+            self.rows -= n
+        return self.rows
+
+    def clear(self) -> None:
+        """Forget every held dispatch (the caller has synchronized)."""
+        self._held.clear()
+        self.rows = 0
+
+
+class StagingPool:
+    """`depth` int32 host buffers of one shape, handed out in turn: with
+    `pin` page-locked, so an upload with non_blocking=True is a true
+    asynchronous copy. A buffer comes round again after depth - 1 others;
+    with depth = async_inflight + 1 and every dispatch that reads one
+    admitted to an InflightFence of depth async_inflight, the dispatch
+    that read it has retired by then."""
+
+    def __init__(self, shape, depth: int, pin: bool, fill: Optional[np.ndarray] = None):
+        self.tensors = [torch.empty(shape, dtype=torch.int32, pin_memory=pin) for _ in range(depth)]
+        self.arrays = [t.numpy() for t in self.tensors]
+        if fill is not None:
+            for a in self.arrays:
+                a[...] = fill
+        self._flip = 0
+
+    def next(self) -> Tuple[torch.Tensor, np.ndarray]:
+        """The next buffer, as a tensor and a numpy view of it."""
+        self._flip = (self._flip + 1) % len(self.tensors)
+        return self.tensors[self._flip], self.arrays[self._flip]
+
 
 def parse_request_segment(
     requests: List[Request],
@@ -232,8 +384,11 @@ def parse_request_segment(
     (inputs u8[W,P,I], statuses i32[W,P], save_slots i32[W], all
     pre-filled with their neutral values).
 
-    Returns (load, start_frame, count, saves): `saves` is
-    [(window_slot, SaveGameState)] for lazy-checksum cell binding."""
+    Returns (load, start_frame, count, saves, last_active,
+    trailing_save): `saves` is [(window_slot, SaveGameState)] for
+    lazy-checksum cell binding, `last_active` the row's 1-based last
+    active slot (the advances and the highest real save), which picks a
+    megabatch's depth bucket."""
     load: Optional[LoadGameState] = None
     slots: List[Tuple[Optional[SaveGameState], AdvanceFrame]] = []
     pending_save: Optional[SaveGameState] = None
@@ -277,7 +432,11 @@ def parse_request_segment(
         assert trailing_save.frame == start_frame + count
         save_slots[count] = trailing_save.frame % ring_len
         saves.append((count, trailing_save))
-    return load, start_frame, count, saves
+
+    last_active = max(count, 1)
+    if saves:
+        last_active = max(last_active, saves[-1][0] + 1)
+    return load, start_frame, count, saves, last_active, trailing_save
 
 
 class DeviceRollbackBackend:
@@ -304,11 +463,14 @@ class DeviceRollbackBackend:
     VALUE_PROBE_INTERVAL = 24
     VALUE_PROBE_BURST = 3
     HISTORY_WIDTH = 1  # the history-only launch: member 0 alone
+    # async_dispatch with lazy_ticks unset batches this many ticks a
+    # dispatch (the reference's value)
+    ASYNC_DEFAULT_LAZY_TICKS = 8
 
     def __init__(self, game, max_prediction: int, num_players: int,
                  device_verify: bool = False, lazy_ticks: int = 0, beam_width: int = 0,
                  speculation_gate: str = "always", defer_speculation: bool = False,
-                 device="cuda"):
+                 async_dispatch: bool = False, async_inflight: int = 4, device="cuda"):
         """`device_verify`: keep the SyncTest first-seen checksum history and
         mismatch verdict ON THE DEVICE (read with check()), so determinism
         runs never move checksums to the host. Only for confirmed-input
@@ -328,6 +490,11 @@ class DeviceRollbackBackend:
         the speculation cost. `defer_speculation`: handle_requests only
         fulfils requests, and the caller launches the speculation from its
         idle time with launch_pending_speculation().
+
+        `async_dispatch`: the async pipeline (module docstring); with
+        `lazy_ticks` 0 it buffers ASYNC_DEFAULT_LAZY_TICKS ticks. The host
+        waits on the oldest dispatch once more than `async_inflight` are
+        in flight (`fence`: its `stalls` and `stall_s` count the waits).
 
         `device`: "cuda" by default, the CPU (plain PyTorch) only when
         asked for; a CUDA request on a host without CUDA raises
@@ -354,9 +521,21 @@ class DeviceRollbackBackend:
         self.ledger = ChecksumLedger()
         if lazy_ticks < 0:
             raise ConfigError(f"lazy_ticks must be >= 0, got {lazy_ticks}")
+        self.async_dispatch = async_dispatch
+        self.async_inflight = async_inflight
+        self.fence = InflightFence(async_inflight, self.device)
+        if async_dispatch and lazy_ticks == 0:
+            lazy_ticks = self.ASYNC_DEFAULT_LAZY_TICKS
         self.lazy_ticks = lazy_ticks
-        self._tick_rows: List[np.ndarray] = []  # packed rows awaiting dispatch
+        self.plan_cache = DispatchPlanCache()
         self._tick_future: Optional[_FutureChecksumBatch] = None
+        # lazy rows are packed straight into the active buffer of a pool of
+        # [lazy_ticks, L] buffers (_acquire_rows_buf); _rows_count of them
+        # await dispatch
+        self._rows_pool: Optional[StagingPool] = None
+        self._rows_active: Optional[Tuple[torch.Tensor, np.ndarray]] = None
+        self._rows_count = 0
+        self._pad_row: Optional[np.ndarray] = None
         core = self.core
         W, P, I = core.window, num_players, game.input_size
         # the parse staging, refilled every segment: packing copies it into
@@ -434,15 +613,21 @@ class DeviceRollbackBackend:
         if self.speculation_gate == "adaptive":
             self._last_tick_end = time.perf_counter()
 
+    @property
+    def dispatch_signatures(self) -> dict:
+        """Signature -> dispatch count view of the plan cache."""
+        return self.plan_cache.signatures
+
     def _parse_segment(self, requests: List[Request]):
-        """One pass over a request segment into the packed staging; returns
-        (load, start_frame, count, inputs, statuses, save_slots, saves)."""
+        """One pass over a request segment into the packed staging, its
+        canonical signature tallied in the plan cache; returns (load,
+        start_frame, count, inputs, statuses, save_slots, saves)."""
         core = self.core
         inputs, statuses, save_slots = self._stage
         inputs.fill(0)
         statuses.fill(0)
         save_slots.fill(core.scratch_slot)
-        load, start_frame, count, saves = parse_request_segment(
+        load, start_frame, count, saves, last_active, trailing = parse_request_segment(
             requests,
             window=core.window,
             ring_len=core.ring_len,
@@ -452,7 +637,14 @@ class DeviceRollbackBackend:
             statuses=statuses,
             save_slots=save_slots,
         )
+        self.plan_cache.note((load is not None, count, last_active, trailing is not None))
         return load, start_frame, count, inputs, statuses, save_slots, saves
+
+    def _note_inflight(self) -> None:
+        """Admit the dispatch just made to the fence (async only: the
+        eager path records no event)."""
+        if self.async_dispatch:
+            self.fence.note()
 
     def _run_segment(self, requests: List[Request]) -> None:
         load, start_frame, count, inputs, statuses, save_slots, saves = self._parse_segment(requests)
@@ -465,7 +657,7 @@ class DeviceRollbackBackend:
         base_idx = 0
         batch = None
         if his is None:
-            row = core.pack_tick_row(
+            fields = dict(
                 do_load=load is not None,
                 load_slot=(load.frame % core.ring_len) if load is not None else 0,
                 inputs=inputs,
@@ -479,10 +671,13 @@ class DeviceRollbackBackend:
                 if self._tick_future is None:
                     self._tick_future = _FutureChecksumBatch(self.flush)
                 batch = self._tick_future
-                base_idx = len(self._tick_rows) * core.window
-                self._tick_rows.append(row)
+                buf = self._acquire_rows_buf()
+                base_idx = self._rows_count * core.window
+                core.pack_tick_row_into(buf[self._rows_count], **fields)
+                self._rows_count += 1
             else:
-                his, los = core.tick_row(row)
+                his, los = core.tick_row(core.pack_tick_row(**fields))
+                self._note_inflight()
         if batch is None:
             batch = _ChecksumBatch(his, los, self.ledger)
         self.current_frame = start_frame + count
@@ -490,7 +685,7 @@ class DeviceRollbackBackend:
         for idx, save in saves:
             ref = SnapshotRef(save.frame, save.frame % core.ring_len)
             save.cell.save_lazy(save.frame, ref, _LazyChecksum(batch, base_idx + idx))
-        if len(self._tick_rows) >= self.lazy_ticks > 0:
+        if self._rows_count >= self.lazy_ticks > 0:
             self.flush()
         if self.beam_width:
             self._record_segment(load, start_frame, count, inputs, statuses)
@@ -527,9 +722,11 @@ class DeviceRollbackBackend:
         self.rollback_frames_adopted += matched
         # adoption reads the ring: buffered ticks must land first
         self.flush()
-        return core.adopt(self._spec[2], member, load.frame % core.ring_len, save_slots, count,
-                          shift=shift, load_frame=load.frame, inputs=inputs, statuses=statuses,
-                          matched=matched)
+        his, los = core.adopt(self._spec[2], member, load.frame % core.ring_len, save_slots, count,
+                              shift=shift, load_frame=load.frame, inputs=inputs, statuses=statuses,
+                              matched=matched)
+        self._note_inflight()
+        return his, los
 
     def _record_segment(self, load, start_frame, count, inputs, statuses) -> None:
         """After a segment: drop a speculation this rollback made stale,
@@ -761,29 +958,51 @@ class DeviceRollbackBackend:
         depth with no-op rows; materializes the future checksum batch the
         buffered saves' cells already hold. A single buffered row goes as
         a 1-row dispatch."""
-        rows, future = self._tick_rows, self._tick_future
-        if not rows:
+        n, future = self._rows_count, self._tick_future
+        if not n:
             return
-        self._tick_rows = []
+        staged, buf = self._rows_active
+        self._rows_active = None
+        self._rows_count = 0
         self._tick_future = None
         core = self.core
-        if len(rows) == 1:
-            his, los = core.tick_row(rows[0])
+        if n == 1:
+            his, los = core.tick_row(buf[0])
         else:
-            buf = np.tile(core.pad_tick_row(), (self.lazy_ticks, 1))
-            buf[: len(rows)] = rows
-            his, los = core.tick_multi(buf)
+            buf[n:] = self._pad_row
+            # async: the pinned buffer itself goes up without waiting (the
+            # fence makes its reuse safe); eager: through a fresh pinned copy
+            his, los = core.tick_multi(staged if self.async_dispatch else buf)
+        self._note_inflight()
         future.batch = _ChecksumBatch(his, los, self.ledger)
+
+    def _acquire_rows_buf(self) -> np.ndarray:
+        """The active [lazy_ticks, L] buffer lazy rows are packed into,
+        taken from the pool at a buffer's first row: async_inflight + 1
+        pinned buffers under async dispatch, else one plain buffer. Rows
+        past the staged count keep stale words until flush() pads them."""
+        if self._rows_active is None:
+            if self._rows_pool is None:
+                self._pad_row = self.core.pad_tick_row()
+                depth = self.async_inflight + 1 if self.async_dispatch else 1
+                pin = self.async_dispatch and self.device.type == "cuda"
+                self._rows_pool = StagingPool((self.lazy_ticks, self.core.packed_len), depth, pin,
+                                              fill=self._pad_row)
+            self._rows_active = self._rows_pool.next()
+        return self._rows_active[1]
 
     def reset(self) -> None:
         """Fresh-session state: the core returns to its initial world and
         ring, every counter and speculation artifact clears."""
-        # materialize any staged lazy ticks first: cells from the old
-        # session already hold this buffer's future checksums
-        self.flush()
+        # materialize any staged lazy ticks first (cells from the old
+        # session already hold this buffer's future checksums), and wait
+        # for every dispatch in flight, so the fence forgets none whose
+        # pooled buffer could still be read
+        self.block_until_ready()
         self.core.reset()
         self.current_frame = 0
         self.ledger = ChecksumLedger()
+        self.plan_cache.clear()
         self._spec = None
         self._last_segment = None
         self.beam_hits = self.beam_partial_hits = self.beam_misses = 0
@@ -883,6 +1102,7 @@ class DeviceRollbackBackend:
         self.flush()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self.fence.clear()  # everything dispatched has retired
 
     # ------------------------------------------------------------------
     # durable checkpoint/resume, in the reference's file format
@@ -893,10 +1113,9 @@ class DeviceRollbackBackend:
         reference's `TpuRollbackBackend.save` writes it (backend.py:
         1675-1712): buffered lazy ticks flushed first, then the core's ring,
         state and, with device verification, its history, and the
-        reference's meta. The knobs the port does not have are written as a
-        reference backend built with its defaults writes them (its
-        constructor's async_inflight is 4; 2 is only its restore's value
-        for files without the key), its kernel choices as "auto"."""
+        reference's meta, the async knobs included. The knobs the port does
+        not have are written as a reference backend built with its defaults
+        writes them, its kernel choices as "auto"."""
         self.flush()
         save_device_checkpoint(
             path,
@@ -909,8 +1128,8 @@ class DeviceRollbackBackend:
                 "beam_width": self.beam_width,
                 "device_verify": self.core.device_verify,
                 "lazy_ticks": self.lazy_ticks,
-                "async_dispatch": False,
-                "async_inflight": 4,
+                "async_dispatch": self.async_dispatch,
+                "async_inflight": self.async_inflight,
                 "depth_routing": True,
                 "speculation_gate": self.speculation_gate,
                 "defer_speculation": self.defer_speculation,
@@ -938,6 +1157,8 @@ class DeviceRollbackBackend:
             beam_width=meta.get("beam_width", 0),
             speculation_gate=meta.get("speculation_gate", "always"),
             defer_speculation=meta.get("defer_speculation", False),
+            async_dispatch=meta.get("async_dispatch", False),
+            async_inflight=meta.get("async_inflight", 2),
             device=device,
         )
         backend.core.load_checkpoint_tree(tree, f"checkpoint {path!r}")

@@ -134,16 +134,23 @@ class ResimCore:
 
     # ------------------------------------------------------------------
 
-    def upload(self, rows: np.ndarray) -> torch.Tensor:
-        """Host rows -> the device, checked first (`launch.stage`: on CUDA
-        asynchronous from a fresh pinned buffer, so repacking the next tick
-        can never race an upload still in flight)."""
+    def upload(self, rows) -> torch.Tensor:
+        """Host rows -> the device, checked first. A numpy array goes
+        through `launch.stage` (on CUDA asynchronous from a fresh pinned
+        buffer, so repacking the next tick can never race an upload still
+        in flight); an int32 host tensor (the async pipeline's pooled
+        pinned buffer, whose reuse the fence makes safe) is copied without
+        waiting."""
+        if isinstance(rows, torch.Tensor):
+            check_rows(rows.numpy(), self)
+            return rows if self.device.type == "cpu" else rows.to(self.device, non_blocking=True)
         rows = np.ascontiguousarray(rows, dtype=np.int32)
         check_rows(rows, self)
         return launch.stage(rows, self.device)
 
-    def tick_multi(self, rows: np.ndarray, last_active=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Run T packed ticks in one dispatch (one K3 launch on CUDA);
+    def tick_multi(self, rows, last_active=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Run T packed ticks (numpy or an int32 host tensor, `upload`) in
+        one dispatch (one K3 launch on CUDA);
         returns (checksum_hi[T, W], checksum_lo[T, W]) as int32 tensors on
         the core's device holding the uint32 bit patterns, (0, 0) for
         slots that did not save. `last_active` is ignored (the reference's

@@ -21,6 +21,16 @@ its own frame, a load takes the slot's frame, each save snapshots the
 pre-advance state and checksums it with that frame. It is what a CPU
 carry runs, what the tests hold against the reference, and what
 `chip_smoke.py` holds the kernel against on the card.
+
+`StackedTickCore` is K3's megabatch entry for `MultiSessionDeviceCore`
+(`resim_tick_stacked_launch`, `resim_tick_swarm_stacked_launch`): one launch
+ticks B session worlds of the stacked tensors in place, row r on slot
+idx[r], through the first `nslots` window slots of each row (the
+reference's windowed megabatch program, `_tick_windowed_impl` vmapped over
+the rows). Arena has no stacked body: its rows run one K3-arena launch each
+on the slot's views. `plain_megabatch` is the same in plain PyTorch:
+`plain_tick_multi` row after row on each slot's views, the row windowed
+first.
 """
 
 from __future__ import annotations
@@ -169,6 +179,114 @@ def verify_update(hist, frame: int, hi: int, lo: int, hist_len: int) -> None:
         hist["h_hi"][h], hist["h_lo"][h] = fx.to_i32(hi), fx.to_i32(lo)
 
 
+def windowed_row(row: np.ndarray, nslots: int, core) -> np.ndarray:
+    """A copy of a packed row cut to its first `nslots` window slots, as
+    the reference's `_tick_windowed_impl` runs it: saves past them go to
+    the scratch slot (none), the advance count is clamped to them. Rows
+    whose last active slot fits are unchanged."""
+    out = np.array(row, dtype=np.int32, copy=True)
+    out[2] = min(int(out[2]), nslots)
+    out[core.off_save + nslots : core.off_status] = core.scratch_slot
+    return out
+
+
+def slot_carry(stack, slot: int) -> dict:
+    """The views of one slot of a MultiSessionDeviceCore's stacked tensors,
+    as a ResimCore carry (no verification leaves)."""
+    return {k: v[slot] for k, v in stack.items()}
+
+
+def plain_megabatch(stack, idx, rows, nslots: int, core, b_rows=None):
+    """The megabatch in plain PyTorch: row r of `rows` ([n, L]) on the
+    world of slot idx[r] of `stack` (the stacked state [S, K, N],
+    state_frame [S], ring [S, R+1, K, N], r_frame [S, R+1]) in place,
+    windowed to `nslots` (`windowed_row`), by `plain_tick_multi` on the
+    slot's views; returns (his, los) int32 [b_rows, W] on the stack's
+    device, the pad rows past n (0, 0)."""
+    W = core.window
+    idx = [int(i) for i in (idx.tolist() if isinstance(idx, torch.Tensor) else idx)]
+    rows = rows.cpu().numpy() if isinstance(rows, torch.Tensor) else np.asarray(rows)
+    device = stack["state"].device
+    b_rows = len(idx) if b_rows is None else b_rows
+    his = torch.zeros((b_rows, W), dtype=torch.int32, device=device)
+    los = torch.zeros((b_rows, W), dtype=torch.int32, device=device)
+    for r, slot in enumerate(idx):
+        row = torch.from_numpy(windowed_row(rows[r], nslots, core)[None])
+        h, lo = plain_tick_multi(slot_carry(stack, slot), row, core)
+        his[r], los[r] = h[0], lo[0]
+    return his, los
+
+
+class StackedTickCore:
+    """K3's megabatch wrapper for one MultiSessionDeviceCore (its template
+    ResimCore `core` gives the layout); counts its stacked launches in
+    `launches`. On a CPU stack it runs `plain_megabatch`; on a CUDA stack
+    it launches the model's stacked body, or for arena one K3-arena launch
+    a row through the template core's TickCore (counted there), or raises —
+    there is no fallback."""
+
+    kernel = "resim_tick"
+
+    def __init__(self, core):
+        self.core = core
+        self.launches = 0
+        # a ticket and parts_hi/lo [W] a row, for up to `_rows` rows: zero
+        # when made, and every launch leaves it zero
+        self._scratch, self._rows = None, 0
+
+    @property
+    def stacked(self) -> bool:
+        """Whether the model has a stacked body (ex_game, swarm)."""
+        return launch.require_adapter(self.core.ctx, self.kernel).stacked is not None
+
+    def tick(self, stack, idx: torch.Tensor, rows: torch.Tensor, nslots: int, b_rows: int, slots=None):
+        """n rows (rows int32 [n, L], idx int32 [n] distinct slots, both on
+        the stack's device) through the first `nslots` slots in place;
+        returns (his, los) int32 [b_rows, W], the pad rows (0, 0). Arena
+        also needs the slots as host ints (`slots`)."""
+        core, ctx = self.core, self.core.ctx
+        device = stack["state"].device
+        if device.type == "cpu":
+            return plain_megabatch(stack, idx, rows, nslots, core, b_rows)
+        n, W = rows.shape[0], core.window
+        if not 1 <= nslots <= W or not 1 <= n <= b_rows:
+            raise ConfigError(f"a megabatch of {n} rows in {b_rows} at depth {nslots} (window {W})")
+        his = torch.empty((b_rows, W), dtype=torch.int32, device=device)
+        los = torch.empty((b_rows, W), dtype=torch.int32, device=device)
+        if not self.stacked:
+            # arena: one K3-arena launch a row on the slot's views (the
+            # rows were windowed on the host)
+            for r, slot in enumerate(slots):
+                core.tick_core.tick_multi(slot_carry(stack, slot), rows[r : r + 1],
+                                          out=(his[r : r + 1], los[r : r + 1]))
+            his[n:].zero_()
+            los[n:].zero_()
+            return his, los
+        entry = launch.require_adapter(ctx, self.kernel)
+        S, R1, K, N = stack["ring"].shape
+        launch.check_tensors(
+            device,
+            state=(stack["state"], (S, K, N)), state_frame=(stack["state_frame"], (S,)),
+            ring=(stack["ring"], (S, core.ring_len + 1, ctx.n_planes, ctx.n)),
+            r_frame=(stack["r_frame"], (S, R1)), idx=(idx, (n,)), rows=(rows, (n, core.packed_len)),
+        )
+        if n > self._rows:
+            self._scratch = torch.zeros(n * (1 + 2 * W), dtype=torch.int32, device=device)
+            self._rows = n
+        lib = build.load(self.kernel)
+        P, I = launch.P, launch.I
+        extra = launch.model_ints(entry, ctx)
+        fn = launch.declare(lib, entry.stacked, [P] * 9 + [I] * (7 + len(extra)) + [P, P, P])
+        rc = fn(stack["state"].data_ptr(), stack["state_frame"].data_ptr(), stack["ring"].data_ptr(),
+                stack["r_frame"].data_ptr(), idx.data_ptr(), rows.data_ptr(), his.data_ptr(), los.data_ptr(),
+                self._scratch.data_ptr(), ctx.n, core.num_players, ctx.input_size, W, n, nslots, b_rows,
+                *extra, launch.disconnect_arg(core.disconnect_input), launch.weights_arg(ctx),
+                launch.stream_of(device))
+        launch.raise_on(rc, "resim_tick_stacked")
+        self.launches += 1
+        return his, los
+
+
 class TickCore:
     """K3's wrapper for one ResimCore; counts its launches in `launches`.
     On a CPU carry it runs `plain_tick_multi`; on a CUDA carry it launches
@@ -214,9 +332,10 @@ class TickCore:
             self._rows = t_rows
         return self._scratch
 
-    def tick_multi(self, carry, rows: torch.Tensor):
+    def tick_multi(self, carry, rows: torch.Tensor, out=None):
         """T rows (int32 [T, L] on the carry's device) in place; returns
-        (his, los) int32 [T, W]."""
+        (his, los) int32 [T, W], written into `out` (two such tensors)
+        when given."""
         if carry["state"].device.type == "cpu":
             return plain_tick_multi(carry, rows, self.core)
         core, ctx = self.core, self.core.ctx
@@ -240,8 +359,11 @@ class TickCore:
             raise ConfigError("a tick dispatch needs at least one row")
         lib = build.load(self.kernel)
         P, I = launch.P, launch.I
-        his = torch.empty((t_rows, W), dtype=torch.int32, device=device)
-        los = torch.empty((t_rows, W), dtype=torch.int32, device=device)
+        if out is None:
+            out = (torch.empty((t_rows, W), dtype=torch.int32, device=device),
+                   torch.empty((t_rows, W), dtype=torch.int32, device=device))
+        his, los = out
+        launch.check_tensors(device, his=(his, (t_rows, W)), los=(los, (t_rows, W)))
         verify = [carry[k].data_ptr() if core.device_verify else None for k in VERIFY_KEYS]
         ptrs = (carry["state"].data_ptr(), carry["state_frame"].data_ptr(), carry["ring"].data_ptr(),
                 carry["r_frame"].data_ptr(), *verify, rows.data_ptr(), his.data_ptr(), los.data_ptr())

@@ -2,8 +2,8 @@
 `InvalidRequest`, `MismatchedChecksum`, `NotSynchronized`,
 `StatsWindowTooYoung`, `SpectatorTooFarBehind`, `ConfigError`,
 `DataFormatError`, `TypeContractError`,
-`ContractViolation`, `RegistryMiss`, `CheckpointIncompatible` and
-`ModelIncompatible` mirror the reference's classes, each with its stdlib
+`ContractViolation`, `RegistryMiss`, `CheckpointIncompatible`,
+`ModelIncompatible` and `MigrationIncompatible` mirror the reference's classes, each with its stdlib
 base kept; `KernelError` is the port's own, for a CUDA kernel that does not
 build or whose launch is refused."""
 
@@ -38,6 +38,14 @@ class MismatchedChecksum(GGRSError):
         self.frame = frame
         self.local = local
         self.expected = expected
+
+
+class MigrationIncompatible(InvalidRequest):
+    """A slot's exported worlds cannot be imported here: another game
+    config (state tree keys, shapes or dtypes), window or ring length. A
+    subclass of InvalidRequest so catch-all admission handling keeps
+    working, but typed so a router can tell 'pick another host' from
+    'this payload is poison'."""
 
 
 class NotSynchronized(GGRSError):

@@ -6,7 +6,7 @@ a nonzero CUDA error into `KernelError`."""
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -66,6 +66,9 @@ class Entry(NamedTuple):
     symbol: str  # the library's entry point
     substeps: bool  # it takes the game's substeps after the shape ints (ex_game only)
     reduces: bool  # arena's body: a cross-entity reduction, cooperative grid barriers
+    # K3's megabatch entry for MultiSessionDeviceCore (rows on slots of the
+    # stacked worlds); None: the megabatch runs `symbol` once a row
+    stacked: Optional[str] = None
 
 
 # THE one choice of a kernel body: by the plane adapter's class, never by
@@ -86,8 +89,8 @@ ENTRIES: Dict[str, Dict[type, Entry]] = {
     # K2's inline whole-world route, in the synctest_tiled library: arena only
     "synctest_tiled_inline": {ArenaPlanes: Entry("synctest_tiled_inline_arena_launch", False, True)},
     "resim_tick": {
-        ExGamePlanes: Entry("resim_tick_launch", True, False),
-        SwarmPlanes: Entry("resim_tick_swarm_launch", False, False),
+        ExGamePlanes: Entry("resim_tick_launch", True, False, "resim_tick_stacked_launch"),
+        SwarmPlanes: Entry("resim_tick_swarm_launch", False, False, "resim_tick_swarm_stacked_launch"),
         ArenaPlanes: Entry("resim_tick_arena_launch", False, True),
     },
     "beam_rollout": {

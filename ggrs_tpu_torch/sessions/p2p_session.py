@@ -17,9 +17,16 @@ Left out of the reference's session:
   wire;
 - the native wire lane (`handle_wire`) and native input queues;
 - serve-host attachment (`on_host_attach`, `host_key`);
-- telemetry, tracer spans and desync forensics bundles;
-- the deterministic-publish checksum mode: reports publish as soon as
-  their value is ready (the reference's default `"ready"`).
+- telemetry, tracer spans and desync forensics bundles.
+
+Checksum reports publish as soon as their value is ready (the reference's
+default `checksum_publish = "ready"`); `"interval"` is the reference's
+deterministic-publish mode: the pump pass only binds getters and starts
+background copies (`PendingChecksumReport.bind_and_prefetch`), and every
+report is emitted at the interval-forced flush, so the wire bytes do not
+depend on when the device values became ready (an async backend's lazy
+dispatches). `drain_blocked_ticks` counts the forced flushes that waited
+on the card.
 """
 
 from __future__ import annotations
@@ -149,6 +156,11 @@ class P2PSession:
         # monotonic advance counter: stamps checksum-report captures so
         # the pump-side flush stays behind the capture frontier
         self._advance_serial = 0
+        # "ready" emits a report on the pump pass once its value is
+        # host-ready; "interval" emits only at the interval-forced flush
+        self.checksum_publish = "ready"
+        # ticks whose forced checksum flush waited on the card
+        self.drain_blocked_ticks = 0
 
     # ------------------------------------------------------------------
     # public API
@@ -293,11 +305,14 @@ class P2PSession:
         early would publish a mid-correction checksum."""
         pcr = self._pending_checksum_report
         if len(pcr):
-            pcr.flush(
-                force=False,
-                emit=self._emit_checksum_report,
-                max_serial=self._advance_serial - 2,
-            )
+            if self.checksum_publish == "interval":
+                pcr.bind_and_prefetch(max_serial=self._advance_serial - 2)
+            else:
+                pcr.flush(
+                    force=False,
+                    emit=self._emit_checksum_report,
+                    max_serial=self._advance_serial - 2,
+                )
 
     def disconnect_player(self, player_handle: PlayerHandle) -> None:
         """Disconnect a remote player (at its last confirmed frame) or a
@@ -551,7 +566,12 @@ class P2PSession:
         # in tick t's (unfulfilled) request list — PendingChecksumReport
         # reads the value on a later tick, once the cell is final.
         force = current % interval == interval - 1
-        self._pending_checksum_report.flush(force=force, emit=self._emit_checksum_report)
+        if self.checksum_publish == "interval" and not force:
+            # deterministic publish: bind and prefetch only, emission waits
+            # for the forced tick
+            self._pending_checksum_report.bind_and_prefetch()
+        elif self._pending_checksum_report.flush(force=force, emit=self._emit_checksum_report):
+            self.drain_blocked_ticks += 1
         # last_saved - 1 can be a *speculative* frame under misprediction,
         # and both peers would checksum half-predicted states and raise
         # false desyncs: only frames <= confirmed_frame are bit-identical

@@ -162,6 +162,25 @@ class PendingChecksumReport:
             bound.append(entry)
         self._pending = bound
 
+    def bind_and_prefetch(self, max_serial: Optional[int] = None) -> None:
+        """The resolve-only half of flush(), for the deterministic-publish
+        mode (`checksum_publish = "interval"`): bind getters for every
+        old-enough entry and start a background copy of the first one not
+        ready, so the interval-forced flush finds the bytes moved — but
+        emit nothing. A getter whose batch is not dispatched yet
+        (`dispatch_pending`: its ticks still sit in a lazy buffer) is left
+        alone, since prefetching it would force the dispatch."""
+        self._bind(max_serial)
+        for _frame, _cell, getter, _serial in self._pending:
+            if getter is None:
+                return
+            if not getattr(getter, "ready", True):
+                if not getattr(getter, "dispatch_pending", False):
+                    prefetch = getattr(getter, "prefetch", None)
+                    if callable(prefetch):
+                        prefetch()
+                return
+
     def flush(self, force: bool, emit, max_serial: Optional[int] = None) -> int:
         """emit(frame, checksum) is called at most once per captured report,
         in capture order. Returns the number of reports that were resolved

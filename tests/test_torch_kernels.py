@@ -1,9 +1,10 @@
 """The port's CUDA kernels (ggrs_tpu_torch/csrc/): a build that cannot run
 raises a typed error, and, on a card only, each kernel equals its plain
 PyTorch version bit for bit after every batch (K1, K2), dispatch (K3),
-speculation (K4) or table (K5), for ex_game, arena (past 16 teams too)
-and swarm; and a P2P match on the card equals its replay on the plain
-versions.
+megabatch (K3's stacked entry, arena's per-row launches), speculation (K4)
+or table (K5), for ex_game, arena (past 16 teams too) and swarm; a P2P
+match on the card equals its replay on the plain versions, and the async
+pipeline equals the eager dispatch.
 
 This file imports no jax, so on a machine with a card and no jax it runs
 without the suite's conftest:
@@ -16,11 +17,12 @@ import pytest
 import torch
 
 from chip_smoke import (
-    TICK_STREAMS, VERDICT_STREAMS, p2p_match, p2p_replay, prime_row, random_tick_rows, tick_stream, verdict_stream,
+    TICK_STREAMS, VERDICT_STREAMS, megabatch_ticks, p2p_match, p2p_replay,
+    prime_row, random_tick_rows, tick_stream, verdict_stream,
 )
 from ggrs_tpu_torch import (
-    Arena, DeviceRollbackBackend, DeviceSyncTestSession, ExGame, KernelError, SaveGameState, SessionBuilder,
-    Swarm,
+    Arena, DeviceRollbackBackend, DeviceSyncTestSession, ExGame, KernelError, MultiSessionDeviceCore, SaveGameState,
+    SessionBuilder, Swarm,
 )
 from ggrs_tpu_torch.convert import CARRY_KEYS, copy_carry
 from ggrs_tpu_torch.device import sync_test
@@ -31,7 +33,7 @@ from ggrs_tpu_torch.device.reduce_core import STATE as STATE_SLOT
 from ggrs_tpu_torch.device.reduce_core import ReduceTableCore, plain_reduce_table, source_slots
 from ggrs_tpu_torch.device.planes import PlaneContext
 from ggrs_tpu_torch.device.resim import RESIM_KEYS, ResimCore
-from ggrs_tpu_torch.device.tick_core import arena_tick_plan, plain_tick_multi
+from ggrs_tpu_torch.device.tick_core import arena_tick_plan, plain_megabatch, plain_tick_multi, windowed_row
 from ggrs_tpu_torch.device.tiled_core import TiledSyncTestCore, plain_injected_tick, plain_parts, plain_verdict
 from ggrs_tpu_torch.kernels import build
 
@@ -806,3 +808,172 @@ def test_p2p_match_matches_plain_on_card(cuda_card, lazy):
     card = m.backends[0].core.carry
     for k, v in cpu.core.carry.items():
         assert torch.equal(v, card[k].cpu()), k
+
+
+MEGABATCH_GAMES = [(ExGame, 16), (Swarm, 128), (Arena, 64)]  # the family and its input bound
+
+
+def assert_megabatch_launches(m):
+    """A stacked K3 launch a megabatch, or a K3-arena launch a row."""
+    if m.tick_core.stacked:
+        assert m.tick_core.launches == m.megabatches and m.core.tick_core.launches == 0
+    else:
+        assert m.core.tick_core.launches == m.rows_dispatched and m.tick_core.launches == 0
+
+
+def request_kinds(stream):
+    """A recorded P2P stream without its cells' identities."""
+    return [[r if r[0] == "AdvanceFrame" else r[:2] for r in tick] for tick in stream]
+
+
+def assert_megabatch_matches_plain(m, twin, key, entries, la):
+    """One megabatch through the core on the card and through
+    plain_megabatch on a twin stack: his/los of every bucket row (the pad
+    rows (0, 0)) and both whole stacks equal."""
+    nslots = m.group_depth(key)
+    batch, bucket = (m.dispatch(entries, fast=True) if key == "fast" else m.dispatch(entries, last_active=la))
+    idx = [s for s, _ in entries]
+    rows = np.stack([r for _, r in entries])
+    p_his, p_los = plain_megabatch(twin, idx, rows, nslots, m.core, bucket)
+    torch.cuda.synchronize()
+    assert batch._his.shape == (bucket, m.core.window)
+    assert torch.equal(batch._his, p_his) and torch.equal(batch._los, p_los), key
+    assert not batch._his[len(entries):].any() and not batch._los[len(entries):].any()
+    for k, v in m.stack.items():
+        assert torch.equal(v, twin[k]), (key, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("game_cls,mod", MEGABATCH_GAMES, ids=[g.__name__ for g, _ in MEGABATCH_GAMES])
+def test_megabatch_matches_plain_on_card(cuda_card, game_cls, mod):
+    """Eight sessions' seeded session-shaped streams (rollbacks that load a
+    slot and save into it in one row, skipped and trailing saves,
+    DISCONNECTED slots) as the host groups them, a megabatch per group on
+    the card (K3's stacked entry; arena a K3-arena launch a row) against
+    plain_megabatch on a twin stack, after every megabatch."""
+    m = MultiSessionDeviceCore(game_cls(4, 4096), 8, 4, 8, buckets=(8,), device="cuda")
+    twin = {k: v.clone() for k, v in m.stack.items()}
+    seen = set()
+    for entries in megabatch_ticks(m, 20, seed=41, mod=mod, prime=game_cls is Arena):
+        for key, group, la in m.group(entries):
+            seen.add(key)
+            assert_megabatch_matches_plain(m, twin, key, group, la)
+    assert "fast" in seen and len(seen) >= 3
+    assert_megabatch_launches(m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("game_cls,mod", MEGABATCH_GAMES, ids=[g.__name__ for g, _ in MEGABATCH_GAMES])
+def test_megabatch_one_live_row_at_every_depth_on_card(cuda_card, game_cls, mod):
+    """Launches with one live row in a bucket of 8 (seven pad rows that
+    must read (0, 0)) at the fast depth and at every depth bucket,
+    including a row that loads the slot it saves first: each equal to
+    plain_megabatch on a twin stack."""
+    m = MultiSessionDeviceCore(game_cls(4, 4096), 8, 4, 8, buckets=(8,), device="cuda")
+    twin = {k: v.clone() for k, v in m.stack.items()}
+    ticks = megabatch_ticks(m, 16, seed=7, mod=mod, prime=game_cls is Arena)
+    depths = set()
+    for t, entries in enumerate(ticks):
+        slot, row, la = entries[t % m.capacity]
+        key = "fast" if m.fast_eligible(row, la) else m.depth_bucket_for(la)
+        depths.add(key)
+        assert_megabatch_matches_plain(m, twin, key, [(slot, row)], la)
+    # each depth bucket on a row cut to fit it
+    for d in m.depth_buckets:
+        slot, row, la = ticks[-1][d % m.capacity]
+        assert_megabatch_matches_plain(m, twin, d, [(slot, windowed_row(row, d, m.core))], d)
+    assert "fast" in depths
+    assert_megabatch_launches(m)
+
+
+def synctest_session(lag=0):
+    """A 2-player SyncTest session, check distance 4; `lag` > 0 compares
+    checksums `lag` ticks late, in bursts (no read on the other ticks)."""
+    return (SessionBuilder(input_size=1).with_num_players(2).with_max_prediction_window(8)
+            .with_check_distance(4).with_deferred_checksum_verification(lag).start_synctest_session())
+
+
+def drive_synctest(sess, backend, ticks, start=0):
+    """`ticks` SyncTest ticks (a rollback every tick) of `sess` on
+    `backend`, inputs seeded by the tick number from `start`; returns each
+    save's (frame, checksum getter), taken at save time."""
+    getters = []
+    for t in range(start, start + ticks):
+        for h in range(2):
+            sess.add_local_input(h, bytes([(t * (3 + h) + h) % 16]))
+        reqs = sess.advance_frame()
+        backend.handle_requests(reqs)
+        getters += [(r.frame, r.cell.checksum_getter()) for r in reqs if isinstance(r, SaveGameState)]
+    return getters
+
+
+def assert_backends_equal(a, b):
+    a.block_until_ready()
+    b.block_until_ready()
+    for k, v in a.core.carry.items():
+        assert torch.equal(v, b.core.carry[k]), k
+
+
+@pytest.mark.cuda
+def test_async_backend_matches_eager_on_card(cuda_card):
+    """The async pipeline on the card (lazy 8 in pinned pooled buffers
+    behind a CUDA-event fence of depth 2) against the eager backend over a
+    SyncTest stream with a rollback every tick: every save's checksum and
+    the final core equal, the fence held and retired."""
+    def drive(backend):
+        return [(f, g()) for f, g in drive_synctest(synctest_session(), backend, 60)]
+
+    eager = DeviceRollbackBackend(ExGame(2, 4096), 8, 2, device="cuda")
+    asynch = DeviceRollbackBackend(ExGame(2, 4096), 8, 2, async_dispatch=True, async_inflight=2, device="cuda")
+    assert drive(eager) == drive(asynch)
+    assert len(eager.fence) == 0 and asynch.lazy_ticks == 8
+    assert_backends_equal(eager, asynch)
+    assert asynch.core.tick_core.launches > 0 and len(asynch.fence) == 0
+
+
+@pytest.mark.cuda
+def test_async_backend_reset_mid_pipeline_on_card(cuda_card):
+    """An async backend (lazy 2, fence depth 1) reset while a dispatch is
+    still queued on the card behind a spin, a row staged: reset waits for
+    it, so the next session's rows, packed into the pooled buffer that
+    dispatch still has to upload, cannot overwrite it first. Both
+    sessions' saves, the old one's read only after the next one ran,
+    equal an eager backend's over the same two sessions. The first
+    session reads checksums every 8th tick only (a read would wait for
+    the spin)."""
+    asynch = DeviceRollbackBackend(ExGame(2, 4096), 8, 2, async_dispatch=True, async_inflight=1, lazy_ticks=2,
+                                   device="cuda")
+    sess = synctest_session(lag=8)
+    old = drive_synctest(sess, asynch, 20)
+    torch.cuda._sleep(200_000_000)  # about 0.1 s of spinning ahead of the next dispatch
+    old += drive_synctest(sess, asynch, 2, start=20)  # a dispatch behind the spin, then a staged row
+    asynch.fence.poll()
+    assert asynch._rows_count == 1
+    assert len(asynch.fence) == 1, "the dispatch behind the spin has retired: nothing was in flight"
+    asynch.reset()
+    assert len(asynch.fence) == 0 and asynch.current_frame == 0
+    new = drive_synctest(synctest_session(), asynch, 30)
+    eager = DeviceRollbackBackend(ExGame(2, 4096), 8, 2, device="cuda")
+    eager_old = drive_synctest(synctest_session(lag=8), eager, 22)
+    eager.reset()
+    eager_new = drive_synctest(synctest_session(), eager, 30)
+    assert [(f, g()) for f, g in old] == [(f, g()) for f, g in eager_old]
+    assert [(f, g()) for f, g in new] == [(f, g()) for f, g in eager_new]
+    assert_backends_equal(eager, asynch)
+
+
+@pytest.mark.cuda
+def test_async_p2p_match_matches_eager_on_card(cuda_card):
+    """A 2-player P2P match on the card with deterministic checksum
+    publishing, every peer eager, then every peer async: the same request
+    streams, every save's checksum and the confirmed checksums equal, no
+    desync."""
+    eager = p2p_match(np, 2, 1024, 8, 80, "cuda", publish="interval")
+    asynch = p2p_match(np, 2, 1024, 8, 80, "cuda", publish="interval", async_dispatch=True)
+    for m in (eager, asynch):
+        assert not any(type(e).__name__ == "DesyncDetected" for ev in m.events for e in ev)
+    assert request_kinds(eager.stream) == request_kinds(asynch.stream)
+    assert [(f, g()) for f, g in eager.saves0] == [(f, g()) for f, g in asynch.saves0]
+    for a, b in zip(eager.sessions, asynch.sessions):
+        assert a.local_checksum_history == b.local_checksum_history and a.local_checksum_history
+    assert all(b.async_dispatch and b.core.tick_core.launches > 0 for b in asynch.backends)

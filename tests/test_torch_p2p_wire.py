@@ -144,12 +144,12 @@ def test_eager_getters_are_ready_on_the_cpu():
 def test_lazy_getters_wait_for_their_dispatch():
     backend, getters = synctest_saves(5)
     # 7 ticks at lazy_ticks=5: a full buffer dispatched, the later rows buffered
-    assert backend._tick_rows
+    assert backend._rows_count
     buffered = [g for _, g in getters if not g.ready]
     assert buffered and len(buffered) < len(getters)
     assert all(g._batch.batch is None for g in buffered)  # not dispatched yet
     buffered[0].prefetch()  # forces the buffer's dispatch
-    assert not backend._tick_rows
+    assert not backend._rows_count
     assert all(g.ready for _, g in getters)
     eager, eager_getters = synctest_saves(0)
     assert [(f, g()) for f, g in getters] == [(f, g()) for f, g in eager_getters]
