@@ -228,7 +228,28 @@ NVIDIA card (written for an H100). Run from the repository root:
    backends. Then, parity only, 8 slots of Swarm(4, 4096) through the
    stacked swarm entry and 8 of Arena(4, 4096) through a K3-arena launch a
    row, every megabatch against plain_megabatch.
-21. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
+21. The serving path (hs64_4096): the port's `SessionHost` serving 16
+   four-peer P2P matches (64 sessions of ExGame(4, 4096), max_prediction 8,
+   desync detection on(10), P2P_NET with a seed a match, a fake clock
+   advanced 16 ms a tick, 140 ticks after sync), once dispatch-per-tick
+   (depth routing: each megabatch one launch of K3's stacked entry) and
+   once resident (`resident=True, resident_ticks=16`: the device mailbox,
+   each drive ONE launch of K3's resident entry), in ABBA order (dispatch,
+   resident, resident, dispatch). Every kernel count is set to 0 just
+   before each run's tick loop. Both arms 0 desyncs and equal frames,
+   confirmed checksum histories, stacked rings and states and slot
+   checksums; the resident arm's launches equal its drives, with no
+   megabatch, no stacked launch and no overflow; its first drive and every
+   8th against plain_resident_drive on a clone of the stack. Prints each
+   arm's dispatches a host tick, session-ticks/s, the card's idle share
+   (a torch.profiler trace of a further run), the resident arm's virtual
+   ticks a drive and commits a host tick, and the resident entry's device
+   ms a drive (recorded drives replayed alone, queued; p50, p90), and for
+   the median of the drives held against the plain version its own ms
+   beside the plain ms and the bound. Then, parity only, 8 sessions of Swarm(4,
+   4096) and 8 of Arena(4, 4096), 32 ticks, resident against
+   dispatch-per-tick.
+22. Prints one {"kernels": [...]} JSON line (times, bounds, launches), then
    as the last line {"ok": true, "device": {...}}.
 
 Any failure exits nonzero before the result lines. Without a CUDA device,
@@ -763,63 +784,6 @@ def verdict_stream(np, d, t_ticks, c0, carried, plants, latched, frame_weight, s
     return i32(parts_hi), i32(parts_lo), np.array(tag, np.int32), i32(hhi), i32(hlo), meta
 
 
-def random_tick_args(players: int, max_prediction: int, n_rows: int, seed: int, mod: int = 16,
-                     input_size: int = 1):
-    """`n_rows` seeded, session-shaped tick rows as `ResimCore.pack_tick_row`
-    arguments (do_load, load_slot, inputs, statuses, save_slots,
-    advance_count, start_frame). The shape is what sessions emit: a spin-up
-    of one-advance rows so the deepest rollbacks are reachable, then one
-    rollback of max_prediction - 1 frames and rows with random rollback
-    depths up to max_prediction - 1; dense saves with 10% of them skipped, a
-    trailing save 30% of the time, and 15% of the slots with one
-    DISCONNECTED player. Input byte 0 is drawn below `mod` (ex_game 16,
-    arena 64); with `input_size` 2 the second byte is drawn from 0..7
-    (arena's throttle). The tests drive ResimCore with it too."""
-    import numpy as np
-
-    from ggrs_tpu_torch.types import InputStatus
-
-    W = ring_len = max_prediction + 2
-    r = np.random.default_rng(seed)
-    frame, out = 0, []
-    for k in range(n_rows):
-        if k < max_prediction + 2:
-            depth = 0
-        elif k == max_prediction + 2:
-            depth = max_prediction - 1
-        else:
-            depth = int(r.integers(0, max_prediction))
-        do_load = depth > 0 and frame > depth
-        count = depth + 1 if do_load else 1
-        start = frame - depth if do_load else frame
-        inputs = np.zeros((W, players, input_size), np.uint8)
-        statuses = np.zeros((W, players), np.int32)
-        for i in range(count):
-            inputs[i, :, :1] = r.integers(0, mod, (players, 1))
-            if input_size > 1:
-                inputs[i, :, 1:] = r.integers(0, 8, (players, input_size - 1))
-            if r.random() < 0.15:
-                statuses[i, r.integers(0, players)] = int(InputStatus.DISCONNECTED)
-        slots = np.full((W,), ring_len, np.int32)
-        for i in range(count):
-            if r.random() >= 0.1:
-                slots[i] = (start + i) % ring_len
-        if count < W and r.random() < 0.3:
-            slots[count] = (start + count) % ring_len
-        out.append((do_load, (start % ring_len) if do_load else 0, inputs, statuses, slots, count, start))
-        frame = start + count
-    return out
-
-
-def random_tick_rows(core, n_rows: int, seed: int, mod: int = 16):
-    """The same stream packed into int32 [n_rows, L] rows for `core`."""
-    import numpy as np
-
-    args = random_tick_args(core.num_players, core.max_prediction, n_rows, seed, mod,
-                            core.game.input_size)
-    return np.stack([core.pack_tick_row(*a[:6], start_frame=a[6]) for a in args])
-
-
 # crafted K3 row streams, for the scalar pass above all (the state frames,
 # ring-frame tags, first-seen history and latch): name, players,
 # max_prediction (W = max_prediction + 2), rows a dispatch, device
@@ -914,41 +878,6 @@ def tick_stream(core, specs, seed: int, mod: int = 16):
     return np.stack(rows)
 
 
-def prime_row(core):
-    """A row that saves the live world into every ring slot and advances
-    nothing. Random streams (and bench.py:1275's buffer) load slots their
-    own rows may never have saved; after this row such a load finds the
-    initial world instead of an all-zero one, which for arena is a world
-    of dead entities."""
-    import numpy as np
-
-    W, P, I = core.window, core.num_players, core.game.input_size
-    return core.pack_tick_row(False, 0, np.zeros((W, P, I), np.uint8), np.zeros((W, P), np.int32),
-                              np.arange(W, dtype=np.int32), 0)
-
-
-def row_last_active(core, row) -> int:
-    """A packed row's 1-based last active slot: its advances and its
-    highest real save (what `parse_request_segment` returns)."""
-    saves = [i for i in range(core.window) if int(row[core.off_save + i]) < core.ring_len]
-    return max(int(row[2]), 1, saves[-1] + 1 if saves else 0)
-
-
-def megabatch_ticks(mcore, n_ticks: int, seed: int, mod: int = 16, prime: bool = False):
-    """Seeded session-shaped host ticks for a MultiSessionDeviceCore: slot s
-    plays `random_tick_args` with seed + s (spin-up, rollbacks of random
-    depth, skipped and trailing saves, DISCONNECTED slots), one row a slot
-    a tick; `prime` puts a `prime_row` first (arena: every slot then holds
-    a living world). Returns [[(slot, row, last_active)] a tick]."""
-    core = mcore.core
-    per_slot = []
-    for s in range(mcore.capacity):
-        rows = list(random_tick_rows(core, n_ticks - int(prime), seed + s, mod))
-        per_slot.append(([prime_row(core)] if prime else []) + rows)
-    return [[(s, per_slot[s][t], row_last_active(core, per_slot[s][t])) for s in range(mcore.capacity)]
-            for t in range(n_ticks)]
-
-
 class PlainTick:
     """Stands in for a ResimCore's K3 wrapper: runs the plain version on
     the same (CUDA) carry, and keeps the rows of every dispatch, by row
@@ -1004,6 +933,7 @@ def tick_phase(torch, np, dev, tag, shapes=None, game_cls=None, mod=16, probe_pl
     `mod`. Returns {key: max abs err}."""
     from ggrs_tpu_torch import ExGame, MismatchedChecksum, ResimCore
     from ggrs_tpu_torch.device.resim import RESIM_KEYS
+    from ggrs_tpu_torch.device.rowgen import random_tick_rows
     from ggrs_tpu_torch.device.tick_core import plain_tick_multi
 
     game_cls = game_cls or ExGame
@@ -1295,6 +1225,7 @@ def beam_phase(torch, np, dev, tag, shapes=None, game_cls=None, mod=16, probe_pl
     Returns {key: (max abs err, ms, plain ms, ms back to back)}."""
     from ggrs_tpu_torch import ExGame, ResimCore
     from ggrs_tpu_torch.device.beam_core import plain_rollout
+    from ggrs_tpu_torch.device.rowgen import random_tick_rows
 
     game_cls, timed = game_cls or ExGame, timed or TIMED_SPECULATIONS
     name, suffix = f"beam_rollout{body_suffix(game_cls)}", body_suffix(game_cls)
@@ -1984,6 +1915,7 @@ def arena_tick_phase(torch, np, dev, tag):
     ms, bound) of ar4_l16's buffer})."""
     from ggrs_tpu_torch import Arena, MismatchedChecksum, ResimCore
     from ggrs_tpu_torch.device.resim import RESIM_KEYS
+    from ggrs_tpu_torch.device.rowgen import prime_row, random_tick_rows
     from ggrs_tpu_torch.device.tick_core import plain_tick_multi
 
     errs, timed = {}, {}
@@ -2071,6 +2003,7 @@ def arena_beam_phase(torch, np, dev, tag):
     back to back)}."""
     from ggrs_tpu_torch import Arena, ResimCore
     from ggrs_tpu_torch.device.beam_core import plain_rollout
+    from ggrs_tpu_torch.device.rowgen import prime_row, random_tick_rows
 
     out = {}
     for key, players, n, mp, width, steps in ARENA_BEAM_SHAPES:
@@ -2342,6 +2275,7 @@ def arena_teams_phase(torch, np, dev, tag):
     from ggrs_tpu_torch.device.planes import PlaneContext
     from ggrs_tpu_torch.device.reduce_core import STATE, plain_reduce_table, source_slots
     from ggrs_tpu_torch.device.resim import RESIM_KEYS
+    from ggrs_tpu_torch.device.rowgen import prime_row, random_tick_rows
     from ggrs_tpu_torch.device.tick_core import plain_tick_multi
 
     entries = []
@@ -3450,6 +3384,7 @@ def megabatch_slice(torch, np, dev, tag, key, game_cls, mod):
     plain_megabatch on a twin stack. Returns (launches, max abs err, the
     kernels-line entry's timing of the median megabatch)."""
     from ggrs_tpu_torch import MultiSessionDeviceCore
+    from ggrs_tpu_torch.device.rowgen import megabatch_ticks
     from ggrs_tpu_torch.device.tick_core import plain_megabatch
 
     m = MultiSessionDeviceCore(game_cls(MB_PLAYERS, MB_N), MB_MP, MB_PLAYERS, 8, device=dev)
@@ -3643,6 +3578,350 @@ def megabatch_phase(torch, np, dev, tag):
             "tpu_counterpart": "K3's function a row of MultiSessionDeviceCore's vmapped megabatch",
             "shape": f"{key}: {sl['rows']} rows of {g}({MB_PLAYERS}, {MB_N}), depth {sl['depth']}"
                      + ("" if g == "Swarm" else f", {sl['rows']} K3-arena launches"),
+            "max_abs_err": sl["err"], "ms": sl["ms"], "plain_ms": sl["plain_ms"], "bound_ms": sl["bound_ms"],
+            "bound_by": sl["bound_by"], "library_ms": None, "launches": sl["launches"],
+        })
+    return summary, entries
+
+
+HS_KEY = "hs64_4096"
+# the serving path: 16 four-peer P2P matches (bench.py:1785's 64 sessions,
+# BASELINE.json configs[1]/[3]'s widths) on one SessionHost, over the P2P
+# phase's network (P2P_NET) with a seed a match, HS_TICKS host ticks after
+# sync; the resident arm's mailbox depth is HS_RESIDENT_TICKS
+HS_MATCHES, HS_PLAYERS, HS_N, HS_MP = 16, 4, 4096, 8
+HS_TICKS, HS_RESIDENT_TICKS = 140, 16
+HS_PLAIN_EVERY = 8  # the first drive and every 8th held against plain_resident_drive
+HS_TIMED = 24  # recorded drives timed alone, queued behind a spin
+HS_RANGE = "host_ticks"  # the profiler range around a fleet's tick loop
+HS_SLICES = [("hs8_swarm", "Swarm"), ("hs8_arena", "Arena")]  # parity only: 8 sessions, HS_SLICE_TICKS ticks
+# 32, not fewer: a session captures its first confirmed checksum at frame 20
+# (frame_to_send must pass max_prediction) and publishes it at frame 29
+HS_SLICE_TICKS = 32
+
+
+class ResidentRecorder:
+    """Stands in for a MultiSessionDeviceCore's ResidentTickCore: keeps each
+    drive's mailbox rows, marks and depth (copies) so the drives can be
+    timed alone afterwards, and for the first drive and every
+    HS_PLAIN_EVERY-th a clone of the stack before and after it with the
+    drive's output, which `hs_plain_checks` holds against
+    plain_resident_drive."""
+
+    def __init__(self, rc):
+        self.rc = rc
+        self.calls = []
+        self.checks = []
+
+    def __getattr__(self, name):
+        return getattr(self.rc, name)
+
+    def drive(self, stack, mbox_rows, marks, nslots):
+        call = (mbox_rows.clone(), marks.copy(), nslots)
+        sampled = len(self.calls) % HS_PLAIN_EVERY == 0
+        self.calls.append(call)
+        before = {k: v.clone() for k, v in stack.items()} if sampled else None
+        his, los = self.rc.drive(stack, mbox_rows, marks, nslots)
+        if sampled:
+            self.checks.append((before, call, his, los, {k: v.clone() for k, v in stack.items()}))
+        return his, los
+
+
+def resident_bound(rows, marks, n, core, nslots):
+    """Least ms of one resident drive: every live lane's rows on its own
+    world (`tick_work` of each lane's rows cut to `nslots`), plus the
+    (0, 0) his/los of every row not run."""
+    import numpy as np
+
+    from ggrs_tpu_torch.device.tick_core import windowed_row
+
+    lanes = [s for s in range(len(marks)) if marks[s]]
+    work = [tick_work(np.stack([windowed_row(r, nslots, core) for r in rows[s, : marks[s]]]), n, core)
+            for s in lanes]
+    unrun = rows.shape[0] * rows.shape[1] - int(sum(marks))
+    return least(sum(b for b, _ in work) + 2 * 4 * core.window * unrun, sum(o for _, o in work))
+
+
+def hs_fleet(torch, np, dev, resident, *, game_cls=None, n=None, matches=None, ticks=None, record=False,
+             mark=False):
+    """One fleet of `matches` four-peer P2P matches of game_cls(4, n) (ExGame
+    by default) on ONE port SessionHost on `dev`: max_prediction HS_MP,
+    desync detection on(P2P_DESYNC_INTERVAL), each match on its own
+    InMemoryNetwork (P2P_NET, seed 700 + m), a FakeClock advanced
+    P2P_TICK_MS a tick, inputs seeded below 16, `ticks` host ticks after
+    sync. `resident`: SessionHost(resident=True, resident_ticks=
+    HS_RESIDENT_TICKS), else dispatch-per-tick with depth routing; an
+    inflight window the dispatch arm never fills, so both arms carry the
+    same traffic. Every kernel count of the host's core is set to 0 just
+    before the tick loop. `record`: the resident drive goes through a
+    ResidentRecorder; `mark`: the tick loop runs inside the profiler range
+    HS_RANGE. Returns a namespace (host, keys, desyncs, wall seconds of the
+    tick loop, the recorder)."""
+    import random
+    from types import SimpleNamespace
+
+    from ggrs_tpu_torch import DesyncDetection, ExGame, PlayerType, SessionBuilder
+    from ggrs_tpu_torch.network.sockets import InMemoryNetwork
+    from ggrs_tpu_torch.serve import SessionHost
+    from ggrs_tpu_torch.serve.loadgen import sync_fleet
+    from ggrs_tpu_torch.utils.clock import FakeClock
+
+    n, matches, ticks = n or HS_N, matches or HS_MATCHES, ticks or HS_TICKS
+    S = matches * HS_PLAYERS
+    clock = FakeClock()
+    host = SessionHost((game_cls or ExGame)(HS_PLAYERS, n), max_prediction=HS_MP, num_players=HS_PLAYERS,
+                       max_sessions=S, clock=clock, idle_timeout_ms=0, max_inflight_rows=8 * S, warmup=True,
+                       resident=resident, resident_ticks=HS_RESIDENT_TICKS, device=dev)
+    rec = None
+    if record:
+        rec = host.device.resident_core = ResidentRecorder(host.device.resident_core)
+    keys = []
+    for m in range(matches):
+        net = InMemoryNetwork(clock, **dict(P2P_NET, seed=700 + m))
+        addrs = [(m, i) for i in range(HS_PLAYERS)]
+        row = []
+        for i in range(HS_PLAYERS):
+            b = (SessionBuilder(input_size=1).with_num_players(HS_PLAYERS).with_max_prediction_window(HS_MP)
+                 .with_desync_detection_mode(DesyncDetection.on(P2P_DESYNC_INTERVAL)).with_clock(clock)
+                 .with_rng(random.Random(100 + HS_PLAYERS * m + i)))
+            for h, addr in enumerate(addrs):
+                b = b.add_player(PlayerType.local() if h == i else PlayerType.remote(addr), h)
+            row.append(host.attach(b.start_p2p_session(net.socket(addrs[i]))))
+        keys.append(row)
+    sync_fleet(host, keys, clock)
+    scripts = [np.random.default_rng(500 + m).integers(0, 16, size=(ticks, HS_PLAYERS)) for m in range(matches)]
+    core = host.device
+    host.device.block_until_ready()
+    core.tick_core.launches = core.core.tick_core.launches = 0
+    if core.resident_core is not None:
+        (rec.rc if rec is not None else core.resident_core).launches = 0
+    span = None
+    if mark:
+        span = torch.profiler.record_function(HS_RANGE)
+        span.__enter__()
+    desyncs = 0
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        for m, row in enumerate(keys):
+            for i, key in enumerate(row):
+                host.submit_input(key, i, bytes([int(scripts[m][t, i])]))
+        desyncs += sum(type(e).__name__ == "DesyncDetected" for evs in host.tick().values() for e in evs)
+        clock.advance(P2P_TICK_MS)
+    host.device.block_until_ready()
+    wall = time.perf_counter() - t0
+    if span is not None:
+        span.__exit__(None, None, None)
+    return SimpleNamespace(host=host, keys=[k for row in keys for k in row], desyncs=desyncs, wall_s=wall,
+                           rec=rec, ticks=ticks, sessions=S)
+
+
+def hs_compare(np, a, b, what):
+    """Fail unless two fleets' sessions hold the same frames and confirmed
+    checksum histories and their cores the same stacked bytes and slot
+    checksums. Returns the confirmed checksums compared."""
+    published = 0
+    for ka, kb in zip(a.keys, b.keys):
+        sa, sb = a.host.session(ka), b.host.session(kb)
+        if sa.current_frame != sb.current_frame or sa.local_checksum_history != sb.local_checksum_history:
+            fail(f"{what}: session {ka}'s frame or checksum history differs between the arms")
+        published += len(sa.local_checksum_history)
+    for x, y in zip(a.host.device.stacked_canonical(), b.host.device.stacked_canonical()):
+        for k in y:
+            if not np.array_equal(x[k], y[k]):
+                fail(f"{what}: the stacked {k} differs between the arms")
+    for x, y in zip(a.host.device.checksum_slots(), b.host.device.checksum_slots()):
+        if not np.array_equal(x, y):
+            fail(f"{what}: checksum_slots differs between the arms")
+    if published < 1:
+        fail(f"{what}: no confirmed checksum was compared")
+    return published
+
+
+def hs_plain_checks(torch, rec, core):
+    """Every sampled drive of a ResidentRecorder against
+    plain_resident_drive on its clone of the stack: his/los and the whole
+    stack after it. Returns the largest difference and each check's
+    (recorded call, the plain drive's device ms)."""
+    from ggrs_tpu_torch.device.tick_core import plain_resident_drive
+
+    err, plain = 0, []
+    for before, call, his, los, after in rec.checks:
+        rows, marks, nslots = call
+        lanes = [s for s in range(len(marks)) if marks[s]]
+        out = []
+        ms = events_ms(torch, lambda: out.append(plain_resident_drive(before, rows, lanes, marks[lanes], nslots,
+                                                                      core)), 1)
+        p_his, p_los = out[0]
+        err = max(err, carry_err(torch, {"h": his, "l": los}, {"h": p_his, "l": p_los}, "hl"),
+                  carry_err(torch, after, before, tuple(after)))
+        plain.append((call, ms))
+    return err, plain
+
+
+def hs_drive_times(torch, np, host, rec, n, plain, reps=4):
+    """Up to HS_TIMED of the recorded drives replayed alone on a scratch
+    copy of the stack, each queued behind a spin (device ms p50, p90), and
+    the median (by rows) of the drives checked against the plain version
+    (`plain`: hs_plain_checks' (call, plain ms) pairs) timed the same way
+    beside that check's plain ms and its bound (`ms`: the kernels line's
+    time of the work the bound counts)."""
+
+    def pct(v, q):
+        v = sorted(v)
+        return v[min(len(v) - 1, (len(v) * q) // 100)]
+
+    core = host.device
+    scratch = {k: v.clone() for k, v in core.stack.items()}
+    calls = rec.calls
+    sample = calls[:: max(1, len(calls) // HS_TIMED)][:HS_TIMED]
+
+    # arena enqueues a launch a lane from Python: a longer spin a drive
+    def timed(c):
+        return queued_ms(torch, lambda: rec.rc.drive(scratch, c[0], c[1], c[2]), reps,
+                         1_000_000 if rec.rc.stacked else 2_000_000 * int((c[1] > 0).sum()))
+
+    ms = [timed(c) for c in sample]
+    median, plain_ms = sorted(plain, key=lambda cp: int(cp[0][1].sum()))[len(plain) // 2]
+    median_ms = timed(median)
+    rows, marks, nslots = median
+    lanes = [s for s in range(len(marks)) if marks[s]]
+    b_ms, b_by = resident_bound(rows.cpu().numpy(), marks, n, core.core, nslots)
+    return {"drives": len(calls), "timed": len(ms), "ms_p50": pct(ms, 50), "ms_p90": pct(ms, 90), "ms": median_ms,
+            "median_lanes": len(lanes), "median_rows": int(marks.sum()), "median_vticks": int(marks.max()),
+            "nslots": nslots, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def hs_slice(torch, np, dev, tag, key, game_cls):
+    """Parity only: 8 sessions (two four-peer matches) of game_cls(4, 4096),
+    HS_SLICE_TICKS ticks, resident against dispatch-per-tick; the resident
+    arm's drives (the first, every 8th) against plain_resident_drive, its
+    median drive timed. Returns the kernels-line figures."""
+    res = hs_fleet(torch, np, dev, True, game_cls=game_cls, matches=2, ticks=HS_SLICE_TICKS, record=True)
+    twin = hs_fleet(torch, np, dev, False, game_cls=game_cls, matches=2, ticks=HS_SLICE_TICKS)
+    if res.desyncs or twin.desyncs:
+        fail(f"{key}: {res.desyncs} / {twin.desyncs} desyncs (resident / dispatch)")
+    hs_compare(np, res, twin, key)
+    core = res.host.device
+    stacked = core.resident_core.rc.stacked
+    launches = core.resident_core.rc.launches if stacked else core.core.tick_core.launches
+    lanes = sum(int((c[1] > 0).sum()) for c in res.rec.calls)
+    if launches != (core.driver_dispatches if stacked else lanes) or core.driver_dispatches < 1:
+        fail(f"{key}: {launches} launches for {core.driver_dispatches} drives of {lanes} lanes")
+    err, plain = hs_plain_checks(torch, res.rec, core.core)
+    if err:
+        fail(f"{key}: a resident drive differs from plain_resident_drive (max abs err {err})")
+    times = hs_drive_times(torch, np, res.host, res.rec, HS_N, plain, reps=2)
+    route = "K3's resident swarm entry" if stacked else "a K3-arena launch a lane"
+    print(f"{key}: 8 sessions of {game_cls.__name__}({HS_PLAYERS}, {HS_N}), {HS_SLICE_TICKS} ticks, resident "
+          f"({core.driver_dispatches} drives through {route}, {launches} launches) == dispatch-per-tick "
+          f"({twin.host.device.megabatches} megabatches): histories, stacked bytes, slot checksums; sampled drives "
+          f"== plain_resident_drive; the median drive ({times['median_rows']} rows) {times['ms']:.4f} ms vs plain "
+          f"{times['plain_ms']:.1f} ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}) {tag}")
+    return dict(times, launches=launches, err=err, stacked=stacked)
+
+
+def serve_phase(torch, np, dev, tag):
+    """The serving path on the card (the module docstring's phase 21).
+    Returns (the run's summary, its kernels-line entries)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ggrs_tpu_torch import Arena, Swarm
+
+    started = time.perf_counter()
+    # the main path, checked, in ABBA order: dispatch, resident (recorded),
+    # resident, dispatch
+    runs = {"dispatch": [], "resident": []}
+    for resident in (False, True, True, False):
+        first = resident and not runs["resident"]
+        torch.cuda.synchronize()
+        runs["resident" if resident else "dispatch"].append(hs_fleet(torch, np, dev, resident, record=first))
+    res, twin = runs["resident"][0], runs["dispatch"][0]
+    for arm, fleets in runs.items():
+        for f in fleets:
+            if f.desyncs:
+                fail(f"{HS_KEY}: the {arm} arm reported {f.desyncs} desyncs")
+    published = hs_compare(np, res, twin, HS_KEY)
+    hs_compare(np, runs["resident"][1], runs["dispatch"][1], HS_KEY)
+    hs_compare(np, res, runs["dispatch"][1], HS_KEY)
+    core, tcore = res.host.device, twin.host.device
+    rc = core.resident_core.rc
+    if rc.launches != core.driver_dispatches or rc.launches < 1 or core.tick_core.launches or core.megabatches \
+            or core.mailbox.overflows:
+        fail(f"{HS_KEY}: {rc.launches} resident launches for {core.driver_dispatches} drives, "
+             f"{core.tick_core.launches} stacked launches, {core.megabatches} megabatches, "
+             f"{core.mailbox.overflows} overflows")
+    if tcore.tick_core.launches != tcore.megabatches or tcore.megabatches < 1:
+        fail(f"{HS_KEY}: {tcore.tick_core.launches} stacked launches for {tcore.megabatches} megabatches")
+    launches = rc.launches  # the main path's; the timing replays below launch more
+    err, plain = hs_plain_checks(torch, res.rec, core.core)
+    if err:
+        fail(f"{HS_KEY}: a resident drive differs from plain_resident_drive (max abs err {err})")
+    times = hs_drive_times(torch, np, res.host, res.rec, HS_N, plain)
+    session_ticks = res.sessions * HS_TICKS
+    rates = {arm: [session_ticks / f.wall_s for f in fleets] for arm, fleets in runs.items()}
+    arms = {}
+    for arm, f in (("dispatch", twin), ("resident", res)):
+        c = f.host.device
+        arms[arm] = {"dispatches_per_tick": (c.megabatches + c.driver_dispatches) / HS_TICKS,
+                     "megabatches": c.megabatches, "drives": c.driver_dispatches,
+                     "session_ticks_per_s": rates[arm], "wall_s": [g.wall_s for g in runs[arm]]}
+    arms["resident"].update(vticks_per_drive=core.vticks_executed / core.driver_dispatches,
+                            commits_per_tick=core.mailbox.commits / HS_TICKS, overflows=core.mailbox.overflows,
+                            rows_per_drive=core.rows_dispatched / core.driver_dispatches)
+    del runs, res, twin
+
+    # the card's idle share in each arm, from a trace of a further run
+    for arm in ("dispatch", "resident"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            f = hs_fleet(torch, np, dev, arm == "resident", mark=True)
+        share, busy, window, count = idle_share(torch, prof, HS_RANGE)
+        arms[arm].update(idle_share=share, device_busy_ms=busy, traced_window_ms=window, device_events=count,
+                         traced_wall_s=f.wall_s)
+        del prof, f
+
+    print(f"{HS_KEY}: {HS_MATCHES} four-peer P2P matches of ExGame({HS_PLAYERS}, {HS_N}) on one SessionHost "
+          f"(max_prediction {HS_MP}, desync detection on({P2P_DESYNC_INTERVAL}), P2P_NET with a seed a match, "
+          f"{HS_TICKS} ticks after sync), dispatch-per-tick (depth routing) and resident (resident_ticks "
+          f"{HS_RESIDENT_TICKS}): 0 desyncs; {published} confirmed checksums, the stacked rings and states and the "
+          f"slot checksums equal across the arms; {launches} resident K3 launches == {core.driver_dispatches} "
+          f"drives, 0 stacked launches, 0 overflows; sampled drives == plain_resident_drive {tag}")
+    for arm, a in arms.items():
+        share = "not measured (no device event in the trace)" if a["idle_share"] is None else \
+            (f"{a['idle_share']:.4f} ({a['device_events']} device events, {a['device_busy_ms']:.3f} ms busy in "
+             f"{a['traced_window_ms']:.1f} ms traced)")
+        extra = "" if arm == "dispatch" else \
+            (f", {a['vticks_per_drive']:.2f} virtual ticks and {a['rows_per_drive']:.1f} rows a drive, "
+             f"{a['commits_per_tick']:.3f} commits a host tick")
+        print(f"{HS_KEY} {arm} arm: {a['dispatches_per_tick']:.4f} dispatches a host tick ({a['megabatches']} "
+              f"megabatches, {a['drives']} drives){extra}; session-ticks/s "
+              f"{', '.join(f'{r:.1f}' for r in a['session_ticks_per_s'])} (ABBA: dispatch, resident, resident, "
+              f"dispatch); the card's idle share {share} {tag}")
+    print(f"{HS_KEY} resident entry: {times['drives']} drives, device ms p50 {times['ms_p50']:.4f} (p90 "
+          f"{times['ms_p90']:.4f}, {times['timed']} timed alone, queued); the median checked drive ({times['median_lanes']} "
+          f"lanes, {times['median_rows']} rows, {times['median_vticks']} virtual ticks, {times['nslots']} window "
+          f"slots) {times['ms']:.4f} ms, plain {times['plain_ms']:.1f} ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}) {tag}")
+    slices = {key: hs_slice(torch, np, dev, tag, key, {"Swarm": Swarm, "Arena": Arena}[g]) for key, g in HS_SLICES}
+    summary = {"key": HS_KEY, "sessions": HS_MATCHES * HS_PLAYERS, "ticks": HS_TICKS, "arms": arms,
+               "resident_entry": times, "confirmed_checksums": published, "slices": slices,
+               "phase_s": time.perf_counter() - started}
+    entries = [{
+        "name": "resim_tick_resident", "route": "cuda", "source": "ggrs_tpu_torch/csrc/resim_tick.cu",
+        "replaces": "ggrs_tpu/tpu/pallas_resim.py:324",
+        "tpu_counterpart": "K3's function a virtual tick of MultiSessionDeviceCore's lax.while_loop driver "
+                           "(ggrs_tpu/tpu/backend.py:2714-2823)",
+        "shape": f"{HS_KEY}: the median drive, {times['median_lanes']} lanes, {times['median_rows']} rows of "
+                 f"ExGame({HS_PLAYERS}, {HS_N}), {times['nslots']} window slots",
+        "max_abs_err": err, "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
+        "bound_by": times["bound_by"], "library_ms": None, "launches": launches,
+    }]
+    for key, g in HS_SLICES:
+        sl = slices[key]
+        entries.append({
+            "name": "resim_tick_resident" if sl["stacked"] else "resim_tick_arena_per_lane", "route": "cuda",
+            "source": "ggrs_tpu_torch/csrc/resim_tick.cu", "replaces": "ggrs_tpu/tpu/pallas_resim.py:324",
+            "tpu_counterpart": "K3's function a virtual tick of MultiSessionDeviceCore's lax.while_loop driver",
+            "shape": f"{key}: the median drive, {sl['median_lanes']} lanes, {sl['median_rows']} rows of "
+                     f"{g}({HS_PLAYERS}, {HS_N})" + ("" if sl["stacked"] else f", {sl['median_lanes']} K3-arena launches"),
             "max_abs_err": sl["err"], "ms": sl["ms"], "plain_ms": sl["plain_ms"], "bound_ms": sl["bound_ms"],
             "bound_by": sl["bound_by"], "library_ms": None, "launches": sl["launches"],
         })
@@ -3907,11 +4186,15 @@ def main() -> None:
     megabatch_path, megabatch_entries = megabatch_phase(torch, np, dev, tag)
     mark("20")
 
+    # -- phase 21: the serving path, SessionHost in both cadences (K3's resident entry)
+    serve_path, serve_entries = serve_phase(torch, np, dev, tag)
+    mark("21")
+
     for e in entries:
         e.pop("key")
     entries += tick_entries + beam_entries + arena_entries + arena_tick_entries + arena_beam_entries
     entries += list(swarm_fused.values()) + swarm_tick_entries + swarm_beam_entries + team_entries
-    entries += inline_entries + p2p_entries + megabatch_entries
+    entries += inline_entries + p2p_entries + megabatch_entries + serve_entries
     print("chip_smoke: seconds a phase: " + ", ".join(f"{name} {t - marks[i][1]:.1f}"
                                                        for i, (name, t) in enumerate(marks[1:])))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s")
@@ -3921,7 +4204,7 @@ def main() -> None:
                       "swarm_path": swarm_path, "swarm_request_path": swarm_request_path,
                       "swarm_beam_path": swarm_beam_path, "arena_inline_path": arena_inline_path,
                       "inline_layout_ms": layouts, "checkpoints": checkpoints, "p2p_path": p2p_path,
-                      "megabatch_path": megabatch_path}))
+                      "megabatch_path": megabatch_path, "serve_path": serve_path}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

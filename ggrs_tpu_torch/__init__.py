@@ -27,7 +27,11 @@ megabatch core, `MultiSessionDeviceCore` (N session worlds stacked on the
 card, each megabatch one launch of K3's stacked entry), and the solo
 backend's async pipeline (`DeviceRollbackBackend(async_dispatch=True)`:
 pooled pinned staging behind a CUDA-event fence, `DispatchPlanCache`,
-`InflightFence`). The package imports torch and numpy,
+`InflightFence`). Slice 14 adds the serving path: `serve.SessionHost`
+(many P2P and spectator sessions on one `MultiSessionDeviceCore`, in
+dispatch-per-tick megabatches or the device-resident loop, whose device
+mailbox a drive consumes in ONE launch of K3's resident entry) and its load
+generator `serve.loadgen`. The package imports torch and numpy,
 never jax and nothing of `ggrs_tpu`; its entry points run on CUDA unless
 the caller passes device="cpu".
 """
@@ -40,9 +44,13 @@ from .errors import (
     CheckpointIncompatible,
     ConfigError,
     ContractViolation,
+    DrainStalled,
     GGRSError,
+    HostFull,
     InvalidRequest,
+    InvariantViolation,
     KernelError,
+    MailboxLaneFull,
     MigrationIncompatible,
     MismatchedChecksum,
     NotSynchronized,
@@ -93,16 +101,20 @@ __all__ = [
     "DeviceSyncTestSession",
     "DispatchPlanCache",
     "Disconnected",
+    "DrainStalled",
     "ExGame",
     "Frame",
     "GGRSError",
     "GameState",
     "GameStateCell",
+    "HostFull",
     "InflightFence",
     "InputStatus",
     "InvalidRequest",
+    "InvariantViolation",
     "KernelError",
     "LoadGameState",
+    "MailboxLaneFull",
     "MigrationIncompatible",
     "MismatchedChecksum",
     "MultiSessionDeviceCore",

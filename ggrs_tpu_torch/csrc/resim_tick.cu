@@ -22,6 +22,22 @@
 // (entity tiles x live rows), each row on its own slot of the stacked
 // worlds in place (no gather, no scatter), bounded by the depth bucket.
 //
+// The resident entry (resim_tick_resident_launch, resim_tick_swarm_resident_
+// launch) replaces the reference's virtual-tick driver (ggrs_tpu/tpu/
+// backend.py:2714-2823, a lax.while_loop over the vmapped per-row tick,
+// `MultiSessionDeviceCore._driver_impl` and `_driver_fast_impl`): ONE launch
+// consumes a whole fill cycle of the device mailbox [S, K, L]. The grid is
+// (entity tiles x live lanes); block (tile, lane) runs that lane's rows
+// 0 .. marks-1 in order on its slot of the stacked worlds with the same
+// tick_tile, each thread keeping its entity's state in registers across
+// the lane's rows, so a row may load a slot an earlier virtual tick of the
+// launch saved. Lanes are independent sessions, so no grid barrier is
+// needed between virtual ticks. The last tile of a lane runs the lane's
+// scalar pass over its rows and writes his/los [K, S, W] at (t*S + slot)*W
+// + i, the reference's flat index; rows above a watermark and lanes with no
+// rows are not run, and their entries are written (0, 0), what the
+// reference's masked pad rows give.
+//
 // Design (ex_game and swarm, one template over the model's traits,
 // exg::Model or swarm::Model; arena's body is below): one thread owns one
 // entity for all T rows, as in the SyncTest kernels (synctest_body.cuh): its state
@@ -88,12 +104,13 @@ struct TickArgs {
   int* h_lo;           // [W]
   int* flag;           // [2] mismatch latch, first mismatching frame
   const int* rows;     // [T, L] packed control words
-  int* his;            // [T, W] out: per-slot checksums (uint32 bit patterns)
-  int* los;            // [T, W]
+  int* his;            // [T, out_stride] out: per-slot checksums (uint32 bit patterns)
+  int* los;            // [T, out_stride]
   uint32_t* parts_hi;  // [T, W] zero on entry, left zero
   uint32_t* parts_lo;  // [T, W]
   uint32_t* done;      // last-block ticket, zero on entry, left zero
   int n, num_players, input_size, window, t_rows, substeps, disconnect_input;
+  int out_stride;      // words from one row's his/los to the next: W, or S*W for the resident drive
   Weights cw;
 };
 
@@ -212,8 +229,9 @@ __device__ void tick_scalar_pass(const Args& a, int* sm, int nslots) {
       }
       ehi[e] = hi;
       elo[e] = lo;
-      a.his[k] = (int)hi;
-      a.los[k] = (int)lo;
+      const size_t o = (size_t)(t0 + e / W) * a.out_stride + e % W;
+      a.his[o] = (int)hi;
+      a.los[o] = (int)lo;
     }
     __syncthreads();
 
@@ -416,6 +434,50 @@ __global__ void __launch_bounds__(kBlock) resim_tick_stacked_kernel(TickArgs<typ
     }
 }
 
+// The resident drive (the device mailbox's fill cycle): block (tile, lane l)
+// ticks the world of slot lanes[l] with that lane's rows 0 .. marks[l]-1 of
+// the mailbox (rows [S, depth, L]), the first `nslots` slots of each, and
+// has the lane's own ticket and parts [depth, W]; the last tile of the lane
+// runs its scalar pass, writing his/los [depth, S, W] (out_stride S*W), then
+// writes (0, 0) into the lane's rows past its watermark and into every row
+// of the dead lanes lanes[n_live + l], lanes[n_live + l + n_live], ...
+// (lanes: the n_live live slots, then the other S - n_live).
+template <class M>
+__global__ void __launch_bounds__(kBlock) resim_tick_resident_kernel(TickArgs<typename M::Weights> a,
+                                                                      const int* lanes, const int* marks,
+                                                                      int n_live, int stack_slots, int depth,
+                                                                      int nslots) {
+  extern __shared__ int smem_words[];
+  const int l = blockIdx.y, slot = lanes[l], W = a.window;
+  const size_t world = (size_t)M::kPlanes * a.n;
+  TickArgs<typename M::Weights> ra = a;
+  ra.state = a.state + (size_t)slot * world;
+  ra.state_frame = a.state_frame + slot;
+  ra.ring = a.ring + (size_t)slot * (W + 1) * world;
+  ra.r_frame = a.r_frame + (size_t)slot * (W + 1);
+  ra.rows = a.rows + (size_t)slot * depth * row_len(W, a.num_players, a.input_size);
+  ra.his = a.his + (size_t)slot * W;
+  ra.los = a.los + (size_t)slot * W;
+  ra.parts_hi = a.parts_hi + (size_t)l * depth * W;
+  ra.parts_lo = a.parts_lo + (size_t)l * depth * W;
+  ra.done = a.done + l;
+  ra.t_rows = marks[l];
+  tick_tile<M>(ra, nslots, smem_words);
+  if (!last_block_scalar_pass(ra, smem_words, nslots)) return;
+  const size_t os = a.out_stride;
+  for (int k = ra.t_rows * W + threadIdx.x; k < depth * W; k += blockDim.x) {
+    ra.his[(size_t)(k / W) * os + k % W] = 0;
+    ra.los[(size_t)(k / W) * os + k % W] = 0;
+  }
+  for (int d = n_live + l; d < stack_slots; d += n_live) {
+    const size_t base = (size_t)lanes[d] * W;
+    for (int k = threadIdx.x; k < depth * W; k += blockDim.x) {
+      a.his[base + (size_t)(k / W) * os + k % W] = 0;
+      a.los[base + (size_t)(k / W) * os + k % W] = 0;
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Arena. Every advance first reduces the WHOLE current world (per team: the
 // living count, Σ px>>6, Σ py>>6) and finalizes it into centroids, as the
@@ -468,6 +530,7 @@ struct ArenaTickArgs {
   uint32_t* parts_lo;  // [T, W]
   uint32_t* done;      // last-block ticket, zero on entry, left zero
   int n, num_players, input_size, window, t_rows;
+  int out_stride;                 // W: his/los rows are contiguous
   int disc_input, disc_throttle;  // the disconnect row: input byte, throttle
   arena::Weights cw;
 };
@@ -687,6 +750,17 @@ __global__ void __launch_bounds__(inline_arena::kThreads, 1) resim_tick_arena_ke
 
 namespace {
 
+// The per-entity tick's dynamic shared memory (the staged rows and the
+// block sums, or the scalar pass, whichever is larger), with the kernel's
+// attribute raised past 48 KB.
+inline cudaError_t tick_smem(const void* kernel, int window, int num_players, int input_size, size_t* out) {
+  const size_t body = 2 * (size_t)row_len(window, num_players, input_size) + 2 * (size_t)window * kWarps;
+  const size_t words = body > scalar_smem_words(window) ? body : scalar_smem_words(window);
+  *out = words * sizeof(int);
+  if (*out > 48 * 1024) return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*out);
+  return cudaSuccess;
+}
+
 // The tick of a model with no reduction: the T rows in order on one world,
 // or, with `idx` (device memory, T distinct slots), row r on the world of
 // slot idx[r] of the stacked tensors, the first `nslots` slots of each
@@ -720,21 +794,63 @@ int launch_tick(int* state, int* state_frame, int* ring, int* r_frame, int* h_ta
   a.t_rows = t_rows;
   a.substeps = substeps;
   a.disconnect_input = disconnect_row[0];  // the step reads byte 0
+  a.out_stride = window;
   a.cw = weights_from<typename M::Weights, M::kPlanes>(cs);
-  const size_t body = 2 * (size_t)row_len(window, num_players, input_size) + 2 * (size_t)window * kWarps;
-  const size_t words = body > scalar_smem_words(window) ? body : scalar_smem_words(window);
-  const size_t smem = words * sizeof(int);
   const void* kernel = idx != nullptr ? (const void*)resim_tick_stacked_kernel<M> : (const void*)resim_tick_kernel<M>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  size_t smem;
+  const cudaError_t err = tick_smem(kernel, window, num_players, input_size, &smem);
+  if (err != cudaSuccess) return (int)err;
   const int blocks = (n + kBlock - 1) / kBlock;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (idx != nullptr)
     resim_tick_stacked_kernel<M><<<dim3(blocks, t_rows), kBlock, smem, st>>>(a, idx, nslots, b_rows);
   else
     resim_tick_kernel<M><<<blocks, kBlock, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The resident drive of a model with no reduction: the mailbox's fill cycle
+// (rows [S, depth, L]) on the stacked worlds in one launch, a grid of
+// (entity tiles x n_live lanes). lanes_marks (device memory): lanes [S] (the
+// n_live live slots first, then the rest), marks [n_live]. scratch: a
+// ticket per lane, then parts_hi [S*depth*W], parts_lo [S*depth*W]; zero
+// before the first launch, and every launch leaves it so.
+template <class M>
+int launch_resident(int* states, int* state_frames, int* rings, int* r_frames, const int* mbox_rows,
+                    const int* lanes_marks, int* his, int* los, uint32_t* scratch, int n, int num_players,
+                    int input_size, int window, int stack_slots, int depth, int n_live, int nslots, int substeps,
+                    const int* disconnect_row, const int* cs, void* stream) {
+  if (nslots < 1 || nslots > window || depth < 1 || n_live < 1 || n_live > stack_slots || n_live > 65535)
+    return (int)cudaErrorInvalidValue;  // a lane a grid row: gridDim.y is at most 65535
+  const size_t events = (size_t)stack_slots * depth * window;
+  TickArgs<typename M::Weights> a;
+  a.state = states;
+  a.state_frame = state_frames;
+  a.ring = rings;
+  a.r_frame = r_frames;
+  a.h_tag = a.h_hi = a.h_lo = a.flag = nullptr;
+  a.rows = mbox_rows;
+  a.his = his;
+  a.los = los;
+  a.done = scratch;
+  a.parts_hi = scratch + stack_slots;
+  a.parts_lo = scratch + stack_slots + events;
+  a.n = n;
+  a.num_players = num_players;
+  a.input_size = input_size;
+  a.window = window;
+  a.t_rows = 0;  // each lane's own: marks[lane]
+  a.substeps = substeps;
+  a.disconnect_input = disconnect_row[0];
+  a.out_stride = stack_slots * window;
+  a.cw = weights_from<typename M::Weights, M::kPlanes>(cs);
+  const void* kernel = (const void*)resim_tick_resident_kernel<M>;
+  size_t smem;
+  const cudaError_t err = tick_smem(kernel, window, num_players, input_size, &smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n + kBlock - 1) / kBlock;
+  resim_tick_resident_kernel<M><<<dim3(blocks, n_live), kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, lanes_marks, lanes_marks + stack_slots, n_live, stack_slots, depth, nslots);
   return (int)cudaGetLastError();
 }
 
@@ -805,6 +921,37 @@ extern "C" int resim_tick_swarm_stacked_launch(int* states, int* state_frames, i
                                    b_rows, 1, disconnect_row, cs, stream);
 }
 
+// The resident drive of MultiSessionDeviceCore (K3's resident entry): one
+// launch consumes the device mailbox's fill cycle — lane lanes[l] (l <
+// n_live) runs its rows 0 .. marks[l]-1 of mbox_rows [S, depth, L] in order
+// on its slot of the stacked tensors (states [S, K, n], state_frames [S],
+// rings [S, W+1, K, n], r_frames [S, W+1]) in place, through the first
+// `nslots` window slots of each row. No device verification. his/los
+// [depth, S, W] out, (0, 0) for every row not run. lanes_marks: lanes [S]
+// then marks [n_live], in device memory. scratch: S tickets, then parts_hi
+// and parts_lo [S*depth*W] each; zero before the first launch, and every
+// launch leaves it so. ex_game. cs: 11 int32.
+extern "C" int resim_tick_resident_launch(int* states, int* state_frames, int* rings, int* r_frames,
+                                          const int* mbox_rows, const int* lanes_marks, int* his, int* los,
+                                          uint32_t* scratch, int n, int num_players, int input_size, int window,
+                                          int stack_slots, int depth, int n_live, int nslots, int substeps,
+                                          const int* disconnect_row, const int* cs, void* stream) {
+  return launch_resident<exg::Model>(states, state_frames, rings, r_frames, mbox_rows, lanes_marks, his, los,
+                                     scratch, n, num_players, input_size, window, stack_slots, depth, n_live,
+                                     nslots, substeps, disconnect_row, cs, stream);
+}
+
+// swarm's resident drive. cs: 15 int32.
+extern "C" int resim_tick_swarm_resident_launch(int* states, int* state_frames, int* rings, int* r_frames,
+                                                const int* mbox_rows, const int* lanes_marks, int* his, int* los,
+                                                uint32_t* scratch, int n, int num_players, int input_size,
+                                                int window, int stack_slots, int depth, int n_live, int nslots,
+                                                const int* disconnect_row, const int* cs, void* stream) {
+  return launch_resident<swarm::Model>(states, state_frames, rings, r_frames, mbox_rows, lanes_marks, his, los,
+                                       scratch, n, num_players, input_size, window, stack_slots, depth, n_live,
+                                       nslots, 1, disconnect_row, cs, stream);
+}
+
 // The card's limits the arena tick's plan is made from: out[0] the SM
 // count, out[1] the shared memory a block may opt in to (bytes).
 extern "C" int resim_tick_arena_limits(int* out) { return (int)card_limits(out); }
@@ -854,6 +1001,7 @@ extern "C" int resim_tick_arena_launch(int* state, int* state_frame, int* ring, 
   a.input_size = input_size;
   a.window = window;
   a.t_rows = t_rows;
+  a.out_stride = window;
   a.disc_input = disconnect_row[0];
   a.disc_throttle = input_size >= 2 ? (disconnect_row[1] & 0x0F) : arena::kDefaultThrottle;
   a.cw = weights_from<arena::Weights, arena::kPlanes>(cs);

@@ -44,13 +44,29 @@ i checksum is at flat index k * W + i of the returned batch. Checkpoints
 and slot exports are in the reference's layout and `.npz` format, so
 either stack resumes the other's.
 
-Left out (ROADMAP.md): the mailbox and the resident drive (`attach_mailbox`,
-`commit_mailbox`, `drive_mailbox`; item 3), speculative bubble-filling
-(`draft`, `adopt_slot`) and the SDC audit lane (`audit_rows`,
-`inject_slot_bitflip`), whose callers are `serve/speculation.py` and
-`serve/faults.py` (item 4), `ShardedMultiSessionDeviceCore` (item 10), and
-telemetry and the sanitizer's `transfer_guard_scope`. `fault_seam` is
-consulted before every megabatch, as in the reference.
+The resident half (the reference's `backend.py:2694-2953`): `attach_mailbox
+(depth)` builds a `DeviceMailbox` (device/mailbox.py), an [S, K, L] ring of
+packed rows on the device; `stage_mailbox_row` appends a logical slot's row
+to the fill cycle (a full lane, or a fault seam's storm, means one extra
+drive first, never a dropped row), `commit_mailbox` lands the staged rows
+in one scatter admitted to the fence, and `drive_mailbox` consumes the
+cycle in ONE launch of K3's resident entry (`tick_core.ResidentTickCore`;
+arena: a K3-arena launch a live lane), the routing decided a cycle at a
+time — 2 window slots when every row of the cycle is fast, else the depth
+bucket of the cycle's deepest row — where the reference routes each
+virtual tick inside its loop (both give the same bits by the depth-routing
+contract). Lifecycle events and every read of the worlds drive first:
+`reset_slot`, `reset_slots_masked` and `block_until_ready` (hence
+`stacked_canonical`, `checksum_slots`, `save`, `export_slot`) see every
+staged row. `driver_dispatches`, `vticks_executed` and `rows_dispatched`
+count the drives.
+
+Left out (ROADMAP.md): speculative bubble-filling (`draft`, `adopt_slot`)
+and the SDC audit lane (`audit_rows`, `inject_slot_bitflip`), whose callers
+are `serve/speculation.py` and `serve/faults.py` (item 4),
+`ShardedMultiSessionDeviceCore` (item 10), and telemetry and the
+sanitizer's `transfer_guard_scope`. `fault_seam` is consulted before every
+megabatch and drive, as in the reference.
 """
 
 from __future__ import annotations
@@ -67,7 +83,7 @@ from ..utils.checkpoint import load_device_checkpoint, save_device_checkpoint
 from .backend import ChecksumLedger, DispatchPlanCache, InflightFence, StagingPool, _ChecksumBatch
 from .planes import layout_of, pack_planes, partial_checksum_planes
 from .resim import ResimCore
-from .tick_core import StackedTickCore, check_rows, windowed_row
+from .tick_core import ResidentTickCore, StackedTickCore, check_rows, windowed_row
 
 def _planes_of(tree: dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reference-layout leaves (any leading dims) -> (packed planes, frames)
@@ -139,6 +155,11 @@ class MultiSessionDeviceCore:
         self.fault_seam = None  # consulted before every megabatch (serve/faults.py's seam)
         self.megabatches = 0
         self.rows_dispatched = 0
+        # the resident loop (attach_mailbox builds the mailbox and the drive)
+        self.mailbox = None
+        self.resident_core = None
+        self.driver_dispatches = 0
+        self.vticks_executed = 0
         self._init_stack()
 
     @classmethod
@@ -335,6 +356,80 @@ class MultiSessionDeviceCore:
         self.fence.note(n)
         return _ChecksumBatch(his, los, self.ledger), bucket
 
+    # ------------------------------------------------------------------
+    # the resident loop: the device mailbox and its drive
+
+    def attach_mailbox(self, depth: int):
+        """Build the device mailbox of `depth` virtual ticks a lane and its
+        drive (K3's resident entry). Call before warmup()."""
+        from .mailbox import DeviceMailbox
+
+        if self.mailbox is not None:
+            raise ContractViolation("mailbox already attached")
+        self.mailbox = DeviceMailbox(self, depth)
+        self.resident_core = ResidentTickCore(self.core, self.stack_slots, depth, self.async_inflight + 1)
+        return self.mailbox
+
+    def stage_mailbox_row(self, slot: int, row: np.ndarray, *, last_active: int, fast: bool):
+        """Append one LOGICAL slot's packed tick row to the fill cycle;
+        returns (checksum batch, base index) for the row's save bindings. A
+        full lane (the host outran the depth) degrades to an EXTRA drive,
+        never a dropped row."""
+        mbox = self.mailbox
+        phys = int(self._phys[slot])
+        storm = self.fault_seam is not None and self.fault_seam.on_stage(phys)
+        if mbox.lane_full(phys) or storm:
+            mbox.note_overflow()
+            self.drive_mailbox()
+        return mbox.stage(phys, row, last_active, fast)
+
+    def commit_mailbox(self) -> None:
+        """Land every row staged since the last commit on the device, one
+        scatter a chunk, each admitted to the fence (the pooled commit
+        staging is reused only after it retired)."""
+        mbox = self.mailbox
+        if mbox is None or mbox.staged_count == 0:
+            return
+        for _ in range(mbox.commit()):
+            self.fence.note(0)
+
+    def drive_mailbox(self):
+        """Consume the mailbox with ONE drive: commit what is staged, close
+        the cycle, run every live lane's rows (K3's resident entry), and
+        fulfil the cycle's future checksum batch with the [K, S, W] output.
+        Returns the batch (None for an empty mailbox). Waits no further than
+        the fence."""
+        mbox = self.mailbox
+        if mbox is None or (mbox.pending_rows == 0 and mbox.staged_count == 0):
+            return None
+        if self.fault_seam is not None:
+            # every lane with rows this drive would run (staged rows count
+            # too), as logical slots (the layout is the identity), before
+            # anything changes: a raise leaves the cycle intact
+            live = np.nonzero(mbox._counts)[0].tolist()
+            self.fault_seam.before_dispatch("resident_drive", [p for p in live if p < self.capacity])
+        self.commit_mailbox()
+        marks, n_rows, max_la, all_fast, future = mbox.take_cycle()
+        nslots = 2 if all_fast else self.depth_bucket_for(max_la)
+        self.plan_cache.note(("resident_drive", 0 if all_fast else nslots))
+        his, los = self.resident_core.drive(self.stack, mbox.rows_dev, marks, nslots)
+        self.driver_dispatches += 1
+        self.vticks_executed += int(marks.max())
+        self.rows_dispatched += n_rows
+        self.fence.note(n_rows)
+        batch = _ChecksumBatch(his, los, self.ledger)
+        if future is not None:
+            future.batch = batch
+        return batch
+
+    def drop_mailbox_lane(self, slot: int) -> int:
+        """Discard every row LOGICAL slot `slot` still owes the mailbox: its
+        watermark drops to zero, so rows already committed never run.
+        Returns the rows dropped."""
+        if self.mailbox is None:
+            return 0
+        return self.mailbox.drop_lane(int(self._phys[slot]))
+
     def poll_retired(self) -> int:
         """Drop retired megabatches from the fence without waiting; returns
         the rows still in flight (the host's backpressure budget)."""
@@ -360,6 +455,7 @@ class MultiSessionDeviceCore:
         mask = np.asarray(mask, dtype=bool)
         if mask.shape != (self.capacity,):
             raise ContractViolation(f"reset mask of shape {mask.shape}, expected ({self.capacity},)")
+        self.drive_mailbox()  # staged rows run before any lifecycle event
         phys = self._phys[mask]
         if not len(phys):
             return
@@ -443,8 +539,8 @@ class MultiSessionDeviceCore:
         the dummy slot with the no-op pad row (the fast depth and every
         depth bucket, or the full window without depth routing; arena's
         per-row launch makes its layout), then the masked reset with an
-        empty mask and an export -> import round trip of slot 0: the
-        worlds are as they were."""
+        empty mask and an export -> import round trip of slot 0: the worlds
+        are as they were."""
         core = self.core
         depths = ([2] + list(self.depth_buckets)) if self.depth_routing else [core.window]
         pad = torch.from_numpy(self._pad_row[None].copy()).to(self.device)
@@ -456,6 +552,9 @@ class MultiSessionDeviceCore:
         self.block_until_ready()
 
     def block_until_ready(self) -> None:
+        """Wait for every dispatch; the mailbox drives first, so the worlds
+        read afterwards have run every staged row."""
+        self.drive_mailbox()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.fence.clear()

@@ -31,6 +31,18 @@ the rows). Arena has no stacked body: its rows run one K3-arena launch each
 on the slot's views. `plain_megabatch` is the same in plain PyTorch:
 `plain_tick_multi` row after row on each slot's views, the row windowed
 first.
+
+`ResidentTickCore` is K3's resident entry for the device mailbox
+(`resim_tick_resident_launch`, `resim_tick_swarm_resident_launch`): ONE
+launch consumes a whole fill cycle — every live lane's rows 0 .. marks-1 of
+the mailbox's [S, K, L] row ring, in order, on the lane's slot, through the
+first `nslots` window slots — and returns his/los [K, S, W] (the
+reference's `_driver_impl` output rings, flat index (t*S + slot)*W + i),
+(0, 0) for every row not run. It replaces the reference's `lax.while_loop`
+virtual-tick driver (ggrs_tpu/tpu/backend.py:2714-2823). Arena has no
+stacked body: its drive is one K3-arena launch a live lane, T = marks rows
+on the slot's views. `plain_resident_drive` is the same in plain PyTorch:
+`plain_tick_multi` over each lane's rows, windowed.
 """
 
 from __future__ import annotations
@@ -40,7 +52,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..errors import ConfigError
+from ..errors import ConfigError, KernelError
 from ..kernels import build, launch
 from ..ops import fixed_point as fx
 from .planes import partial_checksum_planes
@@ -283,6 +295,120 @@ class StackedTickCore:
                 *extra, launch.disconnect_arg(core.disconnect_input), launch.weights_arg(ctx),
                 launch.stream_of(device))
         launch.raise_on(rc, "resim_tick_stacked")
+        self.launches += 1
+        return his, los
+
+
+def plain_resident_drive(stack, mbox_rows, lanes, marks, nslots: int, core):
+    """The resident drive in plain PyTorch: lane lanes[k]'s mailbox rows
+    0 .. marks[k]-1 (mbox_rows [S, K, L]) on its slot's views in place, in
+    order, each windowed to `nslots` (`windowed_row`), by
+    `plain_tick_multi`; returns (his, los) int32 [K, S, W] on the stack's
+    device, (0, 0) for every row not run. Lanes are independent sessions,
+    so lane by lane equals the reference's virtual tick by virtual tick."""
+    W = core.window
+    rows_np = mbox_rows.cpu().numpy() if isinstance(mbox_rows, torch.Tensor) else np.asarray(mbox_rows)
+    S, K = rows_np.shape[:2]
+    device = stack["state"].device
+    his = torch.zeros((K, S, W), dtype=torch.int32, device=device)
+    los = torch.zeros((K, S, W), dtype=torch.int32, device=device)
+    for slot, m in zip(lanes, marks):
+        slot, m = int(slot), int(m)
+        rows = torch.from_numpy(np.stack([windowed_row(r, nslots, core) for r in rows_np[slot, :m]]))
+        h, lo = plain_tick_multi(slot_carry(stack, slot), rows, core)
+        his[:m, slot], los[:m, slot] = h, lo
+    return his, los
+
+
+class ResidentTickCore:
+    """K3's resident-drive wrapper for one MultiSessionDeviceCore's mailbox
+    (the stack's `stack_slots` slots, `depth` rows a lane); counts its
+    resident launches in `launches`. On a CPU stack it runs
+    `plain_resident_drive`; on a CUDA stack it launches the model's resident
+    body once a drive, or for arena one K3-arena launch a live lane through
+    the template core's TickCore (counted there), or raises — there is no
+    fallback. The (lanes, marks) words come from a pinned pool of
+    `pool_depth` buffers, uploaded without waiting: the caller fences each
+    drive (the core's InflightFence of depth pool_depth - 1)."""
+
+    kernel = "resim_tick"
+
+    def __init__(self, core, stack_slots: int, depth: int, pool_depth: int):
+        self.core = core
+        self.stack_slots = stack_slots
+        self.depth = depth
+        self.pool_depth = pool_depth
+        self.launches = 0
+        self._pool = None  # StagingPool of [2S] words: lanes [S], then marks
+        # S tickets, parts_hi and parts_lo [S*depth*W]: zero when made, and
+        # every launch leaves it zero
+        self._scratch = None
+
+    @property
+    def stacked(self) -> bool:
+        return launch.require_adapter(self.core.ctx, self.kernel).resident is not None
+
+    def drive(self, stack, mbox_rows: torch.Tensor, marks: np.ndarray, nslots: int):
+        """One fill cycle: every slot s with marks[s] > 0 runs its mailbox
+        rows 0 .. marks[s]-1 (mbox_rows int32 [S, K, L] on the stack's
+        device) through the first `nslots` slots in place; returns (his,
+        los) int32 [K, S, W]."""
+        core, ctx = self.core, self.core.ctx
+        S, K, W = self.stack_slots, self.depth, core.window
+        marks = np.asarray(marks, dtype=np.int32)
+        lanes = np.nonzero(marks)[0].astype(np.int32)
+        device = stack["state"].device
+        if marks.shape != (S,) or marks.max(initial=0) > K or not 1 <= nslots <= W:
+            raise ConfigError(f"a resident drive of marks {marks.tolist()} at depth {nslots} (mailbox depth {K}, "
+                              f"window {W})")
+        if device.type == "cpu":
+            return plain_resident_drive(stack, mbox_rows, lanes.tolist(), marks[lanes].tolist(), nslots, core)
+        n_live = len(lanes)
+        if n_live == 0:
+            raise ConfigError("a resident drive needs a lane with rows")
+        if n_live > 65535:
+            raise KernelError(f"{self.kernel}: a resident drive of {n_live} live lanes (a grid row a lane: at most "
+                              "65535)")
+        if not self.stacked:
+            # arena: one K3-arena launch a live lane, T = its marks, on the
+            # slot's views (rows within their depth bucket run unchanged)
+            his = torch.zeros((K, S, W), dtype=torch.int32, device=device)
+            los = torch.zeros((K, S, W), dtype=torch.int32, device=device)
+            for slot in lanes.tolist():
+                m = int(marks[slot])
+                h, lo = core.tick_core.tick_multi(slot_carry(stack, slot), mbox_rows[slot, :m])
+                his[:m, slot], los[:m, slot] = h, lo
+            return his, los
+        entry = launch.require_adapter(ctx, self.kernel)
+        _, R1, NP, N = stack["ring"].shape
+        launch.check_tensors(
+            device,
+            state=(stack["state"], (S, NP, N)), state_frame=(stack["state_frame"], (S,)),
+            ring=(stack["ring"], (S, core.ring_len + 1, ctx.n_planes, ctx.n)),
+            r_frame=(stack["r_frame"], (S, R1)), mbox_rows=(mbox_rows, (S, K, core.packed_len)),
+        )
+        if self._pool is None:
+            from .backend import StagingPool
+
+            self._pool = StagingPool((2 * S,), self.pool_depth, device.type == "cuda")
+            self._scratch = torch.zeros(S + 2 * S * K * W, dtype=torch.int32, device=device)
+        staged, words = self._pool.next()
+        words[:n_live] = lanes
+        words[n_live:S] = np.nonzero(marks == 0)[0]
+        words[S : S + n_live] = marks[lanes]
+        lanes_marks = staged.to(device, non_blocking=True)
+        his = torch.empty((K, S, W), dtype=torch.int32, device=device)
+        los = torch.empty((K, S, W), dtype=torch.int32, device=device)
+        lib = build.load(self.kernel)
+        P, I = launch.P, launch.I
+        extra = launch.model_ints(entry, ctx)
+        fn = launch.declare(lib, entry.resident, [P] * 9 + [I] * (8 + len(extra)) + [P, P, P])
+        rc = fn(stack["state"].data_ptr(), stack["state_frame"].data_ptr(), stack["ring"].data_ptr(),
+                stack["r_frame"].data_ptr(), mbox_rows.data_ptr(), lanes_marks.data_ptr(), his.data_ptr(),
+                los.data_ptr(), self._scratch.data_ptr(), ctx.n, core.num_players, ctx.input_size, W, S, K, n_live,
+                nslots, *extra, launch.disconnect_arg(core.disconnect_input), launch.weights_arg(ctx),
+                launch.stream_of(device))
+        launch.raise_on(rc, "resim_tick_resident")
         self.launches += 1
         return his, los
 

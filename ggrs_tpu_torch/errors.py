@@ -3,8 +3,9 @@
 `StatsWindowTooYoung`, `SpectatorTooFarBehind`, `ConfigError`,
 `DataFormatError`, `TypeContractError`,
 `ContractViolation`, `RegistryMiss`, `CheckpointIncompatible`,
-`ModelIncompatible` and `MigrationIncompatible` mirror the reference's classes, each with its stdlib
-base kept; `KernelError` is the port's own, for a CUDA kernel that does not
+`ModelIncompatible`, `MigrationIncompatible`, `HostFull`, `DrainStalled`,
+`InvariantViolation` and `MailboxLaneFull` mirror the reference's classes,
+each with its stdlib base kept; `KernelError` is the port's own, for a CUDA kernel that does not
 build or whose launch is refused."""
 
 from __future__ import annotations
@@ -120,3 +121,51 @@ class ModelIncompatible(CheckpointIncompatible):
     """An input-model state cannot be loaded here: its kind or its game
     identity (players, input size) differs from the target's. Carries both
     values so the message says which side is which."""
+
+
+class HostFull(GGRSError):
+    """SessionHost admission control rejected an attach: the host is at its
+    `max_sessions` budget or draining. Typed (not a bare InvalidRequest) so
+    a fleet router can catch it and place the session on another host."""
+
+    def __init__(self, info: str):
+        super().__init__(info)
+        self.info = info
+
+
+class DrainStalled(GGRSError):
+    """A host flush (graceful drain, checkpoint) failed to empty the ready
+    queue: some staged rows can never dispatch. Carries the stuck queue
+    depth and the last observed fence state."""
+
+    def __init__(self, info: str, *, queue_depth: int = 0, inflight_rows: int = 0, passes: int = 0):
+        super().__init__(f"{info} (queue_depth={queue_depth}, inflight_rows={inflight_rows}, passes={passes})")
+        self.info = info
+        self.queue_depth = queue_depth
+        self.inflight_rows = inflight_rows
+        self.passes = passes
+
+
+class InvariantViolation(GGRSError):
+    """An internal invariant tripped (mailbox accounting, a watermark
+    regression). Carries the invariant's name."""
+
+    def __init__(self, info: str, *, invariant: str = "", key=None, frame: int = -1, forensics=None):
+        super().__init__(f"{info} (invariant={invariant!r}, key={key!r}, frame={frame})")
+        self.info = info
+        self.invariant = invariant
+        self.key = key
+        self.frame = frame
+        self.forensics = forensics
+
+
+class MailboxLaneFull(GGRSError):
+    """A mailbox lane was staged past its virtual-tick depth without an
+    intervening drive (the core's stage_mailbox_row drives first; hitting
+    this means a scheduler bypassed it)."""
+
+    def __init__(self, info: str, *, lane: int = -1, depth: int = 0):
+        super().__init__(f"{info} (lane={lane}, depth={depth})")
+        self.info = info
+        self.lane = lane
+        self.depth = depth

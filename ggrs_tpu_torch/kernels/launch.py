@@ -69,6 +69,9 @@ class Entry(NamedTuple):
     # K3's megabatch entry for MultiSessionDeviceCore (rows on slots of the
     # stacked worlds); None: the megabatch runs `symbol` once a row
     stacked: Optional[str] = None
+    # K3's resident entry (a mailbox fill cycle in one launch); None: the
+    # drive runs `symbol` once a lane
+    resident: Optional[str] = None
 
 
 # THE one choice of a kernel body: by the plane adapter's class, never by
@@ -89,8 +92,10 @@ ENTRIES: Dict[str, Dict[type, Entry]] = {
     # K2's inline whole-world route, in the synctest_tiled library: arena only
     "synctest_tiled_inline": {ArenaPlanes: Entry("synctest_tiled_inline_arena_launch", False, True)},
     "resim_tick": {
-        ExGamePlanes: Entry("resim_tick_launch", True, False, "resim_tick_stacked_launch"),
-        SwarmPlanes: Entry("resim_tick_swarm_launch", False, False, "resim_tick_swarm_stacked_launch"),
+        ExGamePlanes: Entry("resim_tick_launch", True, False, "resim_tick_stacked_launch",
+                            "resim_tick_resident_launch"),
+        SwarmPlanes: Entry("resim_tick_swarm_launch", False, False, "resim_tick_swarm_stacked_launch",
+                           "resim_tick_swarm_resident_launch"),
         ArenaPlanes: Entry("resim_tick_arena_launch", False, True),
     },
     "beam_rollout": {

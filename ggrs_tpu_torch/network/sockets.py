@@ -87,10 +87,10 @@ class UdpNonBlockingSocket:
 
 class InMemoryNetwork:
     """A hub of virtual endpoints sharing one fault model and one clock:
-    flat latency, jitter, loss and duplication for every link. (The
-    reference's per-link `FaultProfile` and its blackout switch,
-    `set_blackhole`, serve its chaos harness and load generator and are
-    left out.)"""
+    flat latency, jitter, loss and duplication for every link.
+    `blackholed` addresses drop everything in and out silently, before any
+    draw of the RNG, as the reference's do. (The reference's per-link
+    `FaultProfile` serves its chaos harness and is left out.)"""
 
     def __init__(
         self,
@@ -108,6 +108,7 @@ class InMemoryNetwork:
         self.loss = loss
         self.duplicate = duplicate
         self.rng = random.Random(seed)
+        self.blackholed: set = set()
         # addr -> heap of (deliver_at_ms, seq, (src, wire_bytes))
         self.queues: Dict[Any, List[Tuple[int, int, Tuple[Any, bytes]]]] = {}
         self._seq = 0
@@ -116,7 +117,18 @@ class InMemoryNetwork:
         self.queues.setdefault(addr, [])
         return InMemorySocket(self, addr)
 
+    def set_blackhole(self, addrs, on: bool = True) -> None:
+        """Silently drop all traffic to AND from these addresses (on) or
+        lift the blackout (off). Queued-but-undelivered datagrams are left
+        to deliver: they were already in the air."""
+        if on:
+            self.blackholed.update(addrs)
+        else:
+            self.blackholed.difference_update(addrs)
+
     def _deliver(self, src: Any, dst: Any, wire: bytes) -> None:
+        if src in self.blackholed or dst in self.blackholed:
+            return
         if self.rng.random() < self.loss:
             return
         copies = 2 if self.rng.random() < self.duplicate else 1

@@ -16,8 +16,11 @@ Left out of the reference's session:
   it runs with `batched_pump = False`), which puts the same bytes on the
   wire;
 - the native wire lane (`handle_wire`) and native input queues;
-- serve-host attachment (`on_host_attach`, `host_key`);
 - telemetry, tracer spans and desync forensics bundles.
+
+A session attached to a `serve.SessionHost` (`on_host_attach`) skips its
+own poll in `advance_frame`: the host pumps every session's sockets once a
+host tick just before advancing the ready ones, as the reference's does.
 
 Checksum reports publish as soon as their value is ready (the reference's
 default `checksum_publish = "ready"`); `"interval"` is the reference's
@@ -161,6 +164,35 @@ class P2PSession:
         self.checksum_publish = "ready"
         # ticks whose forced checksum flush waited on the card
         self.drain_blocked_ticks = 0
+        # serve-host attachment: the host drives poll/advance and fulfils
+        # the requests on its shared core, so a session belongs to at most
+        # one host at a time
+        self._host = None
+        self._host_key = None
+
+    # ------------------------------------------------------------------
+    # serve-host lifecycle hooks (serve/host.py)
+    # ------------------------------------------------------------------
+
+    def on_host_attach(self, host: Any, key: Any) -> None:
+        """Called by SessionHost.attach: from here the host owns this
+        session's pump/advance loop. Attaching an already-hosted session
+        is an error."""
+        if self._host is not None:
+            raise InvalidRequest(f"session already attached to a host (key={self._host_key!r})")
+        self._host = host
+        self._host_key = key
+
+    def on_host_detach(self) -> None:
+        """Called by SessionHost.detach/evict: the session is standalone
+        again."""
+        self._host = None
+        self._host_key = None
+
+    @property
+    def host_key(self) -> Any:
+        """The key this session is hosted under, or None when standalone."""
+        return self._host_key
 
     # ------------------------------------------------------------------
     # public API
@@ -183,8 +215,10 @@ class P2PSession:
         """The per-tick pipeline: pump the network, roll back if a remote
         input contradicted a prediction, save, exchange checksums, send
         the local inputs and advance. Host work only: the returned
-        requests are the backend's to fulfil, in order."""
-        self.poll_remote_clients()
+        requests are the backend's to fulfil, in order. A hosted session
+        skips the pump: its host drained every socket this tick."""
+        if self._host is None:
+            self.poll_remote_clients()
         if self.state != SessionState.RUNNING:
             raise NotSynchronized()
         self._advance_serial += 1

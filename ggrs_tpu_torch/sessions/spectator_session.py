@@ -1,7 +1,9 @@
 """Passive replica session: receives confirmed inputs from a host and
 advances, catching up when too far behind (the reference's
 `sessions/spectator_session.py`, copied on its per-session poll; left out:
-the batched pump, serve-host attachment, the fleet plane and telemetry).
+the batched pump, the fleet plane and telemetry). A session attached to a
+`serve.SessionHost` skips its own poll in `advance_frame`: the host pumped
+it this tick.
 
 A 60-frame input ring, the catch-up policy, PredictionThreshold when input
 hasn't arrived and SpectatorTooFarBehind when the ring was overwritten.
@@ -14,7 +16,7 @@ from __future__ import annotations
 from collections import deque
 from typing import Any, Deque, List
 
-from ..errors import NotSynchronized, PredictionThreshold, SpectatorTooFarBehind
+from ..errors import InvalidRequest, NotSynchronized, PredictionThreshold, SpectatorTooFarBehind
 from ..frame_info import PlayerInput
 from ..network.network_stats import NetworkStats
 from ..network.protocol import (
@@ -72,6 +74,23 @@ class SpectatorSession:
         self.last_recv_frame: Frame = NULL_FRAME
         self.max_frames_behind = max_frames_behind
         self.catchup_speed = catchup_speed
+        self._host = None
+        self._host_key = None
+
+    def on_host_attach(self, host: Any, key: Any) -> None:
+        """SessionHost.attach hook; see P2PSession.on_host_attach."""
+        if self._host is not None:
+            raise InvalidRequest(f"session already attached to a host (key={self._host_key!r})")
+        self._host = host
+        self._host_key = key
+
+    def on_host_detach(self) -> None:
+        self._host = None
+        self._host_key = None
+
+    @property
+    def host_key(self) -> Any:
+        return self._host_key
 
     def current_state(self) -> SessionState:
         return self.state
@@ -91,8 +110,10 @@ class SpectatorSession:
 
     def advance_frame(self) -> List[Request]:
         """One frame, or `catchup_speed` frames when more than
-        `max_frames_behind` behind the host."""
-        self.poll_remote_clients()
+        `max_frames_behind` behind the host. A hosted session skips the
+        pump: its host drained the socket this tick."""
+        if self._host is None:
+            self.poll_remote_clients()
         if self.state != SessionState.RUNNING:
             raise NotSynchronized()
 

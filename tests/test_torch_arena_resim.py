@@ -5,7 +5,7 @@ The port's `ResimCore(Arena(P, N), ..., device="cpu")` (the plain version
 of K3's arena body: a whole-world reduction before every advance) against
 the reference `ResimCore(Arena, tick_backend="xla")` and
 `"pallas-interpret"` (its single-tile arena tick kernel) over seeded,
-session-shaped multi-row dispatches (`chip_smoke.random_tick_args` with
+session-shaped multi-row dispatches (`ggrs_tpu_torch.device.rowgen.random_tick_args` with
 arena's input range, the throttle byte and DISCONNECTED slots, after a
 row that saves the live world into every slot, so no load finds a
 never-saved, all-dead world), device verification on: every dispatch's
@@ -22,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import prime_row, random_tick_args
 from ggrs_tpu import SessionBuilder as RefSessionBuilder
 from ggrs_tpu.errors import MismatchedChecksum as RefMismatchedChecksum
 from ggrs_tpu.models.arena import Arena as RefArena
@@ -32,6 +31,7 @@ from ggrs_tpu_torch import (
     Arena, DeviceRollbackBackend, KernelError, MismatchedChecksum, ResimCore, SessionBuilder,
 )
 from ggrs_tpu_torch.convert import resim_from_reference, resim_to_reference
+from ggrs_tpu_torch.device.rowgen import prime_row, random_tick_args
 from ggrs_tpu_torch.kernels import build, launch
 
 # (players, entities, max_prediction, input_size); the second carries the

@@ -16,10 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (
-    TICK_STREAMS, VERDICT_STREAMS, megabatch_ticks, p2p_match, p2p_replay,
-    prime_row, random_tick_rows, tick_stream, verdict_stream,
-)
+from chip_smoke import TICK_STREAMS, VERDICT_STREAMS, p2p_match, p2p_replay, tick_stream, verdict_stream
 from ggrs_tpu_torch import (
     Arena, DeviceRollbackBackend, DeviceSyncTestSession, ExGame, KernelError, MultiSessionDeviceCore, SaveGameState,
     SessionBuilder, Swarm,
@@ -33,6 +30,7 @@ from ggrs_tpu_torch.device.reduce_core import STATE as STATE_SLOT
 from ggrs_tpu_torch.device.reduce_core import ReduceTableCore, plain_reduce_table, source_slots
 from ggrs_tpu_torch.device.planes import PlaneContext
 from ggrs_tpu_torch.device.resim import RESIM_KEYS, ResimCore
+from ggrs_tpu_torch.device.rowgen import megabatch_ticks, prime_row, random_tick_rows
 from ggrs_tpu_torch.device.tick_core import arena_tick_plan, plain_megabatch, plain_tick_multi, windowed_row
 from ggrs_tpu_torch.device.tiled_core import TiledSyncTestCore, plain_injected_tick, plain_parts, plain_verdict
 from ggrs_tpu_torch.kernels import build

@@ -19,7 +19,6 @@ serves every test (reset between them)."""
 import numpy as np
 import pytest
 
-from chip_smoke import megabatch_ticks
 from ggrs_tpu.errors import MigrationIncompatible as RefMigrationIncompatible
 from ggrs_tpu.models.arena import Arena as RefArena
 from ggrs_tpu.models.ex_game import ExGame as RefExGame
@@ -29,6 +28,7 @@ from ggrs_tpu_torch import (
     Arena, CheckpointIncompatible, ConfigError, ContractViolation, ExGame, MigrationIncompatible,
     MultiSessionDeviceCore, Swarm,
 )
+from ggrs_tpu_torch.device.rowgen import megabatch_ticks
 from ggrs_tpu_torch.device.tick_core import plain_megabatch
 
 P, N, MP, CAP = 4, 256, 8, 8

@@ -2,7 +2,7 @@
 the CPU) against the reference `ResimCore` with tick_backend "xla" and
 "pallas-interpret": every dispatch's his/los and the ring, state and
 device-verify history leaf for leaf, tolerance zero, over session-shaped
-random control streams (`chip_smoke.random_tick_args`: rollback depths
+random control streams (`ggrs_tpu_torch.device.rowgen.random_tick_args`: rollback depths
 up to max_prediction - 1, dense saves with occasional skipped and trailing
 saves, 15% DISCONNECTED statuses), as 1-row and multi-row dispatches.
 Also the packed row bytes, the carry round trip, and a run continued on
@@ -16,11 +16,11 @@ import jax
 import numpy as np
 import pytest
 
-from chip_smoke import random_tick_args
 from ggrs_tpu.models.ex_game import ExGame as RefExGame
 from ggrs_tpu.tpu.resim import ResimCore as RefResimCore
 from ggrs_tpu_torch import ConfigError, ExGame, ResimCore
 from ggrs_tpu_torch.convert import resim_from_reference, resim_to_reference
+from ggrs_tpu_torch.device.rowgen import random_tick_args
 
 # (players, entities, max_prediction)
 CONFIGS = [(2, 512, 6), (4, 256, 12), (2, 1024, 16)]
@@ -47,7 +47,7 @@ def u32(t):
 
 
 def tick_args(players, max_prediction, n_rows, seed):
-    """The session-shaped stream (chip_smoke.random_tick_args: spin-up, then
+    """The session-shaped stream (rowgen.random_tick_args: spin-up, then
     random rollback depths up to max_prediction - 1, skipped and trailing
     saves, DISCONNECTED slots); it must reach the deepest rollbacks."""
     args = random_tick_args(players, max_prediction, n_rows, seed)

@@ -3,7 +3,7 @@ the reference, tolerance zero; and the no-fallback rule for swarm on a card.
 
 - `ResimCore(Swarm)` (the plain version of K3's swarm body) against the
   reference `ResimCore` with tick_backend "xla" and "pallas-interpret"
-  over seeded session-shaped dispatches (`chip_smoke.random_tick_args`,
+  over seeded session-shaped dispatches (`ggrs_tpu_torch.device.rowgen.random_tick_args`,
   inputs below 128, 15% DISCONNECTED slots), device verification on;
 - the request path: the port's `SyncTestSession` driving
   `DeviceRollbackBackend(Swarm)` against the reference's session driving
@@ -22,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_tick_args
 from ggrs_tpu import SessionBuilder as RefSessionBuilder
 from ggrs_tpu.models.swarm import Swarm as RefSwarm
 from ggrs_tpu.tpu import TpuRollbackBackend
@@ -32,6 +31,7 @@ from ggrs_tpu_torch.convert import resim_from_reference, resim_to_reference, spe
 from ggrs_tpu_torch.device import sync_test
 from ggrs_tpu_torch.device.fused_core import FusedSyncTestCore
 from ggrs_tpu_torch.device.planes import PlaneContext
+from ggrs_tpu_torch.device.rowgen import random_tick_args
 from ggrs_tpu_torch.device.tiled_core import TiledSyncTestCore
 from ggrs_tpu_torch.kernels import build, launch
 from ggrs_tpu_torch.types import InputStatus
